@@ -64,26 +64,38 @@ __device__ T block_sum(T v, T* red) {
   return r;
 }
 
-// Partial c[k] = sum over rows [row0, row1) of Xb[i, k] * r[i] for one
-// (n, B) column block, with a (B, G) thread block: thread (k, g) sums
+// Partial c[k] = sum over rows [row0, row1) of X[i * ld + k] * r[i] for
+// the `width` columns of one column tile whose first column X points to,
+// with a (W, G) thread block, W = blockDim.x >= width: thread (k, g) sums
 // rows g, g + G, ... of column k (neighbouring threads read neighbouring
-// addresses of one row), then the G sums are added in order of g.
-// `red` holds B * G entries of shared memory.
+// addresses of one row), then the G sums are added in order of g.  X's
+// element type TX may be narrower than the accumulator T (a float32
+// design summed in float64).  `red` holds W * G entries of shared memory.
+template <typename TX, typename T>
+__device__ void chunk_dot(const TX* __restrict__ X, int ld, int width,
+                          const T* __restrict__ r, int row0, int row1, T* red,
+                          T* __restrict__ out) {
+  const int k = threadIdx.x, g = threadIdx.y, G = blockDim.y;
+  const int W = blockDim.x;
+  T acc = T(0);
+  if (k < width)
+    for (int i = row0 + g; i < row1; i += G)
+      acc += T(X[(size_t)i * ld + k]) * r[i];
+  red[g * W + k] = acc;
+  __syncthreads();
+  if (g == 0 && k < width) {
+    T s = T(0);
+    for (int q = 0; q < G; ++q) s += red[q * W + k];
+    out[k] = s;
+  }
+}
+
+// The same for one (n, B) column block with a (B, G) thread block.
 template <typename T>
 __device__ void chunk_dot(const T* __restrict__ Xb, const T* __restrict__ r,
                           int row0, int row1, int B, T* red,
                           T* __restrict__ out) {
-  const int k = threadIdx.x, g = threadIdx.y, G = blockDim.y;
-  T acc = T(0);
-  for (int i = row0 + g; i < row1; i += G)
-    acc += Xb[(size_t)i * B + k] * r[i];
-  red[g * B + k] = acc;
-  __syncthreads();
-  if (g == 0) {
-    T s = T(0);
-    for (int q = 0; q < G; ++q) s += red[q * B + k];
-    out[k] = s;
-  }
+  chunk_dot<T, T>(Xb, B, B, r, row0, row1, red, out);
 }
 
 // Threads of the second axis of chunk_dot's thread block (B * G <= 256).

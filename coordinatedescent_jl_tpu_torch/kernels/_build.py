@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds)
-and loaded with ``ctypes``.  The build runs at first use, on the machine
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) that is loaded
+with ``ctypes``.  The build runs at first use, on the machine
 with the GPU, into ``build/kernels/`` at the root of the checkout; the
 library's name carries a hash of the sources, so an edited source is
 rebuilt.  Nothing here runs at import time.
@@ -50,6 +51,9 @@ _SIGNATURES = {
     # c, beta, bound, ubf, candf, adiag, lamw, validf, xwnorm, scal, maxh,
     # active, nb, B, stream
     "cdt_check_b": [_P] * 12 + [_I] * 2 + [_P],
+    # X, r, part, out, nb, n, W, R, stream (both K5 instantiations)
+    "cdt_dense_sweep": [_P] * 4 + [_I] * 4 + [_P],
+    "cdt_grad64": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -84,14 +88,14 @@ def library() -> ctypes.CDLL:
         nvcc = _nvcc()
         tag = f"{out.stem}.{os.getpid()}"
         t0 = time.perf_counter()
-        objs = []
-        for src in sources:
-            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-            _run([nvcc, *COMPILE_FLAGS, *EXTRA_FLAGS.get(src.name, []),
-                  "-I", str(CSRC), "-c", str(src), "-o", str(obj)])
-            objs.append(obj)
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        # one nvcc per source, all started together
+        _run_all([[nvcc, *COMPILE_FLAGS, *EXTRA_FLAGS.get(src.name, []),
+                   "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(sources, objs)])
         tmp = BUILD_DIR / f"{tag}.so"
-        _run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)])
+        _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
         os.replace(tmp, out)
         for obj in objs:
             obj.unlink()
@@ -108,13 +112,22 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _run(cmd):
+def _run_all(cmds):
+    """Run the commands in parallel; raise after all have ended if any
+    failed."""
     global build_log
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log += res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        build_log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def check(err: int, name: str):

@@ -18,8 +18,9 @@ cached), a one-CTA solve that adds the partials in a fixed order, and a
 row-parallel residual update.  It is bounded by the device-memory read of
 each visited block and by the four launches per visit.
 
-``LAUNCHES`` counts wrapper calls that launched the kernels; the plain
-twin never counts.
+``LAUNCHES`` (float32) and ``LAUNCHES_F64`` (float64, the polish's inner
+solve) count wrapper calls that launched the kernels; the plain twin
+never counts.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from . import _build
 from ..utils import host
 
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 _ROW_CHUNK = 256   # rows per partial-sum CTA
 _MAX_B = 128       # widest block the kernels take (K fits shared memory)
 
@@ -70,7 +72,7 @@ def fused_active_pass(prob, beta_b, r, active, lam0, n_scale, border, corder,
 
 def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
                             corder, kind, rsqr, inner, iters):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     req = _build.require
     nb, B = prob.lamw.shape
     n = r.shape[0]
@@ -123,7 +125,10 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
              na, n, B, _ROW_CHUNK, int(inner == "ista"), int(iters),
              int(gram), float(lam0), float(n_scale), _build.stream())
     _build.check(err, "active_pass")
-    LAUNCHES += 1
+    if dt == torch.float64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return beta2, r2, maxh[0], rsqr
 
 

@@ -10,7 +10,7 @@ import torch
 from ..ops.block_cd import coordinate_descent
 from ..ops.losses import LeastSquaresLoss
 from ..ops.prox import ProxL1
-from ..utils.helpers import sample_std
+from ..utils.helpers import on_device, sample_std, target_device
 from ..utils.options import CDOptions
 
 
@@ -25,14 +25,17 @@ class LassoSolution(NamedTuple):
 
 
 def lasso(X, y, lam, weights=None, options: CDOptions = CDOptions(), *,
-          seed: int = 0) -> LassoSolution:
-    """(Weighted) Lasso ``min ‖y−Xβ‖²/(2n) + λ Σ ω_j |β_j|`` on X's device;
-    σ is the sample std of the residuals."""
-    X = torch.as_tensor(X)
-    y = torch.as_tensor(y).to(dtype=X.dtype, device=X.device)
+          seed: int = 0, device=None) -> LassoSolution:
+    """(Weighted) Lasso ``min ‖y−Xβ‖²/(2n) + λ Σ ω_j |β_j|``; σ is the
+    sample std of the residuals.  Runs on ``device`` (``None``: the GPU,
+    raising when there is none; ``"cpu"`` for the plain path on the CPU),
+    where the inputs are moved."""
+    dev = target_device(device)
+    X = on_device(X, dev)
+    y = on_device(y, dev, X.dtype)
     g = ProxL1(float(lam), None if weights is None else
-               torch.as_tensor(weights).to(dtype=X.dtype, device=X.device))
-    beta0 = torch.zeros((X.shape[1],), dtype=X.dtype, device=X.device)
+               on_device(weights, dev, X.dtype))
+    beta0 = torch.zeros((X.shape[1],), dtype=X.dtype, device=dev)
     beta, r = coordinate_descent(beta0, LeastSquaresLoss(y, X), g, options,
-                                 seed=seed)
+                                 seed=seed, device=dev)
     return LassoSolution(beta, r, g, sample_std(r))

@@ -11,7 +11,7 @@ What differs from the JAX engine:
   Python loops and ``lax.cond`` is an ``if`` on a value read from the
   device; every such read goes through ``utils/host.py`` and is counted.
   The reads are: the epoch's ``maxh``; ``n_need`` in each full check
-  (it decides both "any refresh" and the 0.8 dense switch); the coverage
+  (it decides both "any refresh" and the dense switch); the coverage
   decision of each compaction round; ``n_active`` of each active pass.
 - The kernel/plain choice (``_pallas_mode``/``_platform_dispatch`` in the
   JAX engine) is ``utils.options.use_kernels``: the hand-written CUDA
@@ -35,8 +35,8 @@ import torch
 from .losses import LeastSquaresLoss, num_coordinates
 from .prox import ProxL1, as_l1, soft_threshold
 from ..utils import host
+from ..utils.helpers import on_device, target_device
 from ..utils.options import CDOptions, resolve_extrapolate, use_kernels
-
 
 @contextlib.contextmanager
 def full_f32_matmuls():
@@ -288,11 +288,17 @@ def _xla_active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
 # ---------------------------------------------------------------------------
 
 
-def _full_gradient_c(kind, prob: BlockedProblem, r):
-    """Blocked ``c = Xw'r`` for every coordinate at once: one batched
-    product straight off the (nb, n, B) layout (``torch.einsum`` would
-    first copy the whole blocked design into a (n, nb·B) layout)."""
-    return torch.matmul(r, prob.Xwb)
+def _full_gradient_c(kind, prob: BlockedProblem, r, kernels: bool):
+    """Blocked ``c = Xw'r`` for every coordinate at once: the dense sweep
+    kernel K5 (``kernels/gradient_sweep.py``) when the kernels are on, else
+    its plain twin, one batched product straight off the (nb, n, B)
+    layout."""
+    from ..kernels.gradient_sweep import (fused_gradient_sweep,
+                                          fused_gradient_sweep_plain)
+
+    if kernels:
+        return fused_gradient_sweep(prob.Xwb, r)
+    return fused_gradient_sweep_plain(prob.Xwb, r)
 
 
 def _blocks_matvec(Xb, beta_b):
@@ -395,14 +401,16 @@ def _stale_certified(kind, prob: BlockedProblem, st: CDState, rsqr, lam0,
 
 def _refresh_c(kind, prob: BlockedProblem, st: CDState, need, n_need: int,
                kernels: bool):
-    """Refresh the cached gradient for the ``need`` blocks.  The dense
-    product when the kernels are off or more than 80% of blocks refresh;
-    otherwise the restricted sweep kernel, which reads only the needed
-    blocks."""
+    """Refresh the cached gradient for the ``need`` blocks.  The dense sweep
+    (K5, or its plain twin when the kernels are off) when the kernels are
+    off or every block refreshes; otherwise the restricted sweep kernel
+    (K2), which reads only the needed blocks.  The JAX package switches
+    above 0.8 of the blocks; on the H100 K2 stays below the dense branch
+    up to every block, where the two tie (PERF.md, the K2/K5 crossover)."""
     nb = prob.lamw.shape[0]
-    if not kernels or n_need / nb > 0.8:
-        return torch.where(need[:, None], _full_gradient_c(kind, prob, st.r),
-                           st.c)
+    if not kernels or n_need == nb:
+        return torch.where(need[:, None],
+                           _full_gradient_c(kind, prob, st.r, kernels), st.c)
     from ..kernels.gradient_sweep import restricted_gradient_sweep
 
     return restricted_gradient_sweep(prob.Xwb, st.r, need, st.c,
@@ -725,9 +733,10 @@ def _init_state(kind, prob: BlockedProblem, beta_b, key) -> CDState:
                                     device=beta_b.device))
 
 
-def _lambda_max(kind, prob: BlockedProblem, st: CDState, n_scale):
+def _lambda_max(kind, prob: BlockedProblem, st: CDState, n_scale,
+                kernels: bool):
     """Smallest λ0 zeroing the solution: ``max_k |X_k'r|/(n·λw_k)``."""
-    c = _full_gradient_c(kind, prob, st.r)
+    c = _full_gradient_c(kind, prob, st.r, kernels)
     t = torch.where(prob.valid, torch.abs(c) / n_scale / prob.lamw,
                     torch.zeros_like(c))
     return torch.max(t)
@@ -745,7 +754,8 @@ def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
 
     st = _init_state(kind, prob, torch.zeros_like(beta0_b), key)
     npdt = _np_dtype(dtype)
-    lammax = npdt.type(host.item(_lambda_max(kind, prob, st, n_scale)))
+    lammax = npdt.type(host.item(_lambda_max(
+        kind, prob, st, n_scale, use_kernels(opts, st.beta))))
     # log-spaced schedule, num_steps + 1 points inclusive, in dtype
     lams = np.exp(np.linspace(np.log(lammax), np.log(npdt.type(lam0)),
                               opts.num_steps + 1).astype(npdt)).tolist()
@@ -780,11 +790,13 @@ def _to_blocked_beta(beta0, B):
 
 
 def coordinate_descent(beta0, loss, penalty, options: CDOptions = CDOptions(),
-                       *, seed: int = 0, key=None):
+                       *, seed: int = 0, key=None, device=None):
     """Minimize ``‖y − Xβ‖²/(2n) + Σ_j λ0 λw_j |β_j|``; returns
     ``(beta, residuals)``.  Only ``LeastSquaresLoss`` with a ``ProxL1``
     penalty is ported; ``key`` is an optional ``torch.Generator`` for the
-    randomized visit orders (default: one seeded with ``seed``)."""
+    randomized visit orders (default: one seeded with ``seed``).  Runs on
+    ``device`` (``None``: the GPU; ``"cpu"`` for the plain path on the
+    CPU), where the inputs are moved."""
     if not isinstance(loss, LeastSquaresLoss):
         raise NotImplementedError(
             f"{type(loss).__name__} is not ported yet (least squares only)")
@@ -794,13 +806,15 @@ def coordinate_descent(beta0, loss, penalty, options: CDOptions = CDOptions(),
     p = beta0.shape[0]
     if num_coordinates(loss) != p:
         raise ValueError("dimension mismatch between beta0 and loss")
-    X = loss.X
-    lam0, lamw = as_l1(penalty, p, X.dtype, X.device)
+    dev = target_device(device)
+    X = on_device(loss.X, dev)
+    y = on_device(loss.y, dev, X.dtype)
+    lam0, lamw = as_l1(penalty, p, X.dtype, dev)
     if key is None:
         key = torch.Generator().manual_seed(seed)
-    beta0 = beta0.to(dtype=X.dtype, device=X.device)
+    beta0 = on_device(beta0, dev, X.dtype)
     with full_f32_matmuls():
-        prob = build_blocked("ls", options, lamw, X=X, y=loss.y)
+        prob = build_blocked("ls", options, lamw, X=X, y=y)
         st = solve_blocked("ls", options, prob, lam0,
                            _to_blocked_beta(beta0, options.block_size), key)
     return _unblock(st.beta, p), st.r

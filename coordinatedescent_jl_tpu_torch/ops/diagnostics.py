@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# columns per f64 chunk in lasso_duality_gap_f64: bounds the f64 copy of X
-# to n·8192·8 bytes (655 MB at n = 10K) instead of a whole f64 X
-_F64_COLS = 8192
+from ..kernels.gradient_sweep import _F64_COLS
+from .compensated import fenchel_gap_f64, grad_f64, host_f64
+from ..utils.helpers import on_device, target_device
 
 
 def lasso_duality_gap(X, y, beta, lam0, weights=None):
@@ -34,33 +34,29 @@ def lasso_duality_gap(X, y, beta, lam0, weights=None):
     return primal - dual
 
 
-def lasso_duality_gap_f64(X, y, beta, lam0, weights=None):
+def lasso_duality_gap_f64(X, y, beta, lam0, weights=None, *, device=None):
     """Float64 duality gap ``(gap, primal)`` as Python floats.
 
-    The two O(n·p) contractions ``r = y − Xβ`` and ``g = X'r`` run on X's
-    device with float64 accumulation (X is widened a column chunk at a
-    time), so the certificate is not limited by the float32 rounding of
-    the solver's own dot products; the O(n + p) tail runs in float64 on
-    the host."""
+    The two O(n·p) contractions ``r = y − Xβ`` and ``g = X'r`` run on
+    ``device`` (``None``: the GPU, raising when there is none; ``"cpu"``
+    for the CPU) with float64 accumulation — ``r`` with X widened a column
+    chunk at a time, ``g`` through ``ops/compensated.py::grad_f64`` (the
+    dense sweep kernel K5 on the card) — so the certificate is not limited
+    by the float32 rounding of the solver's own dot products; the O(n + p)
+    tail runs in float64 on the host."""
+    dev = target_device(device)
+    X = on_device(X, dev)
+    y = on_device(y, dev)
     n, p = X.shape
-    dev = X.device
-    b64 = beta.to(device=dev, dtype=torch.float64)
+    b64 = on_device(beta, dev, torch.float64)
     r = y.to(torch.float64).clone()
     for j in range(0, p, _F64_COLS):
         r -= X[:, j:j + _F64_COLS].to(torch.float64) @ b64[j:j + _F64_COLS]
-    g = torch.cat([r @ X[:, j:j + _F64_COLS].to(torch.float64)
-                   for j in range(0, p, _F64_COLS)])
-    r = r.cpu().numpy()
-    g = g.cpu().numpy()
-    bn = b64.cpu().numpy()
-    yn = y.to(torch.float64).cpu().numpy()
-    w = (np.ones_like(bn) if weights is None
-         else torch.as_tensor(weights).to(torch.float64).cpu().numpy())
-    ratio = np.max(np.abs(g) / (n * float(lam0) * w))
-    theta = r * min(1.0, 1.0 / max(ratio, 1e-300))
-    primal = r @ r / (2 * n) + float(lam0) * np.sum(w * np.abs(bn))
-    dual = (yn @ yn - (yn - theta) @ (yn - theta)) / (2 * n)
-    return float(primal - dual), float(primal)
+    g = grad_f64(X.contiguous(), r)
+    bn = host_f64(b64)
+    w = np.ones_like(bn) if weights is None else host_f64(weights)
+    return fenchel_gap_f64(host_f64(r), host_f64(g), bn, lam0, w, n,
+                           host_f64(y))
 
 
 def lasso_kkt_residual(X, y, beta, lam0, weights=None):

@@ -1,8 +1,28 @@
-"""Numeric helpers (counterpart of ``coordinatedescent_jl_tpu/utils/helpers.py``)."""
+"""Numeric helpers (counterpart of ``coordinatedescent_jl_tpu/utils/helpers.py``)
+and the entry points' device rule."""
 
 from __future__ import annotations
 
 import torch
+
+
+def target_device(device=None) -> torch.device:
+    """The device an entry point runs on.  ``None`` means ``"cuda"``: the
+    port runs on the GPU unless the caller asks for the CPU.  Raises a
+    ``RuntimeError`` when CUDA is asked for and no CUDA device is usable;
+    it never runs on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no usable CUDA device: the port runs on the GPU by default; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    return dev
+
+
+def on_device(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """``x`` (numpy array, tensor, list or scalar) as a tensor on
+    ``device``, optionally cast to ``dtype``."""
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
 def std_X(X, w=None):

@@ -27,3 +27,9 @@ def tolist(t):
     """``t.tolist()``, counted as one host read."""
     COUNTS["host_reads"] += 1
     return t.tolist()
+
+
+def numpy(t):
+    """``t`` as a numpy array on the host, counted as one host read."""
+    COUNTS["host_reads"] += 1
+    return t.detach().cpu().numpy()

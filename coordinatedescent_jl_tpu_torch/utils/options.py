@@ -19,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import torch
+
 
 @dataclass(frozen=True)
 class CDOptions:
@@ -57,6 +59,21 @@ def resolve_extrapolate(options: CDOptions, consumer_default: bool) -> bool:
     λ-continuation, off for dense λ paths, as in the JAX package)."""
     return (consumer_default if options.extrapolate is None
             else options.extrapolate)
+
+
+def auto_batch_lanes(dtype, device, n_points: int | None = None,
+                     min_points: int = 0) -> int:
+    """Auto-default of the batched certify/refine execution (counterpart of
+    the JAX package's ``auto_batch_lanes``): 128 lanes iff the dtype is
+    narrower than float64, the tensors live on a CUDA device (the JAX
+    package keys on a non-CPU backend: on a CPU the batched trade — more
+    FLOPs for a shorter serial chain — loses) and the schedule has at
+    least ``min_points`` entries; 0 (the sequential scan) otherwise."""
+    if dtype.itemsize >= 8 or torch.device(device).type != "cuda":
+        return 0
+    if n_points is not None and n_points < min_points:
+        return 0
+    return 128
 
 
 def use_kernels(options: CDOptions, t) -> bool:

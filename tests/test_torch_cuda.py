@@ -15,7 +15,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from coordinatedescent_jl_tpu_torch import CDOptions, lasso  # noqa: E402
+from coordinatedescent_jl_tpu_torch import (  # noqa: E402
+    CDOptions, lasso, lasso_duality_gap_compensated, lasso_path,
+    polish_lasso)
 from coordinatedescent_jl_tpu_torch.kernels import (  # noqa: E402
     active_pass, check, gradient_sweep)
 from coordinatedescent_jl_tpu_torch.ops import block_cd  # noqa: E402
@@ -64,10 +66,11 @@ def test_active_pass_kernel_matches_twin(dev, dtype, gram, inner, B):
     nb = prob.lamw.shape[0]
     args = (prob, st.beta, st.r, st.active, 0.05, 1000.0,
             torch.arange(nb, device=dev), torch.arange(B, device=dev))
-    n0 = active_pass.LAUNCHES
+    counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    n0 = getattr(active_pass, counter)
     bk, rk, mk, _ = active_pass.fused_active_pass(*args, inner=inner)
     torch.cuda.synchronize()
-    assert active_pass.LAUNCHES == n0 + 1
+    assert getattr(active_pass, counter) == n0 + 1
     bp, rp, mp, _ = active_pass.fused_active_pass_plain(*args, inner=inner)
     tol = TOL[dtype]
     torch.testing.assert_close(bk, bp, atol=tol, rtol=0)
@@ -94,7 +97,7 @@ def test_gradient_sweep_kernel_matches_twin(dev, dtype):
 def test_check_kernels_match_twins(dev, screen):
     prob, st = _problem(dev, torch.float32)
     nb = prob.lamw.shape[0]
-    c = block_cd._full_gradient_c("ls", prob, st.r)
+    c = block_cd._full_gradient_c("ls", prob, st.r, kernels=False)
     drift = torch.where(torch.arange(nb, device=dev) % 2 == 0,
                         torch.full((nb,), 1e-3, device=dev),
                         torch.zeros(nb, device=dev))
@@ -132,3 +135,97 @@ def test_lasso_kernels_match_plain_path(dev):
     assert check.LAUNCHES_A > counts[2]
     sp = lasso(X, y, 0.1, options=opts.replace(use_pallas=False))
     torch.testing.assert_close(sk.x, sp.x, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [128, 48])
+def test_dense_sweep_kernel_matches_twin(dev, dtype, B):
+    """K5 on the blocked layout: every block, a ragged row tail."""
+    prob, st = _problem(dev, dtype, B=B)
+    n0 = gradient_sweep.LAUNCHES_DENSE
+    ck = gradient_sweep.fused_gradient_sweep(prob.Xwb, st.r)
+    torch.cuda.synchronize()
+    assert gradient_sweep.LAUNCHES_DENSE == n0 + 1
+    cp = gradient_sweep.fused_gradient_sweep_plain(prob.Xwb, st.r)
+    torch.testing.assert_close(ck, cp, atol=100 * TOL[dtype], rtol=0)
+    # the engine's dense refresh launches it with the kernels on
+    block_cd._full_gradient_c("ls", prob, st.r, kernels=True)
+    assert gradient_sweep.LAUNCHES_DENSE == n0 + 2
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [700, 100])
+def test_grad_f64_kernel_matches_twin(dev, xdtype, p):
+    """K5's f64-accumulating instantiation on the dense (n, p) design: a
+    ragged last column tile (p = 700) and a design narrower than one tile
+    (p = 100)."""
+    rng = np.random.default_rng(2)
+    X = torch.as_tensor(rng.standard_normal((1000, p)), dtype=xdtype,
+                        device=dev)
+    r = torch.as_tensor(rng.standard_normal(1000), dtype=torch.float64,
+                        device=dev)
+    n0 = gradient_sweep.LAUNCHES_F64
+    gk = gradient_sweep.grad_f64(X, r)
+    torch.cuda.synchronize()
+    assert gradient_sweep.LAUNCHES_F64 == n0 + 1 and gk.dtype == torch.float64
+    gp = gradient_sweep.grad_f64_plain(X, r)
+    torch.testing.assert_close(gk, gp, atol=1e-10 * float(gp.abs().max()),
+                               rtol=0)
+
+
+def _path_problem(dev, n=400, p=3000, s=12, seed=5):
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.standard_normal((n, p)), dtype=torch.float32,
+                        device=dev)
+    beta = np.zeros(p)
+    beta[rng.choice(p, s, replace=False)] = 1.0 + rng.random(s)
+    y = X @ torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    y = y + 0.1 * torch.as_tensor(rng.standard_normal(n),
+                                  dtype=torch.float32, device=dev)
+    lam_max = float(torch.max(torch.abs(y @ X)) / n)
+    return X, y, lam_max
+
+
+def test_batched_path_kernels_match_scan(dev):
+    """The batched path (f32, kernels) certifies without falling back and
+    agrees with the scan and with its own plain run in support."""
+    import warnings
+
+    X, y, lam_max = _path_problem(dev)
+    lams = lam_max * np.geomspace(0.5, 0.05, 20)
+    opts = CDOptions(opt_tol=1e-6, randomize=False, compact_size=256)
+    n0 = gradient_sweep.LAUNCHES_DENSE
+    st = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        pb = lasso_path(X, y, lams, options=opts, standardize_X=False,
+                        path_batch=128, stats=st)
+        pp = lasso_path(X, y, lams, options=opts.replace(use_pallas=False),
+                        standardize_X=False, path_batch=128)
+    assert st["used_batched"] and st["batched_certified"]
+    assert gradient_sweep.LAUNCHES_DENSE > n0
+    ps = lasso_path(X, y, lams, options=opts, standardize_X=False,
+                    path_batch=0)
+    for other in (ps.beta_path, pp.beta_path):
+        a, b = pb.beta_path, other
+        differ = ((a != 0) != (b != 0)) & (torch.maximum(a.abs(), b.abs())
+                                          > 1e-4)
+        assert int(differ.sum()) == 0
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_polish_kernels_reach_target_gap(dev):
+    """lasso (kernels) then polish_lasso: K1 (f64 exact inner) and K5's f64
+    instantiation launch, and the polished gap is <= 1e-7."""
+    X, y, lam_max = _path_problem(dev, seed=6)
+    lam = 0.05 * lam_max
+    sol = lasso(X, y, lam, options=CDOptions(opt_tol=1e-6))
+    n1, n5 = active_pass.LAUNCHES_F64, gradient_sweep.LAUNCHES_F64
+    res = polish_lasso(X, y, sol.x, lam)
+    assert res.converged and res.rel_gap <= 1e-7
+    assert active_pass.LAUNCHES_F64 > n1 and gradient_sweep.LAUNCHES_F64 > n5
+    gap, primal = lasso_duality_gap_compensated(X, y, res.beta, lam)
+    assert gap / primal <= 1.1e-7
+    gp, pp = lasso_duality_gap_compensated(X.cpu(), y.cpu(), res.beta.cpu(),
+                                           lam, device="cpu")
+    assert abs(gap - gp) <= 1e-9 * abs(gp) + 1e-15 * pp

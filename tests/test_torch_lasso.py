@@ -42,7 +42,7 @@ def _both_lasso(X, y, lam, opts, weights=None):
     st = tcd.lasso(torch.as_tensor(X), torch.as_tensor(y), lam,
                    options=options_from_jax(opts),
                    weights=None if weights is None else
-                   torch.as_tensor(weights))
+                   torch.as_tensor(weights), device="cpu")
     return np.asarray(sj.x), st
 
 
@@ -89,7 +89,7 @@ def test_lasso_path_f64_matches_jax(standardize, extrapolate):
                        standardize_X=standardize, path_batch=0)
     pt = tcd.lasso_path(torch.as_tensor(X), torch.as_tensor(y), lams,
                         options=options_from_jax(opts),
-                        standardize_X=standardize)
+                        standardize_X=standardize, device="cpu")
     np.testing.assert_allclose(pt.beta_path.numpy(),
                                np.asarray(pj.beta_path), atol=1e-10)
     np.testing.assert_allclose(pt.lam_path.numpy(), np.asarray(pj.lam_path))
@@ -102,7 +102,8 @@ def test_lasso_path_max_hat_s_truncates_like_jax():
     pj = cd.lasso_path(jnp.asarray(X), jnp.asarray(y), lams, options=opts,
                        max_hat_s=5, path_batch=0)
     pt = tcd.lasso_path(torch.as_tensor(X), torch.as_tensor(y), lams,
-                        options=options_from_jax(opts), max_hat_s=5)
+                        options=options_from_jax(opts), max_hat_s=5,
+                        device="cpu")
     assert pt.beta_path.shape == tuple(pj.beta_path.shape)
     assert pt.beta_path.shape[0] < len(lams)
     np.testing.assert_allclose(pt.beta_path.numpy(),
@@ -123,7 +124,7 @@ def test_lasso_path_f32_matches_jax_plain():
     pj = cd.lasso_path(jnp.asarray(X), jnp.asarray(y), lams, options=opts,
                        path_batch=0)
     pt = tcd.lasso_path(torch.as_tensor(X), torch.as_tensor(y), lams,
-                        options=options_from_jax(opts))
+                        options=options_from_jax(opts), device="cpu")
     np.testing.assert_allclose(pt.beta_path.numpy(),
                                np.asarray(pj.beta_path), atol=5e-6)
 
@@ -136,7 +137,7 @@ def test_coordinate_descent_matches_jax():
     bt, rt = tcd.coordinate_descent(
         torch.zeros(50, dtype=torch.float64),
         tcd.LeastSquaresLoss(torch.as_tensor(y), torch.as_tensor(X)),
-        tcd.ProxL1(0.1), options_from_jax(opts))
+        tcd.ProxL1(0.1), options_from_jax(opts), device="cpu")
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-10)
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-10)
 
@@ -158,7 +159,7 @@ def test_duality_gap_and_kkt_match_jax():
         np.testing.assert_allclose(float(kt), float(kj), rtol=1e-12)
         g64j = cd.lasso_duality_gap_f64(jnp.asarray(X), jnp.asarray(y),
                                         jnp.asarray(beta), 0.1, weights)
-        g64t = tcd.lasso_duality_gap_f64(Xt, yt, bt, 0.1, tw)
+        g64t = tcd.lasso_duality_gap_f64(Xt, yt, bt, 0.1, tw, device="cpu")
         np.testing.assert_allclose(g64t, g64j, rtol=1e-12)
 
 
@@ -168,9 +169,11 @@ def test_solution_gap_is_small():
     X, y = _gen(150, 400, 8, 9)
     st = tcd.lasso(torch.as_tensor(X), torch.as_tensor(y), 0.1,
                    options=tcd.CDOptions(block_size=16, randomize=False,
-                                         compact=True, compact_size=64))
+                                         compact=True, compact_size=64),
+                   device="cpu")
     gap, primal = tcd.lasso_duality_gap_f64(torch.as_tensor(X),
-                                            torch.as_tensor(y), st.x, 0.1)
+                                            torch.as_tensor(y), st.x, 0.1,
+                                            device="cpu")
     assert 0 <= gap / primal < 1e-6
 
 
@@ -185,14 +188,45 @@ def test_randomized_visit_orders_converge():
 
 
 def test_path_batch_and_other_losses_raise():
+    """Bad batched-path arguments and unported losses raise."""
     X, y = map(torch.as_tensor, _gen(30, 40, 3, 0))
-    with pytest.raises(NotImplementedError):
-        tcd.lasso_path(X, y, [0.5, 0.1], path_batch=8)
     with pytest.raises(ValueError):
-        tcd.lasso_path(X, y, [0.5, 0.1], path_batch=-1)
+        tcd.lasso_path(X, y, [0.5, 0.1], path_batch=-1, device="cpu")
+    with pytest.raises(ValueError):
+        tcd.lasso_path(X, y, [0.5, 0.1], path_batch=8, coarse_stride=0,
+                       device="cpu")
 
     class _Other:
         X = torch.zeros(3, 2)
 
     with pytest.raises(NotImplementedError):
         tcd.coordinate_descent(torch.zeros(2), _Other(), tcd.ProxL1(0.1))
+
+
+def test_entry_points_run_on_cuda_unless_cpu_is_asked(monkeypatch):
+    """The device rule: without a usable CUDA device every entry point
+    raises (pointing at ``device="cpu"``) instead of running on the CPU
+    unasked; with ``device="cpu"`` it runs there, on numpy inputs too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X, y = _gen(40, 30, 3, 11)
+    beta = np.zeros(30)
+    calls = {
+        "lasso": lambda **kw: tcd.lasso(X, y, 0.1, **kw),
+        "lasso_path": lambda **kw: tcd.lasso_path(X, y, [0.5, 0.2], **kw),
+        "coordinate_descent": lambda **kw: tcd.coordinate_descent(
+            torch.zeros(30, dtype=torch.float64), tcd.LeastSquaresLoss(
+                torch.as_tensor(y), torch.as_tensor(X)), tcd.ProxL1(0.1),
+            **kw),
+        "polish_lasso": lambda **kw: tcd.polish_lasso(X, y, beta, 0.1, **kw),
+        "lasso_duality_gap_compensated":
+            lambda **kw: tcd.lasso_duality_gap_compensated(X, y, beta, 0.1,
+                                                           **kw),
+        "lasso_duality_gap_f64": lambda **kw: tcd.lasso_duality_gap_f64(
+            X, y, beta, 0.1, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    sol = tcd.lasso(X, y, 0.1, device="cpu")
+    assert sol.x.device.type == "cpu" and sol.x.dtype == torch.float64

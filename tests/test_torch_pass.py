@@ -192,7 +192,8 @@ def test_use_pallas_true_on_cpu_raises():
     X = torch.randn(20, 40, dtype=torch.float64)
     with pytest.raises(ValueError):
         lasso(X, torch.randn(20, dtype=torch.float64), 0.1,
-              options=CDOptions(block_size=16, use_pallas=True))
+              options=CDOptions(block_size=16, use_pallas=True),
+              device="cpu")
 
 
 def test_import_leaves_jax_out():
@@ -200,7 +201,11 @@ def test_import_leaves_jax_out():
             "coordinatedescent_jl_tpu_torch.kernels.check, "
             "coordinatedescent_jl_tpu_torch.kernels.active_pass, "
             "coordinatedescent_jl_tpu_torch.kernels.gradient_sweep, "
-            "coordinatedescent_jl_tpu_torch.utils.convert; "
+            "coordinatedescent_jl_tpu_torch.utils.convert, "
+            "coordinatedescent_jl_tpu_torch.ops.batched_certify, "
+            "coordinatedescent_jl_tpu_torch.ops.compensated, "
+            "coordinatedescent_jl_tpu_torch.models.polish, "
+            "coordinatedescent_jl_tpu_torch.profile_paths; "
             "assert 'jax' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -72,7 +72,7 @@ def test_dense_products_do_not_copy_the_design():
     prob = tbcd.BlockedProblem(Xb=Xb, Xwb=Xb, y=r, q=None, adiag=None,
                                lamw=None, valid=None, xwnorm=None)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        c = tbcd._full_gradient_c("ls", prob, r)
+        c = tbcd._full_gradient_c("ls", prob, r, kernels=False)
         xb = tbcd._blocks_matvec(Xb, beta)
     names = {e.key for e in prof.key_averages()}
     assert not names & {"aten::clone", "aten::copy_", "aten::contiguous"}
@@ -84,10 +84,11 @@ def test_dense_products_do_not_copy_the_design():
         atol=1e-12)
 
 
-@pytest.mark.parametrize("frac", [0.3, 0.9])
+@pytest.mark.parametrize("frac", [0.3, 0.9, 1.0])
 def test_refresh_c_matches_jax(frac):
-    """Both sides of the 0.8 switch (restricted sweep below, dense product
-    above) give the JAX refresh."""
+    """Both sides of the engine's dense switch (the restricted sweep below
+    every block, the dense sweep at every block) and of the JAX package's
+    0.8 switch give the JAX refresh."""
     prob, r, c_prev, _ = _setup(np.float64, seed=7)
     nb = prob.lamw.shape[0]
     need = np.arange(nb) < int(round(frac * nb))
@@ -100,3 +101,28 @@ def test_refresh_c_matches_jax(frac):
     out = tbcd._refresh_c("ls", tprob, tst, torch.as_tensor(need),
                           int(need.sum()), True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_dense_sweep_twin_matches_jax(dtype):
+    """K5's plain twin against JAX ``fused_gradient_sweep`` in Pallas
+    interpret mode (n = 100, not a multiple of its row chunk; B = 16):
+    f64 rtol 1e-12, f32 rtol 1e-5 (plus that much of max|c| for entries
+    that cancel)."""
+    prob, r, _, _ = _setup(dtype)
+    ref = np.asarray(jpb.fused_gradient_sweep(prob.Xwb, jnp.asarray(r),
+                                              interpret=True))
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    tprob = convert.problem_from_jax(prob, dtype=tdt)
+    rt = torch.as_tensor(r)
+    out = tgs.fused_gradient_sweep_plain(tprob.Xwb, rt)
+    rtol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(out.numpy(), ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+    # the wrapper takes the twin for CPU tensors, and so does the engine's
+    # dense refresh with the kernels on
+    np.testing.assert_array_equal(
+        tgs.fused_gradient_sweep(tprob.Xwb, rt).numpy(), out.numpy())
+    np.testing.assert_array_equal(
+        tbcd._full_gradient_c("ls", tprob, rt, kernels=True).numpy(),
+        out.numpy())
