@@ -12,9 +12,12 @@ Phases, each failing loudly (exit code 1, no result line):
    inputs, at the main paths' shapes (n = 10,000, p = 100,000, B = 128),
    with the tolerance stated beside each comparison, the kernel's, the
    twin's and (where one exists) the library call's times, and the
-   kernel's bound: K1 in float32 on the scan's working set and the full
-   problem, and in float64 on the polish's inner-solve blocks; then the
-   K2/K5 crossover of the gradient refresh;
+   kernel's bound: K1 in float32 on the scan's working set (8 active
+   blocks, and 1) and the full problem, and in float64 on the polish's
+   inner-solve blocks, with a check that one K1 call launches one device
+   kernel and reads nothing to the host; K5 on the working set's 8 blocks
+   and on the full design; then the K2/K5 crossover of the gradient
+   refresh;
 4. the main paths on the bench problem (dense Gaussian X, n = 10,000,
    p = 100,000, scattered s = 100 support, f32), each run with the launch
    counts set to 0 just before it and read just after:
@@ -218,6 +221,50 @@ def main():
                err, 1e-4, ms, pms, f"8 blocks, Gram on, {inner}; r err "
                f"{errr:.2e}", k1_bytes, k1_flops)
         ok = ok and errr <= 1e-3
+    # one active block of the 8, as most of the scan's passes visit
+    act1 = border8 == 3
+    args = (ws, st.beta, st.r, act1, lam0, float(n), border8, corder)
+    kw = dict(kind="ls", inner="ista", iters=16, rsqr=st.rsqr)
+    bk, rk, mk, _ = active_pass.fused_active_pass(*args, **kw)
+    bp, rp, mp, _ = active_pass.fused_active_pass_plain(*args, **kw)
+    err = max(maxdiff(bk, bp), maxdiff(mk, mp))
+    errr = maxdiff(rk, rp)
+    ms = cuda_ms(lambda: active_pass.fused_active_pass(*args, **kw), 20)
+    pms = cuda_ms(lambda: active_pass.fused_active_pass_plain(*args, **kw), 10)
+    report(None, "K1 fused_active_pass", err, 1e-4, ms, pms,
+           f"1 of 8 blocks, Gram on, ista; r err {errr:.2e}",
+           f4 * (n * B + B * B + 8 * B + 2 * 8 * B + 2 * n),
+           4 * n * B + 16 * 2 * B * B)
+    ok = ok and errr <= 1e-3
+    # one call on the card: no host read, one device kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    host.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        active_pass.fused_active_pass(ws, st.beta, st.r, act8, lam0, float(n),
+                                      border8, corder, **kw)
+        torch.cuda.synchronize()
+    k1_kernels = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"K1 one call: host reads {host.COUNTS['host_reads']}, device "
+        f"kernels {len(k1_kernels)} {sorted(set(k1_kernels))}")
+    if host.COUNTS["host_reads"] or len(k1_kernels) != 1:
+        fail("fused_active_pass must launch one kernel and read nothing to "
+             "the host")
+
+    # K5 on the working set's (8, n, 128) refresh: the planner splits the
+    # rows of its 8 column tiles; same tolerance as the full sweep below
+    ck = gs.fused_gradient_sweep(ws.Xwb, st.r)
+    cp = gs.fused_gradient_sweep_plain(ws.Xwb, st.r)
+    plan = gs.plan_dense_sweep(8, n, B, _build.sm_count(dev))
+    ms = cuda_ms(lambda: gs.fused_gradient_sweep(ws.Xwb, st.r), 50)
+    pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(ws.Xwb, st.r), 50)
+    lms = cuda_ms(lambda: torch.matmul(st.r, ws.Xwb), 50)
+    report(None, "K5 fused_gradient_sweep", maxdiff(ck, cp),
+           1e-5 * float(cp.abs().max()), ms, pms,
+           f"8-block working set, split {plan.split} x {plan.rows} rows",
+           f4 * (8 * n * B + n + 8 * B), 2 * 8 * n * B, library_ms=lms)
     del ws, st
 
     # K1, float64 with the exact inner and cached Grams: the polish's inner
@@ -306,8 +353,10 @@ def main():
     ms = cuda_ms(lambda: gs.fused_gradient_sweep(full.Xwb, st.r), 10)
     pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(full.Xwb, st.r), 10)
     lms = cuda_ms(lambda: torch.matmul(st.r, full.Xwb), 10)
+    split = gs.plan_dense_sweep(nb_full, n, B, _build.sm_count(dev)).split
     report("K5", "K5 fused_gradient_sweep", err, tol, ms, pms,
-           f"all {nb_full} blocks", f4 * (nb_full * n * B + n + nb_full * B),
+           f"all {nb_full} blocks, split {split}",
+           f4 * (nb_full * n * B + n + nb_full * B),
            2 * nb_full * n * B, library_ms=lms)
 
     # K2/K5 crossover of the gradient refresh (_refresh_c): the restricted

@@ -1,285 +1,695 @@
 // Fused active pass (K1): one active-set block-CD pass over the visit order,
-// least-squares kind, float and double.
+// least-squares kind, float and double, in one cooperative kernel launch.
 //
 // Replaces coordinatedescent_jl_tpu/ops/pallas_block.py:fused_active_pass
 // (its kernels _make_chunked_kernel and _make_resident_kernel).  On the TPU
-// the grid steps run in order on one core, and beta and r stay resident in
-// VMEM for the whole pass: visit t+1 reads the r that visit t wrote.  CUDA
-// blocks run in no order, so the order lives on the host instead: for each
-// visit t < n_active this file launches, on one stream,
-//   (a) chunk partials over row chunks of R rows: c = Xw_b' r, and, when no
-//       cached Gram is given, K = Xw_b' X_b;
-//   (b) a one-CTA solve that adds the partials in a fixed order (no atomics,
-//       so the result is deterministic), holds K (B x B) in shared memory
-//       and runs FISTA with a Gershgorin step (inner = ista) or the exact
-//       Gauss-Seidel scan through the Gram recursion (inner = exact), then
-//       writes beta_b, d = beta1 - beta0 and the running max|d|;
-//   (c) the residual update r -= X_b d over rows, one warp per row.
-// Each launch reads order[t] on the device.
+// the grid steps run in order on one core, with n_active and the order
+// brought in by scalar prefetch, and beta and r stay resident in VMEM for
+// the whole pass: visit t+1 reads the r that visit t wrote.  Here one
+// co-resident grid of G CTAs (cudaLaunchCooperativeKernel, G from
+// kernels/active_pass.py::plan_active_pass) runs the whole pass:
+//   - the visit order is found on the device: every CTA walks `border` and
+//     takes the next block whose `active` flag is set (a warp ballot over
+//     32 entries at a time, during the previous visit's residual update),
+//     so the host reads nothing, and with no active block the kernel only
+//     writes its outputs;
+//   - CTA g owns rows [g R, g R + R) of r for the whole pass, in shared
+//     memory when the plan keeps them (else in its rows of r_out), and
+//     writes them to r_out at the end: the counterpart of the TPU kernel's
+//     VMEM retention (pallas_block.py:12-20, _retention_fits);
+//   - per visit each CTA reads its rows of X_b once with 16-byte loads,
+//     keeping them in shared memory when they fit (the plan's keep_x; else
+//     the residual update reads them again, from L2), writes its B partial
+//     sums of c = X_b' r (double-buffered by visit parity, so visit t+1
+//     cannot overwrite what a slow CTA still reads for visit t) and, with
+//     no cached Gram, its partial Gram over its rows; then a grid barrier
+//     (cooperative groups' grid.sync()); without a Gram the CTAs next add
+//     the G partial Grams, each a slice of the entries in CTA order, and
+//     meet at a second barrier;
+//   - every CTA then solves the block redundantly: the same partials added
+//     in the same order, the same Gram (from L2: the working set's 8 Grams
+//     are 512 KB) and the same code give every CTA a bit-identical d, so
+//     one barrier per visit suffices and no CTA waits for a published d;
+//     FISTA with a Gershgorin step (inner = ista): a warp owns 8
+//     coordinates and holds their Gram columns in registers for the whole
+//     solve (read once from L2), each lane 4 rows; a step reads the
+//     extrapolated point once per warp (one 16-byte load a lane, distinct
+//     addresses), and the lanes' partial sums meet in a fixed-order
+//     reduce-scatter of shuffles, one __syncthreads per step.  (With the
+//     columns in shared memory, each step re-read B^2 Gram entries and
+//     each lane a quarter of the point: shared-memory bound, 4-5x slower
+//     on the H100.)  Or the exact Gauss-Seidel scan in `corder` through the
+//     Gram recursion (inner = exact), on the first 4 warps from a copy of
+//     the Gram in shared memory (cp.async, issued before the grid barrier),
+//     each coordinate's divisions done before the scan, the next
+//     coordinate's constants read ahead, one 128-thread barrier per
+//     coordinate;
+//   - each CTA updates its own rows, r -= X_b d, from the rows it kept.
+// Every sum is in a fixed order: no atomics, deterministic.
 //
 // What bounds it on an H100: with a cached Gram (the working-set solve,
-// the main path) each visit reads the (n, B) block once in (a) and once
-// more, mostly from the 50 MB L2, in (c): 2 n B bytes x sizeof(T) of device
-// memory traffic for 2 n B + iters 2 B^2 flops, so it is bound by memory
-// and by the three launches per visit.
-// Without a Gram (the rare full-problem fallback) (a) adds 2 n B^2 FFMA
-// flops per visit, register-tiled 8 x 8 per thread.  The persistent
-// cooperative kernel with a grid barrier per visit, which removes the
-// per-visit launches, is later work.
+// the main path) a visit reads the (n, B) block once, 2 n B sizeof(T)
+// bytes spread over G CTAs, plus the B x B Gram per CTA from L2, for
+// 4 n B + 2 iters B^2 flops: the latency of one grid barrier, the L2 read
+// of the Gram and the solve's chain of iters steps, per visit, not the
+// bytes.  Without a Gram each visit adds 2 n B^2 flops, G partial Grams
+// through L2 and a second barrier.  grid.sync() builds under the plain
+// per-source `nvcc -c` (no -rdc) with CUDA 12.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace cdt {
 
-constexpr int KT = 8;     // K tile per thread (KT x KT registers)
-constexpr int ROWS = 32;  // rows staged in shared memory per K step
-constexpr int MAXB = 128; // widest block the kernels take
+constexpr int AP_THREADS = 512;  // the solve: 128 coordinates x AP_QUAD
+constexpr int AP_QUAD = 4;       // threads per coordinate in the solve
+constexpr int AP_UNROLL = 4;     // 16-byte loads in flight per thread
+constexpr int MAXB = 128;        // widest block the kernel takes
+constexpr int AP_NVEC = 9;       // B-long vectors in shared memory
+constexpr int AP_KCH = 8;        // partial-Gram columns per sweep of rows
+constexpr int AP_GBATCH = 4;     // Gram loads in flight per thread
+constexpr int AP_CBATCH = 8;     // partial-c loads in flight per thread
 
+// The Gram in shared memory: row l starts at l ld + V ((l / 4) % 8), ld =
+// B + 8 V (V = 16 / sizeof(T)), so that the rows 4 apart that the lanes
+// of a warp read in the FISTA product (4 L + i) fall in distinct banks,
+// and every row stays 16-byte aligned (cp.async, 16-byte loads).
 template <typename T>
-__global__ void partial_c_kernel(const T* __restrict__ X,
-                                 const T* __restrict__ r,
-                                 const int* __restrict__ order, int t, int n,
-                                 int B, int R, T* __restrict__ part_c) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* red = reinterpret_cast<T*>(smem_raw);
-  const int b = order[t];
-  const int j = blockIdx.x;
-  const int row0 = j * R, row1 = min(row0 + R, n);
-  chunk_dot(X + (size_t)b * n * B, r, row0, row1, B, red,
-            part_c + (size_t)j * B);
+__host__ __device__ inline int gram_ld(int B) { return B + 8 * vec_of<T>(); }
+template <typename T>
+__device__ __forceinline__ int grow(int l, int ld) {
+  return l * ld + vec_of<T>() * ((l >> 2) & 7);
 }
 
-// Partial Gram K[k, l] = sum over the chunk's rows of X[i, k] X[i, l]; a
-// (TB, TB) thread block, TB = ceil(B / KT), thread (tx, ty) owns rows
-// ty*KT.. and columns tx*KT.. of K.  Rows are staged ROWS at a time in
-// shared memory, zero-padded past n and past B.
+// Shared-memory layout, offsets in elements of T after a 16-byte header
+// of ints; kernels/active_pass.py::plan_active_pass computes the same
+// bytes.  `scr` holds the row groups' sums of c while the CTA sweeps its
+// rows, then the solve's vectors (FISTA's extrapolated point, the exact
+// scan's beta), which are never live at the same time.
+struct ApLayout {
+  int scr, xs, K, vecs, red, rs;
+  size_t bytes;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(256)
-partial_k_kernel(const T* __restrict__ X, const int* __restrict__ order,
-                 int t, int n, int B, int R, T* __restrict__ part_k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // [ROWS][BP]
-  const int b = order[t];
-  const int j = blockIdx.x;
-  const int TB = blockDim.x;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TB + tx, nthr = TB * TB;
-  const int BP = TB * KT;
-  const int row0 = j * R, row1 = min(row0 + R, n);
-  const T* Xb = X + (size_t)b * n * B;
-  T acc[KT][KT];
+__host__ __device__ inline ApLayout ap_layout(int B, int rows, int keep_x,
+                                              int keep_r) {
+  ApLayout L;
+  int o = 0;
+  L.scr = o;  o += AP_THREADS * vec_of<T>();       // see above
+  L.xs = o;   o += keep_x ? rows * B : 0;          // the kept rows of X_b
+  L.K = o;    o += B * gram_ld<T>(B);              // the block's Gram
+  L.vecs = o; o += AP_NVEC * B;                    // c, beta0, lamw, ...
+  L.red = o;  o += 32;                             // block_max slots
+  L.rs = o;   o += keep_r ? rows : 0;              // the CTA's rows of r
+  L.bytes = 16 + sizeof(T) * (size_t)o;
+  return L;
+}
+
+// The FISTA product over one warp's 8 coordinates k = 8 w + c (c < 8):
+// lane L holds K[4 L + i, 8 w + c] (i < 4) in registers for the whole
+// solve and reads v[4 L .. 4 L + 3] (one 16-byte load in float: every
+// lane a distinct address), forms its 8 partial sums, and the warp adds
+// them by a reduce-scatter in a fixed order (xor 16, 8, 4 halve the
+// coordinates, xor 2, 1 finish the sums): lane L ends with the total of
+// coordinate 8 w + L / 4, as do the other 3 lanes of its quad.
+template <typename T>
+__device__ __forceinline__ T warp_cols(T (&p)[8]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int u = 0; u < KT; ++u)
+  for (int h = 4, m = 16; h >= 1; h >>= 1, m >>= 1) {
+    const bool up = lane & m;
 #pragma unroll
-    for (int v = 0; v < KT; ++v) acc[u][v] = T(0);
-  for (int i0 = row0; i0 < row1; i0 += ROWS) {
-    for (int e = tid; e < ROWS * BP; e += nthr) {
-      const int ii = e / BP, kk = e - ii * BP;
-      const int i = i0 + ii;
-      xs[e] = (i < row1 && kk < B) ? Xb[(size_t)i * B + kk] : T(0);
+    for (int i = 0; i < h; ++i) {
+      const T send = up ? p[i] : p[i + h];
+      const T keep = up ? p[i + h] : p[i];
+      p[i] = keep + __shfl_xor_sync(FULL, send, m);
     }
-    __syncthreads();
-    for (int ii = 0; ii < ROWS; ++ii) {
-      T a[KT], c[KT];
+  }
+  T s = p[0];
+  s += __shfl_xor_sync(FULL, s, 2);
+  s += __shfl_xor_sync(FULL, s, 1);
+  return s;
+}
+
+// sum over l of v[l] K[l, k] for this thread's coordinate (see warp_cols)
+template <typename T>
+__device__ __forceinline__ T warp_dot(const T* v, const T (&kc)[4][8]) {
+  const int lane = threadIdx.x & 31;
+  T w[4];
 #pragma unroll
-      for (int u = 0; u < KT; ++u) {
-        a[u] = xs[ii * BP + ty * KT + u];
-        c[u] = xs[ii * BP + tx * KT + u];
+  for (int i = 0; i < 4; i += vec_of<T>())
+    *reinterpret_cast<uint4*>(w + i) =
+        *reinterpret_cast<const uint4*>(v + 4 * lane + i);
+  T p[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    p[c] = w[0] * kc[0][c];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) p[c] += w[i] * kc[i][c];
+  }
+  return warp_cols(p);
+}
+
+// dst[grow(l) + k] = src[l B + k] for the B x B Gram at src, with batches of
+// AP_GBATCH loads in flight per thread, 16 bytes each when `vec` (src 16-byte
+// aligned and B a multiple of 16 / sizeof(T), so that no load crosses a
+// row and every padded row of dst starts 16-byte aligned).  `coherent`:
+// src was written by other CTAs in this launch (L2 loads, not the
+// read-only path).
+template <typename T>
+__device__ __forceinline__ void load_gram(T* dst, const T* src, int B, int ld,
+                                          bool vec, bool coherent) {
+  constexpr int V = vec_of<T>();
+  const int tid = threadIdx.x;
+  if (vec) {
+    const int nch = B * B / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    for (int c0 = tid; c0 < nch; c0 += AP_GBATCH * AP_THREADS) {
+      uint4 u[AP_GBATCH];
+#pragma unroll
+      for (int j = 0; j < AP_GBATCH; ++j) {
+        const int c = c0 + j * AP_THREADS;
+        if (c < nch) u[j] = coherent ? __ldcg(s4 + c) : __ldg(s4 + c);
       }
 #pragma unroll
-      for (int u = 0; u < KT; ++u)
-#pragma unroll
-        for (int v = 0; v < KT; ++v) acc[u][v] += a[u] * c[v];
+      for (int j = 0; j < AP_GBATCH; ++j) {
+        const int c = c0 + j * AP_THREADS;
+        if (c < nch) {
+          const int l = c * V / B;
+          *reinterpret_cast<uint4*>(dst + grow<T>(l, ld) + (c * V - l * B)) = u[j];
+        }
+      }
     }
-    __syncthreads();
+  } else {
+    const int BB = B * B;
+    for (int e0 = tid; e0 < BB; e0 += AP_GBATCH * AP_THREADS) {
+      T u[AP_GBATCH];
+#pragma unroll
+      for (int j = 0; j < AP_GBATCH; ++j) {
+        const int e = e0 + j * AP_THREADS;
+        if (e < BB) u[j] = coherent ? __ldcg(src + e) : __ldg(src + e);
+      }
+#pragma unroll
+      for (int j = 0; j < AP_GBATCH; ++j) {
+        const int e = e0 + j * AP_THREADS;
+        if (e < BB) dst[grow<T>(e / B, ld) + e % B] = u[j];
+      }
+    }
   }
-  T* out = part_k + (size_t)j * B * B;
-#pragma unroll
-  for (int u = 0; u < KT; ++u)
-#pragma unroll
-    for (int v = 0; v < KT; ++v) {
-      const int kr = ty * KT + u, kc = tx * KT + v;
-      if (kr < B && kc < B) out[kr * B + kc] = acc[u][v];
-    }
 }
 
-// One-CTA block solve (blockDim = B rounded up to a warp; thread k owns
-// coordinate k).  Shared memory: K (B*B), then c, beta0, d, d_prev, y, q0,
-// lamw (B each), then 32 reduction slots.
+// The B x B Gram at src into dst (padded rows, as load_gram) with
+// cp.async: the copies run while the CTA does other work, holding no
+// registers; cp_async_wait_all() ends them (then a __syncthreads).
 template <typename T>
-__global__ void solve_kernel(const T* __restrict__ Kb,
-                             const T* __restrict__ part_k,
-                             const T* __restrict__ part_c, int nr,
-                             const T* __restrict__ lamw,
-                             const int* __restrict__ order,
-                             const int* __restrict__ corder, int t, int B,
-                             int gram, int ista, int iters, T lam0, T nsc,
-                             T* __restrict__ beta, T* __restrict__ dvec,
-                             T* __restrict__ maxh) {
+__device__ __forceinline__ void prefetch_gram(T* dst, const T* src, int B,
+                                              int ld) {
+  constexpr int V = vec_of<T>();
+  const int nch = B * B / V;
+  for (int c = threadIdx.x; c < nch; c += AP_THREADS) {
+    const int l = c * V / B;
+    const unsigned sa = (unsigned)__cvta_generic_to_shared(
+        dst + grow<T>(l, ld) + (c * V - l * B));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                 "l"(src + (size_t)c * V)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// V elements at p (16-byte aligned) in or out of shared memory.
+template <typename T>
+__device__ __forceinline__ void lds16(const T* p, T (&v)[vec_of<T>()]) {
+  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void sts16(T* p, const T (&v)[vec_of<T>()]) {
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+}
+
+// Warp 0: the next active block in border order after hdr[0] (a ballot
+// over 32 entries at a time) into hdr[1] (-1 past the end); every CTA
+// walks the same order.
+__device__ __forceinline__ void find_next(int* hdr, const long long* border,
+                                          const unsigned char* active,
+                                          int nb) {
+  const int lane = threadIdx.x & 31;
+  int cur = hdr[0], blk = -1;
+  while (cur < nb) {
+    const int i = cur + lane;
+    const unsigned m = __ballot_sync(FULL, i < nb && active[border[i]]);
+    if (m) {
+      const int f = __ffs(m) - 1;
+      blk = (int)border[cur + f];
+      cur += f + 1;
+      break;
+    }
+    cur += 32;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    hdr[0] = cur;
+    hdr[1] = blk;
+  }
+}
+
+// Barrier of the first 4 warps only (the exact scan's 128 threads).
+__device__ __forceinline__ void bar_scan() {
+  asm volatile("bar.sync 1, 128;" ::: "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(AP_THREADS, 1)
+active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
+                   const T* __restrict__ lamw,
+                   const long long* __restrict__ border,
+                   const unsigned char* __restrict__ active,
+                   const long long* __restrict__ corder,
+                   const T* __restrict__ beta_in, const T* __restrict__ r_in,
+                   T* beta_out, T* r_out, T* maxh_out, T* part_c, T* part_k,
+                   T* kred, int nb, int n, int B, int rows, int keep_x,
+                   int keep_r, int ista, int iters, T lam0, T nsc) {
+  constexpr int V = vec_of<T>();
+  cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* K = reinterpret_cast<T*>(smem_raw);
-  T* c = K + B * B;
+  int* hdr = reinterpret_cast<int*>(smem_raw);  // [0] cursor, [1] block
+  T* base = reinterpret_cast<T*>(smem_raw + 16);
+  const ApLayout Ly = ap_layout<T>(B, rows, keep_x, keep_r);
+  const int ld = gram_ld<T>(B);
+  T* scr = base + Ly.scr;
+  T* Y0 = scr;          // the solve's two MAXB-long vectors, over the
+  T* Y1 = scr + MAXB;   // row-group sums
+  T* xs = base + Ly.xs;
+  T* K = base + Ly.K;
+  T* c = base + Ly.vecs;
   T* b0 = c + B;
-  T* d = b0 + B;
-  T* dp = d + B;
-  T* yv = dp + B;
-  T* q0 = yv + B;
-  T* lw = q0 + B;
-  T* red = lw + B;
-  const int b = order[t];
-  const int tid = threadIdx.x, nt = blockDim.x;
+  T* lw = b0 + B;
+  T* D = lw + B;    // the block's new beta
+  T* DD = D + B;    // its change
+  T* Cn = DD + B;   // the exact scan's c, second buffer
+  T* AS = Cn + B;   // ... its K[k, k] (0 for a dead column)
+  T* TH = AS + B;   // ... its threshold n lam0 lamw[k] / K[k, k]
+  T* CO = TH + B;   // ... corder
+  T* red = base + Ly.red;
+
+  const int tid = threadIdx.x, G = gridDim.x, g = blockIdx.x;
+  const int lane = tid & 31, w = tid >> 5;
+  const int row0 = min(g * rows, n), row1 = min(row0 + rows, n);
+  const int nr = row1 - row0;
+  T* rl = keep_r ? base + Ly.rs : r_out + row0;  // this CTA's rows of r
+  const bool gram = Kb != nullptr;
+  // 16-byte paths: X's rows (and with them the kept rows, c's vectors and
+  // the staggered Gram rows in shared memory) are 16-byte aligned
+  const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+                   ((size_t)B * sizeof(T)) % 16 == 0;
+  const bool gvec = vec &&
+      reinterpret_cast<uintptr_t>(gram ? Kb : kred) % 16 == 0;
+  // a cached Gram does not depend on a visit's sums: its copy into shared
+  // memory is issued once the row sweep's loads are done, and runs under
+  // the grid barrier
+  const bool pre = gram && gvec;
   const int BB = B * B;
-  if (gram) {
-    const T* Ks = Kb + (size_t)b * BB;
-    for (int e = tid; e < BB; e += nt) K[e] = Ks[e];
-  } else {
-    for (int e = tid; e < BB; e += nt) {
-      T s = T(0);
-      for (int q = 0; q < nr; ++q) s += part_k[(size_t)q * BB + e];
-      K[e] = s;
-    }
-  }
-  const int k = tid;
+  const int CL = (B + V - 1) / V;  // column lanes of the row sweep
+  const int RG = AP_THREADS / CL;  // row groups
+  const int cl = tid % CL, rg = tid / CL;
+  const int k = tid / AP_QUAD, q = tid % AP_QUAD;  // the FISTA roles
   const bool own = k < B;
-  if (own) {
-    T s = T(0);
-    for (int q = 0; q < nr; ++q) s += part_c[(size_t)q * B + k];
-    c[k] = s;
-    b0[k] = beta[(size_t)b * B + k];
-    lw[k] = lamw[(size_t)b * B + k];
-  }
-  __syncthreads();
+  const bool lead = own && q == 0;  // writes coordinate k
   const T ts = nsc * lam0;
-  T mh;
-  if (ista) {
-    // Gershgorin bound L = max column abs-sum >= lambda_max(K)
-    T colsum = T(0);
-    if (own)
-      for (int l = 0; l < B; ++l) colsum += tabs(K[l * B + k]);
-    T L = block_max(colsum, red);
-    L = tmax(L, T(1e-30));
-    const T thr = own ? ts * lw[k] / L : T(0);
-    if (own) {
-      T s = T(0);
-      for (int l = 0; l < B; ++l) s += b0[l] * K[l * B + k];
-      q0[k] = c[k] + s;
-      d[k] = b0[k];
-      dp[k] = b0[k];
-    }
-    __syncthreads();
-    T tt = T(1);
-    for (int it = 0; it < iters; ++it) {
-      const T tn = T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
-      const T coef = (tt - T(1)) / tn;
-      if (own) yv[k] = d[k] + coef * (d[k] - dp[k]);
-      __syncthreads();
-      if (own) {
-        T s = T(0);
-        for (int l = 0; l < B; ++l) s += yv[l] * K[l * B + k];
-        const T dn = soft(yv[k] + (q0[k] - s) / L, thr);
-        dp[k] = d[k];
-        d[k] = dn;
-      }
-      __syncthreads();
-      tt = tn;
-    }
-    // zero-snap: exact coordinate-wise zero condition |a d + q| <= n lam0 lw;
-    // dead columns (a <= 0) keep beta0
-    T dk = T(0);
-    if (own) {
-      T s = T(0);
-      for (int l = 0; l < B; ++l) s += d[l] * K[l * B + k];
-      const T q = q0[k] - s;
-      const T a = K[k * B + k];
-      dk = d[k];
-      if (tabs(a * dk + q) <= ts * lw[k]) dk = T(0);
-      if (!(a > T(0))) dk = b0[k];
-    }
-    __syncthreads();
-    if (own) d[k] = dk;
-    mh = block_max(own ? tabs(dk - b0[k]) : T(0), red);
-  } else {
-    // exact sequential scan in corder via c <- c - K[kk, :] h
-    if (own) d[k] = b0[k];
-    __syncthreads();
-    mh = T(0);
-    for (int i = 0; i < B; ++i) {
-      const int kk = corder[i];
-      const T a = K[kk * B + kk];
-      const T bk = d[kk];
-      const T ck = c[kk];
-      const bool safe = a > T(0);
-      const T as = safe ? a : T(1);
-      T val = soft(bk + ck / as, ts * lw[kk] / as);
-      if (!safe) val = bk;
-      const T h = val - bk;
-      __syncthreads();
-      if (own) c[k] -= K[kk * B + k] * h;
-      if (tid == 0) d[kk] = bk + h;
-      mh = tmax(mh, tabs(h));
-      __syncthreads();
-    }
-  }
+
+  // beta_out starts as beta_in (the first grid barrier orders this copy
+  // before CTA 0 writes any visited block); r from r_in, own rows
+  for (size_t e = (size_t)g * AP_THREADS + tid; e < (size_t)nb * B;
+       e += (size_t)G * AP_THREADS)
+    beta_out[e] = beta_in[e];
+  for (int i = tid; i < nr; i += AP_THREADS) rl[i] = r_in[row0 + i];
+  if (tid < B) CO[tid] = T(corder[tid]);
+  if (tid == 0) hdr[0] = 0;
   __syncthreads();
-  if (own) {
-    const T v = d[k];
-    dvec[k] = v - b0[k];
-    beta[(size_t)b * B + k] = v;
+  if (w == 0) find_next(hdr, border, active, nb);
+
+  T mh_all = T(0);
+  for (int t = 0;; ++t) {
+    __syncthreads();
+    const int b = hdr[1];  // (found during the previous visit's residual)
+    if (b < 0) break;
+    const int par = t & 1;
+    const T* Xb = X + (size_t)b * n * B;
+
+    // 1. this CTA's partial c over its rows (kept in shared memory when
+    //    planned), and without a Gram its partial Gram
+    {
+      T acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = T(0);
+      if (rg < RG) {
+        for (int i = rg; i < nr; i += RG * AP_UNROLL) {
+          T x[AP_UNROLL][V];
+#pragma unroll
+          for (int u = 0; u < AP_UNROLL; ++u) {
+            const int ii = i + u * RG;
+            if (ii < nr) {
+              load_chunk(Xb + (size_t)(row0 + ii) * B, cl * V, B, vec, x[u]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) x[u][e] = T(0);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < AP_UNROLL; ++u) {
+            const int ii = i + u * RG;
+            if (ii < nr) {
+              T* xd = xs + (size_t)ii * B + cl * V;
+              if (keep_x && vec) {
+                sts16(xd, x[u]);
+              } else if (keep_x) {
+#pragma unroll
+                for (int e = 0; e < V; ++e)
+                  if (cl * V + e < B) xd[e] = x[u][e];
+              }
+              const T rv = rl[ii];
+#pragma unroll
+              for (int e = 0; e < V; ++e) acc[e] += x[u][e] * rv;
+            }
+          }
+        }
+      }
+      if (pre) prefetch_gram(K, Kb + (size_t)b * BB, B, ld);
+      sts16(scr + tid * V, acc);
+      __syncthreads();
+      if (tid < B) {
+        const int cc = tid / V, ee = tid % V;
+        T s = T(0);
+        for (int qq = 0; qq < RG; ++qq) s += scr[(qq * CL + cc) * V + ee];
+        part_c[((size_t)par * G + g) * B + tid] = s;
+      }
+      if (!gram) {
+        // thread (row l = tid / 4, quarter) sums K[l, q + 4 j] over the
+        // CTA's rows (interleaved columns: the quarters hit other banks),
+        // AP_KCH columns per sweep of the rows to bound the registers
+        for (int j0 = 0; j0 < MAXB / AP_QUAD; j0 += AP_KCH) {
+          T kacc[AP_KCH];
+#pragma unroll
+          for (int j = 0; j < AP_KCH; ++j) kacc[j] = T(0);
+          for (int i = 0; i < nr; ++i) {
+            const T* xr = keep_x ? xs + (size_t)i * B
+                                 : Xb + (size_t)(row0 + i) * B;
+            const T a = own ? xr[k] : T(0);
+#pragma unroll
+            for (int j = 0; j < AP_KCH; ++j) {
+              const int kk = q + AP_QUAD * (j0 + j);
+              if (kk < B) kacc[j] += a * xr[kk];
+            }
+          }
+          if (own) {
+#pragma unroll
+            for (int j = 0; j < AP_KCH; ++j) {
+              const int kk = q + AP_QUAD * (j0 + j);
+              if (kk < B) part_k[(size_t)g * BB + k * B + kk] = kacc[j];
+            }
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // 2. without a Gram: this CTA's slice of the entries, the G partial
+    //    Grams added in CTA order (each entry by a quad: CTAs q, q + 4, ...,
+    //    then the quad's sums in a fixed order)
+    if (!gram) {
+      const int per = (BB + G - 1) / G;
+      const int e0 = g * per, e1 = min(e0 + per, BB);
+      for (int eb = e0; eb < e1; eb += AP_THREADS / AP_QUAD) {
+        const int e = eb + tid / AP_QUAD;
+        T s = T(0);
+        if (e < e1) {
+#pragma unroll 8
+          for (int qq = q; qq < G; qq += AP_QUAD)
+            s += __ldcg(part_k + (size_t)qq * BB + e);
+        }
+        s += __shfl_xor_sync(FULL, s, 1);
+        s += __shfl_xor_sync(FULL, s, 2);
+        if (e < e1 && q == 0) kred[e] = s;
+      }
+      grid.sync();
+    }
+
+    // 3. the block's Gram (prefetched, or from kred);
+    //    c, the G partials added in a fixed order: with 16-byte loads,
+    //    thread (column group, subset s) sums CTAs s, s + S, ... in order,
+    //    then the S subsets in order; beta0, lamw; the solve's vectors
+    if (pre)
+      cp_async_wait_all();
+    else
+      load_gram(K, gram ? Kb + (size_t)b * BB : kred, B, ld, gvec, !gram);
+    const T* pc = part_c + (size_t)par * G * B;
+    if (vec) {
+      const int CG = B / V, S = AP_THREADS / CG;
+      const int cgi = tid % CG, s = tid / CG;
+      T acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = T(0);
+      if (s < S) {
+        for (int g0 = s; g0 < G; g0 += S * AP_CBATCH) {
+          T v[AP_CBATCH][V];
+#pragma unroll
+          for (int j = 0; j < AP_CBATCH; ++j) {
+            const int gg = g0 + S * j;
+            if (gg < G) {
+              const uint4 u = __ldcg(reinterpret_cast<const uint4*>(
+                  pc + (size_t)gg * B + cgi * V));
+              memcpy(&v[j][0], &u, 16);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) v[j][e] = T(0);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < AP_CBATCH; ++j)
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[e] += v[j][e];
+        }
+      }
+      sts16(scr + tid * V, acc);
+      __syncthreads();
+      if (tid < B) {
+        T cs = T(0);
+        for (int ss = 0; ss < S; ++ss)
+          cs += scr[(ss * CG + tid / V) * V + tid % V];
+        c[tid] = cs;
+      }
+    } else if (tid < B) {
+      T cs = T(0);
+      for (int gg = 0; gg < G; ++gg) cs += __ldcg(pc + (size_t)gg * B + tid);
+      c[tid] = cs;
+    }
+    __syncthreads();  // the sums of c are read out of scr, which Y0 and
+                      // Y1 overlay
+    // Y0 = beta0 and Y1 = 0 past B (the FISTA product reads all MAXB)
+    if (tid < MAXB) {
+      const T bk = tid < B ? beta_in[(size_t)b * B + tid] : T(0);
+      if (tid < B) {
+        b0[tid] = bk;
+        lw[tid] = lamw[(size_t)b * B + tid];
+      }
+      Y0[tid] = bk;
+      if (tid >= B) Y1[tid] = T(0);
+    }
+    __syncthreads();
+
+    // 4. the block solve, redundantly in every CTA -> D, DD, mh
+    T mh = T(0);
+    if (ista) {
+      // K[4 lane + i, 8 w + c] in registers for the whole solve.  K is
+      // symmetric only up to rounding: column k, as the plain twin's
+      // yv @ K.
+      T kc[4][8], p[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int l = 4 * lane + i;
+        const T* row = K + grow<T>(l, ld) + 8 * w;
+#pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += V) {
+          T u[V];
+          if (vec && l < B && 8 * w < B) {
+            lds16(row + j0, u);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              u[e] = l < B && 8 * w + j0 + e < B ? row[j0 + e] : T(0);
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            kc[i][j0 + e] = 8 * w + j0 + e < B ? u[e] : T(0);
+        }
+      }
+      const T a = own ? K[grow<T>(k, ld) + k] : T(0);
+      // Gershgorin bound L = max column abs-sum
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) {
+        p[cc] = tabs(kc[0][cc]);
+#pragma unroll
+        for (int i = 1; i < 4; ++i) p[cc] += tabs(kc[i][cc]);
+      }
+      const T colsum = warp_cols(p);
+      const T L = tmax(block_max(own ? colsum : T(0), red), T(1e-30));
+      const T thr = own ? ts * lw[k] / L : T(0);
+      const T q0 = (own ? c[k] : T(0)) + warp_dot(Y0, kc);
+      T dk = own ? b0[k] : T(0), dpk = dk;
+      T tt = T(1);
+      for (int it = 0; it < iters; ++it) {
+        const T* Yc = (it & 1) ? Y1 : Y0;
+        T* Yn = (it & 1) ? Y0 : Y1;
+        const T s = warp_dot(Yc, kc);
+        if (own) {
+          const T dn = soft(Yc[k] + (q0 - s) / L, thr);
+          dpk = dk;
+          dk = dn;
+        }
+        tt = T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
+        const T tn = T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
+        const T coef = (tt - T(1)) / tn;
+        if (lead) Yn[k] = dk + coef * (dk - dpk);
+        __syncthreads();
+      }
+      // zero-snap: exact coordinate-wise zero condition |a d + q| <= n lam0
+      // lw; dead columns (a <= 0) keep beta0.  d goes to the vector the
+      // last step read.
+      T* Yf = (iters & 1) ? Y0 : Y1;
+      if (lead) Yf[k] = dk;
+      __syncthreads();
+      const T s = warp_dot(Yf, kc);
+      T df = T(0);
+      if (own) {
+        const T qk = q0 - s;
+        df = dk;
+        if (tabs(a * df + qk) <= ts * lw[k]) df = T(0);
+        if (!(a > T(0))) df = b0[k];
+      }
+      if (lead) {
+        D[k] = df;
+        DD[k] = df - b0[k];
+      }
+      mh = block_max(own ? tabs(df - b0[k]) : T(0), red);
+    } else if (tid < MAXB) {
+      // exact sequential scan in corder via c <- c - K[kk, :] h, on the
+      // first 4 warps (thread k owns coordinate k); c and beta
+      // double-buffered, so each coordinate costs one 128-thread barrier
+      const bool mine = tid < B;
+      T *Cc = c, *Cx = Cn, *Dc = Y0, *Dx = Y1;
+      T cr = T(0), dr = T(0);  // this thread's own c[k] and beta[k]
+      if (mine) {
+        const T a = K[grow<T>(tid, ld) + tid];
+        const bool safe = a > T(0);
+        AS[tid] = safe ? a : T(0);
+        TH[tid] = safe ? ts * lw[tid] / a : T(0);
+        cr = c[tid];
+        dr = b0[tid];
+        Dc[tid] = dr;
+      }
+      bar_scan();
+      // the scan's constants (AS, TH, corder) do not change in the scan:
+      // the next coordinate's are read before each barrier
+      int kk = (int)CO[0];
+      T as = AS[kk], th = TH[kk];
+      for (int i = 0; i < B; ++i) {
+        const T bk = Dc[kk];
+        const T ck = Cc[kk];
+        const T kr = mine ? K[grow<T>(kk, ld) + tid] : T(0);
+        const T val = as > T(0) ? soft(bk + ck / as, th) : bk;
+        const T h = val - bk;
+        if (mine) {
+          cr -= kr * h;
+          if (tid == kk) dr = bk + h;
+          Cx[tid] = cr;
+          Dx[tid] = dr;
+        }
+        mh = tmax(mh, tabs(h));
+        const int kn = i + 1 < B ? (int)CO[i + 1] : kk;
+        const T asn = AS[kn], thn = TH[kn];
+        bar_scan();
+        T* tc = Cc; Cc = Cx; Cx = tc;
+        T* td = Dc; Dc = Dx; Dx = td;
+        kk = kn;
+        as = asn;
+        th = thn;
+      }
+      if (mine) {
+        D[tid] = dr;
+        DD[tid] = dr - b0[tid];
+      }
+    }
+    __syncthreads();
+    mh_all = tmax(mh_all, mh);
+    if (g == 0 && tid < B) beta_out[(size_t)b * B + tid] = D[tid];
+
+    // 5. r -= X_b d over this CTA's rows, one warp per row; warp 0 first
+    //    finds the next visit's block, its loads under the other warps' rows
+    if (w == 0) find_next(hdr, border, active, nb);
+    for (int i = w; i < nr; i += AP_THREADS / 32) {
+      T s = T(0);
+      for (int k0 = lane * V; k0 < B; k0 += 32 * V) {
+        T x[V], dd[V];
+        if (keep_x && vec) {
+          lds16(xs + (size_t)i * B + k0, x);
+        } else if (keep_x) {
+          load_chunk_shared(xs + (size_t)i * B, k0, B, x);
+        } else {
+          load_chunk(Xb + (size_t)(row0 + i) * B, k0, B, vec, x);
+        }
+        if (vec) {
+          lds16(DD + k0, dd);
+        } else {
+          load_chunk_shared(DD, k0, B, dd);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) s += x[e] * dd[e];
+      }
+      s = warp_sum(s);
+      if (lane == 0) rl[i] -= s;
+    }
+    __syncthreads();
   }
-  if (tid == 0) *maxh = tmax(*maxh, mh);
-}
-
-// r[i] -= sum_k X_b[i, k] d[k]; one warp per row, 8 rows per CTA.
-template <typename T>
-__global__ void resid_kernel(const T* __restrict__ X,
-                             const int* __restrict__ order, int t, int n,
-                             int B, const T* __restrict__ dvec,
-                             T* __restrict__ r) {
-  const int b = order[t];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int i = blockIdx.x * (blockDim.x >> 5) + w;
-  if (i >= n) return;
-  const T* row = X + ((size_t)b * n + i) * B;
-  T s = T(0);
-  for (int k = lane; k < B; k += 32) s += row[k] * dvec[k];
-  s = warp_sum(s);
-  if (lane == 0) r[i] -= s;
+  if (keep_r)
+    for (int i = tid; i < nr; i += AP_THREADS) r_out[row0 + i] = rl[i];
+  if (g == 0 && tid == 0) *maxh_out = mh_all;
 }
 
 template <typename T>
-int active_pass(const T* X, const T* Kb, const T* lamw, const int* order,
-                const int* corder, T* beta, T* r, T* maxh, T* part_c,
-                T* part_k, T* dvec, int n_active, int n, int B, int R,
-                int ista, int iters, int gram, double lam0, double nsc,
-                cudaStream_t s) {
-  if (B < 1 || B > MAXB || R < 1) return (int)cudaErrorInvalidValue;
-  const int nr = (n + R - 1) / R;
-  const int G = dot_groups(B);
-  const dim3 cblock(B, G);
-  const size_t csmem = sizeof(T) * B * G;
-  const int TB = (B + KT - 1) / KT;
-  const dim3 kblock(TB, TB);
-  const size_t ksmem = sizeof(T) * ROWS * TB * KT;
-  const int nt = (B + 31) / 32 * 32;
-  const size_t ssmem = sizeof(T) * (B * B + 7 * B + 32);
-  cudaError_t e = cudaFuncSetAttribute(
-      solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(T) * (MAXB * MAXB + 7 * MAXB + 32)));
+int active_pass(const T* X, const T* Kb, const T* lamw,
+                const long long* border, const unsigned char* active,
+                const long long* corder, const T* beta_in, const T* r_in,
+                T* beta_out, T* r_out, T* maxh, T* part_c, T* part_k, T* kred,
+                int nb, int n, int B, int grid, int rows, int keep_x,
+                int keep_r, int smem, int ista, int iters, double lam0,
+                double nsc, cudaStream_t s) {
+  if (B < 1 || B > MAXB || nb < 1 || n < 1 || grid < 1 || rows < 1 ||
+      (long long)grid * rows < n || (Kb == nullptr && (!part_k || !kred)))
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)smem < ap_layout<T>(B, rows, keep_x, keep_r).bytes)
+    return (int)cudaErrorInvalidValue;
+  const void* kern = (const void*)active_pass_kernel<T>;
+  // the grid must be co-resident (a plain launch of too large a grid
+  // would hang at the first barrier; the cooperative launch refuses it)
+  int resident = 0;
+  cudaError_t e = resident_ctas(kern, AP_THREADS, (size_t)smem, &resident);
   if (e != cudaSuccess) return (int)e;
-  const int rows_per_cta = 8;
-  for (int t = 0; t < n_active; ++t) {
-    partial_c_kernel<T><<<nr, cblock, csmem, s>>>(X, r, order, t, n, B, R,
-                                                  part_c);
-    if (!gram)
-      partial_k_kernel<T><<<nr, kblock, ksmem, s>>>(X, order, t, n, B, R,
-                                                    part_k);
-    solve_kernel<T><<<1, nt, ssmem, s>>>(Kb, part_k, part_c, nr, lamw, order,
-                                         corder, t, B, gram, ista, iters,
-                                         T(lam0), T(nsc), beta, dvec, maxh);
-    resid_kernel<T><<<(n + rows_per_cta - 1) / rows_per_cta,
-                      32 * rows_per_cta, 0, s>>>(X, order, t, n, B, dvec, r);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  T tl = T(lam0), tn = T(nsc);
+  void* args[] = {&X,      &Kb,     &lamw,   &border, &active, &corder,
+                  &beta_in, &r_in,  &beta_out, &r_out, &maxh,  &part_c,
+                  &part_k, &kred,   &nb,     &n,      &B,      &rows,
+                  &keep_x, &keep_r, &ista,   &iters,  &tl,     &tn};
+  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(AP_THREADS), args,
+                                  (size_t)smem, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -287,15 +697,18 @@ int active_pass(const T* X, const T* Kb, const T* lamw, const int* order,
 
 #define CDT_ACTIVE_PASS(SUFFIX, T)                                            \
   extern "C" int cdt_active_pass_##SUFFIX(                                    \
-      const void* X, const void* Kb, const void* lamw, const void* order,     \
-      const void* corder, void* beta, void* r, void* maxh, void* part_c,      \
-      void* part_k, void* dvec, int n_active, int n, int B, int R, int ista,  \
-      int iters, int gram, double lam0, double nsc, void* stream) {           \
+      const void* X, const void* Kb, const void* lamw, const void* border,    \
+      const void* active, const void* corder, const void* beta_in,            \
+      const void* r_in, void* beta_out, void* r_out, void* maxh,              \
+      void* part_c, void* part_k, void* kred, int nb, int n, int B, int grid, \
+      int rows, int keep_x, int keep_r, int smem, int ista, int iters,        \
+      double lam0, double nsc, void* stream) {                                \
     return cdt::active_pass<T>(                                               \
-        (const T*)X, (const T*)Kb, (const T*)lamw, (const int*)order,         \
-        (const int*)corder, (T*)beta, (T*)r, (T*)maxh, (T*)part_c,            \
-        (T*)part_k, (T*)dvec, n_active, n, B, R, ista, iters, gram, lam0,     \
-        nsc, (cudaStream_t)stream);                                           \
+        (const T*)X, (const T*)Kb, (const T*)lamw, (const long long*)border,  \
+        (const unsigned char*)active, (const long long*)corder,               \
+        (const T*)beta_in, (const T*)r_in, (T*)beta_out, (T*)r_out,           \
+        (T*)maxh, (T*)part_c, (T*)part_k, (T*)kred, nb, n, B, grid, rows,     \
+        keep_x, keep_r, smem, ista, iters, lam0, nsc, (cudaStream_t)stream);  \
   }
 
 CDT_ACTIVE_PASS(f32, float)

@@ -1,0 +1,140 @@
+"""Time K1 and K5 at the main paths' shapes, for an A/B of two trees.
+
+    python -m coordinatedescent_jl_tpu_torch.kernel_ab
+    PYTHONPATH=<other tree> python <this tree>/coordinatedescent_jl_tpu_torch/kernel_ab.py
+
+The second form times the kernels of the package found first on the path
+(another checkout, e.g. the parent commit), through the wrapper functions
+both trees have.  Shapes and inputs are ``chip_smoke.py``'s, from the bench
+problem (``profile_paths.bench_problem``, seed 0): K1 in float32 with the
+FISTA inner over the scan's 8-block working set (8 active blocks, and 1),
+K1 without a Gram over the full design's active blocks, K1 in float64
+(exact inner) on the polish's inner-solve block, and K5 on the working
+set, on the full blocked design and in its float64-accumulating form on
+the dense design, each beside ``torch.matmul``'s time where one call
+computes the same function.  Per call: milliseconds between CUDA events
+around back-to-back calls, the host's time to issue a call, the device
+kernels' time and count from ``torch.profiler``; one JSON line, after the
+card's name and power limit.  Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+
+def _ms(fn, reps: int) -> dict:
+    """Per call: ``ms`` between CUDA events around ``reps`` calls (what a
+    caller waits), ``host_ms`` the host's time to issue one call,
+    ``dev_ms`` the device kernels' time in a profiler trace and
+    ``kernels`` their number."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"ms": start.elapsed_time(end) / reps,
+            "host_ms": host * 1e3 / reps,
+            "dev_ms": sum(e.time_range.elapsed_us() for e in kern)
+            * 1e-3 / reps,
+            "kernels": len(kern) / reps}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA GPU", file=sys.stderr)
+        sys.exit(1)
+    import coordinatedescent_jl_tpu_torch as tcd
+    from coordinatedescent_jl_tpu_torch.kernels import active_pass as ap
+    from coordinatedescent_jl_tpu_torch.kernels import gradient_sweep as gs
+    from coordinatedescent_jl_tpu_torch.models import polish as pol
+    from coordinatedescent_jl_tpu_torch.ops import block_cd
+    from coordinatedescent_jl_tpu_torch.profile_paths import bench_problem
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    bp = bench_problem(dev, seed=0)
+    X, y, support, beta_true = bp.X, bp.y, bp.support, bp.beta_true
+    (n, p), B = X.shape, 128
+    lam0 = 0.05 * bp.lammax
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {"package": tcd.__file__}
+
+    cols = torch.unique(torch.cat([support, torch.randperm(
+        p, generator=g, device=dev)[:1024]]))[:1024]
+    ws = block_cd.build_blocked("ls", bp.opts.replace(cache_gram=True),
+                                torch.ones(1024, device=dev),
+                                X=X[:, cols].contiguous(), y=y)
+    st = block_cd._init_state("ls", ws, (0.9 * beta_true[cols]).reshape(
+        8, B).contiguous(), None)
+    border8, corder = torch.arange(8, device=dev), torch.arange(B, device=dev)
+    for key, act in (("K1_8", torch.ones(8, dtype=torch.bool, device=dev)),
+                     ("K1_1", border8 == 3)):
+        args = (ws, st.beta, st.r, act, lam0, float(n), border8, corder)
+        out[key] = _ms(lambda: ap.fused_active_pass(
+            *args, inner="ista", iters=16, rsqr=st.rsqr), 50)
+    out["K5_ws"] = _ms(lambda: gs.fused_gradient_sweep(ws.Xwb, st.r), 100)
+    out["K5_ws_matmul"] = _ms(lambda: torch.matmul(st.r, ws.Xwb), 100)
+    del ws, st
+
+    sol = tcd.lasso(X, y, lam0)
+    sup = torch.nonzero(sol.x).flatten()
+    C = pol._allocation(sup.numel(), p, 4096)
+    idx = torch.full((C,), p, dtype=torch.int64, device=dev)
+    idx[:sup.numel()] = sup
+    b64 = torch.zeros((C,), dtype=torch.float64, device=dev)
+    b64[:sup.numel()] = sol.x[sup].double()
+    prob64, st64, _ = pol._restricted_problem(
+        X, y.double(), torch.ones(p, dtype=torch.float64, device=dev), idx,
+        b64)
+    nb64 = prob64.lamw.shape[0]
+    args = (prob64, st64.beta, st64.r, st64.active, lam0, float(n),
+            torch.arange(nb64, device=dev), corder)
+    out["K1f64"] = _ms(lambda: ap.fused_active_pass(
+        *args, inner="exact", rsqr=st64.rsqr), 50)
+    del prob64, st64, args, sol
+
+    full = block_cd.build_blocked("ls", bp.opts, torch.ones(p, device=dev),
+                                  X=X, y=y)
+    st = block_cd._init_state("ls", full, block_cd._to_blocked_beta(
+        0.9 * beta_true, B).contiguous(), None)
+    nbf = full.lamw.shape[0]
+    args = (full, st.beta, st.r, st.active, lam0, float(n),
+            torch.arange(nbf, device=dev), corder)
+    out["K1_full_nogram"] = _ms(lambda: ap.fused_active_pass(
+        *args, inner="ista", iters=16, rsqr=st.rsqr), 5)
+    out["K5"] = _ms(lambda: gs.fused_gradient_sweep(full.Xwb, st.r), 20)
+    out["K5_matmul"] = _ms(lambda: torch.matmul(st.r, full.Xwb), 20)
+    del full, st, args
+    torch.cuda.empty_cache()
+
+    r64 = y.double() - X[:, support].double() @ beta_true[support].double()
+    out["K5f64"] = _ms(lambda: gs.grad_f64(X, r64), 20)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

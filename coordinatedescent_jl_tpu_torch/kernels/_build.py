@@ -15,6 +15,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,9 +41,10 @@ _D = ctypes.c_double
 # argument types of every C entry point (pointers and the stream as
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
-    # X, Kb|0, lamw, order, corder, beta, r, maxh, part_c, part_k, dvec,
-    # n_active, n, B, R, ista, iters, gram, lam0, n_scale, stream
-    "cdt_active_pass": [_P] * 11 + [_I] * 7 + [_D, _D, _P],
+    # X, Kb|0, lamw, border, active, corder, beta_in, r_in, beta_out,
+    # r_out, maxh, part_c, part_k|0, kred|0, nb, n, B, grid, rows, keep_x,
+    # keep_r, smem, ista, iters, lam0, n_scale, stream
+    "cdt_active_pass": [_P] * 14 + [_I] * 10 + [_D, _D, _P],
     # Xwb, r, order, part, out, n_need, n, B, R, stream
     "cdt_rsweep": [_P] * 5 + [_I] * 4 + [_P],
     # c, beta, drift, adiag, lamw, validf, xwnorm, scal, need, ub, cand,
@@ -51,9 +53,10 @@ _SIGNATURES = {
     # c, beta, bound, ubf, candf, adiag, lamw, validf, xwnorm, scal, maxh,
     # active, nb, B, stream
     "cdt_check_b": [_P] * 12 + [_I] * 2 + [_P],
-    # X, r, part, out, nb, n, W, R, stream (both K5 instantiations)
-    "cdt_dense_sweep": [_P] * 4 + [_I] * 4 + [_P],
-    "cdt_grad64": [_P] * 4 + [_I] * 4 + [_P],
+    # X, r, part|0, out, nb, n, W, split, rows, grid, stream (both K5
+    # instantiations)
+    "cdt_dense_sweep": [_P] * 4 + [_I] * 6 + [_P],
+    "cdt_grad64": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -141,11 +144,33 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def stream() -> int:
+def stream(device=None) -> int:
+    """The current CUDA stream (of ``device``, a ``torch.device`` with an
+    index, through PyTorch's raw-stream query: the launch wrappers run
+    hundreds of times a solve)."""
+    if device is not None:
+        return torch._C._cuda_getCurrentRawStream(device.index)
     return torch.cuda.current_stream().cuda_stream
 
 
-def require(cond: bool, msg: str):
-    """Wrapper-side input check (the kernels take no other shapes)."""
+@functools.lru_cache(maxsize=None)
+def _props(index: int):
+    return torch.cuda.get_device_properties(index)
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (the launch planners' input)."""
+    return _props(device.index).multi_processor_count
+
+
+def smem_optin(device) -> int:
+    """Bytes of shared memory one CTA of ``device`` may opt in to."""
+    return _props(device.index).shared_memory_per_block_optin
+
+
+def require(cond: bool, msg: str, *args):
+    """Wrapper-side input check (the kernels take no other shapes).  With
+    ``args``, ``msg`` is a ``str.format`` template, filled only on failure
+    (the checks run on every launch)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)

@@ -11,19 +11,23 @@ exact Gauss-Seidel scan through the Gram recursion), then
 ``r -= X_b·Δβ_b``.
 
 Design on the H100 (see the CUDA source for the details): the TPU kernel
-relies on its grid running in order on one core; here the host reads
-``n_active`` once per pass and one C call launches, per visit, a
-row-chunk partial kernel (plus a partial-Gram kernel when no Gram is
-cached), a one-CTA solve that adds the partials in a fixed order, and a
-row-parallel residual update.  It is bounded by the device-memory read of
-each visited block and by the four launches per visit.
+relies on its grid running in order on one core; here one cooperative
+launch per pass runs a co-resident grid whose CTAs each own a slice of
+the rows of r for the whole pass, find the visit order on the device (no
+host read of ``n_active``), meet at a grid barrier per visit and solve
+each block redundantly.  :func:`plan_active_pass` sizes the grid and the
+shared memory.  Per visit it is bounded by the barrier's latency, the
+Gram's read from L2 and the solve's chain of steps.
 
 ``LAUNCHES`` (float32) and ``LAUNCHES_F64`` (float64, the polish's inner
-solve) count wrapper calls that launched the kernels; the plain twin
+solve) count wrapper calls that launched the kernel; the plain twin
 never counts.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,8 +37,48 @@ from ..utils import host
 
 LAUNCHES = 0
 LAUNCHES_F64 = 0
-_ROW_CHUNK = 256   # rows per partial-sum CTA
-_MAX_B = 128       # widest block the kernels take (K fits shared memory)
+_MAX_B = 128       # widest block the kernel takes (K fits shared memory)
+# the kernel's shape (csrc/active_pass.cu): threads per CTA, B-long vectors
+# in shared memory, and the fewest rows of r a CTA should own (below it a
+# small n takes fewer CTAs, so fewer meet at each grid barrier)
+_AP_THREADS = 512
+_AP_NVEC = 9
+_AP_MIN_ROWS = 32
+SMEM_OPTIN_H100 = 232_448   # shared memory one CTA may opt in to (H100)
+
+
+class ActivePlan(NamedTuple):
+    grid: int      # co-resident CTAs
+    rows: int      # rows of r (and of each X_b) a CTA owns
+    keep_x: bool   # the CTA keeps its rows of X_b in shared memory
+    keep_r: bool   # ... and its rows of r (else they live in r_out)
+    smem: int      # dynamic shared memory per CTA, bytes
+
+
+@functools.lru_cache(maxsize=64)
+def plan_active_pass(n: int, B: int, itemsize: int, sms: int,
+                     smem_limit: int = SMEM_OPTIN_H100) -> ActivePlan:
+    """K1's launch plan: one CTA per SM (the Gram alone takes 64-128 KB of
+    shared memory), fewer when n gives a CTA under ``_AP_MIN_ROWS`` rows;
+    each keeps its rows of r, then its rows of X_b, in shared memory while
+    they fit under ``smem_limit``.  The bytes mirror
+    ``csrc/active_pass.cu::ap_layout``: a 16-byte header, the row-group
+    sums (16 bytes a thread), the kept rows of X_b, the Gram at row
+    stride ``B + 128 / itemsize``, nine B-long vectors, 32 reduction
+    slots and the kept rows of r."""
+    grid = max(1, min(sms, -(-n // _AP_MIN_ROWS)))
+    rows = -(-n // grid)
+    grid = -(-n // rows)             # no CTA without rows
+    ld = B + 128 // itemsize
+    base = 16 + itemsize * (_AP_THREADS * (16 // itemsize) + B * ld
+                            + _AP_NVEC * B + 32)
+    if base > smem_limit:
+        raise ValueError(f"active-pass kernel: block width {B} needs "
+                         f"{base} bytes of shared memory > {smem_limit}")
+    keep_r = base + itemsize * rows <= smem_limit
+    keep_x = keep_r and base + itemsize * rows * (B + 1) <= smem_limit
+    smem = base + itemsize * rows * (int(keep_r) + B * int(keep_x))
+    return ActivePlan(grid, rows, keep_x, keep_r, smem)
 
 
 def _prefetch_order(active, border):
@@ -73,63 +117,69 @@ def fused_active_pass(prob, beta_b, r, active, lam0, n_scale, border, corder,
 def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
                             corder, kind, rsqr, inner, iters):
     global LAUNCHES, LAUNCHES_F64
-    req = _build.require
+    # the checks run on every pass (hundreds per solve): plain comparisons,
+    # messages built only on failure
     nb, B = prob.lamw.shape
     n = r.shape[0]
     dt = beta_b.dtype
-    req(kind == "ls", f"active-pass kernel: kind {kind!r} is not ported")
-    req(inner in ("ista", "exact"), f"active-pass kernel: inner {inner!r}")
-    req(dt in (torch.float32, torch.float64),
-        f"active-pass kernel: dtype {dt} (float32/float64 only)")
-    req(1 <= B <= _MAX_B, f"active-pass kernel: block width {B} > {_MAX_B}")
-    Kb = prob.Kb
-    for name, t, shape in (("Xb", prob.Xb, (nb, n, B)),
-                           ("lamw", prob.lamw, (nb, B)),
-                           ("beta", beta_b, (nb, B)), ("r", r, (n,)),
-                           ("Kb", Kb, (nb, B, B))):
-        if t is None:
-            continue
-        req(t.is_cuda and t.device == beta_b.device and t.dtype == dt,
-            f"active-pass kernel: {name} must be {dt} on {beta_b.device}")
-        req(tuple(t.shape) == shape and t.is_contiguous(),
-            f"active-pass kernel: {name} must be contiguous {shape}, got "
-            f"{tuple(t.shape)}")
-    req(prob.Xwb is None or prob.Xwb.data_ptr() == prob.Xb.data_ptr(),
-        "active-pass kernel: least squares needs Xwb to be Xb")
-    for name, t, shape in (("active", active, (nb,)),
-                           ("border", border, (nb,)),
-                           ("corder", corder, (B,))):
-        req(t.device == beta_b.device and tuple(t.shape) == shape,
-            f"active-pass kernel: {name} must be {shape} on {beta_b.device}")
-
-    order, n_active = _prefetch_order(active, border)
-    na = host.item(n_active)
-    beta2 = beta_b.clone()
-    r2 = r.clone()
-    maxh = torch.zeros((1,), dtype=dt, device=r.device)
-    if na == 0:
-        return beta2, r2, maxh[0], rsqr
-    nr = -(-n // _ROW_CHUNK)
+    dev = beta_b.device
+    Kb, Xb = prob.Kb, prob.Xb
+    if not (kind == "ls" and inner in ("ista", "exact")
+            and dt in (torch.float32, torch.float64) and 1 <= B <= _MAX_B):
+        raise ValueError(
+            f"active-pass kernel: kind {kind!r}, inner {inner!r}, dtype "
+            f"{dt}, block width {B} (ls; ista or exact; float32 or "
+            f"float64; at most {_MAX_B})")
+    for name, t, shape, dts in (
+            ("Xb", Xb, (nb, n, B), (dt,)), ("lamw", prob.lamw, (nb, B), (dt,)),
+            ("beta", beta_b, (nb, B), (dt,)), ("r", r, (n,), (dt,)),
+            ("Kb", Kb, (nb, B, B), (dt,)),
+            ("active", active, (nb,), (torch.bool,)),
+            ("border", border, (nb,), (torch.int64, torch.int32)),
+            ("corder", corder, (B,), (torch.int64, torch.int32))):
+        if t is not None and not (t.device == dev and t.dtype in dts
+                                  and t.shape == shape and t.is_contiguous()):
+            raise ValueError(f"active-pass kernel: {name} must be contiguous "
+                             f"{shape} {dts} on {dev}")
+    if prob.Xwb is not None and prob.Xwb.data_ptr() != Xb.data_ptr():
+        raise ValueError("active-pass kernel: least squares needs Xwb to be "
+                         "Xb")
+    # int64 orders (torch.arange / randperm) pass through without a copy
+    if border.dtype != torch.int64:
+        border = border.to(torch.int64)
+    if corder.dtype != torch.int64:
+        corder = corder.to(torch.int64)
+    plan = plan_active_pass(n, B, dt.itemsize, _build.sm_count(dev),
+                            _build.smem_optin(dev))
     gram = Kb is not None
-    part_c = torch.empty((nr, B), dtype=dt, device=r.device)
-    part_k = (None if gram
-              else torch.empty((nr, B, B), dtype=dt, device=r.device))
-    dvec = torch.empty((B,), dtype=dt, device=r.device)
-    corder = corder.to(torch.int32).contiguous()
+    # outputs: beta, r and maxh in one allocation; scratch: the partial c's
+    # (2 parities x G x B), and without a Gram the partial Grams (G x B x B)
+    # and their sum (B x B)
+    out = torch.empty((nb * B + n + 1,), dtype=dt, device=dev)
+    nc = 2 * plan.grid * B
+    nk = 0 if gram else plan.grid * B * B
+    scratch = torch.empty((nc + (0 if gram else nk + B * B),), dtype=dt,
+                          device=dev)
+    op, sp, w = out.data_ptr(), scratch.data_ptr(), dt.itemsize
     lib = _build.library()
     fn = lib.cdt_active_pass_f32 if dt == torch.float32 else \
         lib.cdt_active_pass_f64
-    P = _build.ptr
-    err = fn(P(prob.Xb), P(Kb), P(prob.lamw), P(order), P(corder),
-             P(beta2), P(r2), P(maxh), P(part_c), P(part_k), P(dvec),
-             na, n, B, _ROW_CHUNK, int(inner == "ista"), int(iters),
-             int(gram), float(lam0), float(n_scale), _build.stream())
+    err = fn(Xb.data_ptr(), None if Kb is None else Kb.data_ptr(),
+             prob.lamw.data_ptr(), border.data_ptr(), active.data_ptr(),
+             corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(), op,
+             op + nb * B * w, op + (nb * B + n) * w, sp,
+             None if gram else sp + nc * w,
+             None if gram else sp + (nc + nk) * w,
+             nb, n, B, plan.grid, plan.rows, int(plan.keep_x),
+             int(plan.keep_r), plan.smem, int(inner == "ista"), int(iters),
+             float(lam0), float(n_scale), _build.stream(dev))
     _build.check(err, "active_pass")
     if dt == torch.float64:
         LAUNCHES_F64 += 1
     else:
         LAUNCHES += 1
-    return beta2, r2, maxh[0], rsqr
+    return (out[:nb * B].view(nb, B), out[nb * B:nb * B + n], out[-1],
+            rsqr)
 
 
 # ---------------------------------------------------------------------------

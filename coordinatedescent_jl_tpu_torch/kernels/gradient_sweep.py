@@ -21,15 +21,20 @@ in two instantiations of one kernel —
   float64 accumulation and output (the certificate of the f64 polish and
   the compensated gaps).
 
-The grid is (column tile, row chunk) into a partials buffer, added per
-column in chunk order by a second kernel; bounded by device-memory
-bandwidth (X read once).
+Bounded by device-memory bandwidth (X read once): 16-byte loads, a
+persistent grid over (column tile, row slice) items laid out by
+:func:`plan_dense_sweep`.  At the bench's 782 tiles a slice is all n rows:
+one launch, no partials; the 8-tile working set splits its rows and adds
+the slices' partials in order in a second launch.
 
 ``LAUNCHES`` (K2), ``LAUNCHES_DENSE`` (K5 blocked) and ``LAUNCHES_F64``
 (K5 f64) count the wrapper calls that launched a kernel.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,7 +44,15 @@ from ..utils import host
 LAUNCHES = 0
 LAUNCHES_DENSE = 0
 LAUNCHES_F64 = 0
-_ROW_CHUNK = 256
+_ROW_CHUNK = 256   # K2: rows per partial-sum CTA
+# K5's plan (csrc/dense_sweep.cu): columns per work item, CTAs (of 128
+# threads) per SM that the persistent grid may hold, the CTAs per SM that
+# the work items should give before the rows are split, and the fewest
+# rows a slice may have
+_SW_TILE = 128
+_SW_CTAS_PER_SM = 16
+_SW_FILL = 4
+_SW_MIN_ROWS = 128
 # columns per float64 chunk of grad_f64_plain: bounds the f64 copy of X to
 # n·8192·8 bytes (655 MB at n = 10K) instead of a whole f64 X
 _F64_COLS = 8192
@@ -95,26 +108,50 @@ def restricted_gradient_sweep_plain(Xwb, r, need, c_prev):
     return out
 
 
+class SweepPlan(NamedTuple):
+    tiles: int   # column tiles of _SW_TILE columns (a block's last is ragged)
+    split: int   # row slices per tile (1: no partials, one launch)
+    rows: int    # rows per slice
+    grid: int    # CTAs of the persistent grid (the kernel caps it further
+                 # by the occupancy the card reports)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_dense_sweep(nb: int, n: int, W: int, sms: int) -> SweepPlan:
+    """K5's launch plan for ``nb`` blocks of ``n`` rows and row stride
+    ``W`` on a card with ``sms`` multiprocessors: the rows are split only
+    when the column tiles alone cannot give ``_SW_FILL`` CTAs per SM (the
+    8-tile working set), and never below ``_SW_MIN_ROWS`` rows a slice."""
+    tiles = nb * -(-W // _SW_TILE)
+    want = _SW_FILL * sms
+    split = 1
+    if tiles < want:
+        split = max(1, min(-(-want // tiles), n // _SW_MIN_ROWS))
+    rows = -(-n // split)
+    split = -(-n // rows)            # no empty slice
+    return SweepPlan(tiles, split, rows,
+                     min(tiles * split, _SW_CTAS_PER_SM * sms))
+
+
 def _dense_sweep(fn, X, r, out, nb: int, n: int, W: int, name: str):
     """Launch one K5 instantiation: ``out`` (nb·W columns) ← X'r over
-    row stride ``W``."""
-    nr = -(-n // _ROW_CHUNK)
-    _build.require(nr <= 65535, f"{name} kernel: n = {n} is too tall")
-    part = torch.empty((nr, nb * W), dtype=out.dtype, device=out.device)
-    P = _build.ptr
-    err = fn(P(X), P(r), P(part), P(out), nb, n, W, _ROW_CHUNK,
-             _build.stream())
+    row stride ``W``; a partials buffer only when the plan splits rows."""
+    plan = plan_dense_sweep(nb, n, W, _build.sm_count(out.device))
+    part = (torch.empty((plan.split, nb * W), dtype=out.dtype,
+                        device=out.device) if plan.split > 1 else None)
+    err = fn(X.data_ptr(), r.data_ptr(),
+             None if part is None else part.data_ptr(), out.data_ptr(), nb, n,
+             W, plan.split, plan.rows, plan.grid, _build.stream(out.device))
     _build.check(err, name)
 
 
 def _require_sweep_inputs(name, X, r, xdtypes, rdtype, n):
     req = _build.require
-    req(X.dtype in xdtypes, f"{name} kernel: X dtype {X.dtype}")
-    req(X.is_contiguous(), f"{name} kernel: X must be contiguous")
-    req(r.is_cuda and r.device == X.device and r.dtype == rdtype,
-        f"{name} kernel: r must be {rdtype} on {X.device}")
-    req(tuple(r.shape) == (n,) and r.is_contiguous(),
-        f"{name} kernel: r must be contiguous ({n},)")
+    req(X.dtype in xdtypes, "{} kernel: X dtype {}", name, X.dtype)
+    req(X.is_contiguous(), "{} kernel: X must be contiguous", name)
+    req(r.device == X.device and r.dtype == rdtype and r.shape == (n,)
+        and r.is_contiguous(), "{} kernel: r must be contiguous ({},) {} "
+        "on {}", name, n, rdtype, X.device)
 
 
 def fused_gradient_sweep(Xwb, r):

@@ -57,25 +57,74 @@ def _problem(dev, dtype, n=1000, p=700, B=128, gram=False, seed=0):
 TOL = {torch.float32: 2e-4, torch.float64: 1e-11}
 
 
+def _k1_plan(dev, n, B, dtype):
+    return active_pass.plan_active_pass(
+        n, B, torch.empty((), dtype=dtype).element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("gram", [False, True])
 @pytest.mark.parametrize("inner", ["ista", "exact"])
 @pytest.mark.parametrize("B", [128, 48])
-def test_active_pass_kernel_matches_twin(dev, dtype, gram, inner, B):
-    prob, st = _problem(dev, dtype, B=B, gram=gram)
+@pytest.mark.parametrize("n", [1000, 50_000])
+def test_active_pass_kernel_matches_twin(dev, dtype, gram, inner, B, n):
+    """K1 against its twin: n = 1000 leaves the last CTA a ragged 8 rows
+    and keeps the row tile in shared memory; at n = 50,000 the planner
+    keeps r only (B = 128), so the residual update reads X_b again.  One
+    launch, no host read."""
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    plan = _k1_plan(dev, n, B, dtype)
+    assert plan.grid * plan.rows > n
+    if n == 1000:
+        assert plan.keep_x
+    elif B == 128:
+        assert not plan.keep_x and plan.keep_r
+    prob, st = _problem(dev, dtype, n=n, B=B, gram=gram)
     nb = prob.lamw.shape[0]
-    args = (prob, st.beta, st.r, st.active, 0.05, 1000.0,
+    args = (prob, st.beta, st.r, st.active, 0.05, float(n),
             torch.arange(nb, device=dev), torch.arange(B, device=dev))
     counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
     n0 = getattr(active_pass, counter)
-    bk, rk, mk, _ = active_pass.fused_active_pass(*args, inner=inner)
+    reads = host.COUNTS["host_reads"]
+    bk, rk, mk, _ = active_pass.fused_active_pass(*args, inner=inner,
+                                                  rsqr=st.rsqr)
+    assert host.COUNTS["host_reads"] == reads
     torch.cuda.synchronize()
     assert getattr(active_pass, counter) == n0 + 1
     bp, rp, mp, _ = active_pass.fused_active_pass_plain(*args, inner=inner)
     tol = TOL[dtype]
     torch.testing.assert_close(bk, bp, atol=tol, rtol=0)
-    torch.testing.assert_close(rk, rp, atol=10 * tol, rtol=0)
+    torch.testing.assert_close(rk, rp, atol=10 * tol * max(1.0, n / 1000),
+                               rtol=0)
     torch.testing.assert_close(mk, mp, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_active_pass_kernel_is_one_launch(dev, dtype):
+    """One device kernel per call (the engine's call, with its rsqr), and
+    with no active block the outputs are the inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prob, st = _problem(dev, dtype, gram=True)
+    nb = prob.lamw.shape[0]
+    border = torch.arange(nb, device=dev)
+    corder = torch.arange(128, device=dev)
+    for act in (st.active, torch.zeros_like(st.active)):
+        args = (prob, st.beta, st.r, act, 0.05, 1000.0, border, corder)
+        active_pass.fused_active_pass(*args, inner="ista", rsqr=st.rsqr)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bk, rk, mk, _ = active_pass.fused_active_pass(
+                *args, inner="ista", rsqr=st.rsqr)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, kernels
+    assert torch.equal(bk, st.beta) and torch.equal(rk, st.r)
+    assert float(mk) == 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -139,9 +188,16 @@ def test_lasso_kernels_match_plain_path(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B", [128, 48])
-def test_dense_sweep_kernel_matches_twin(dev, dtype, B):
-    """K5 on the blocked layout: every block, a ragged row tail."""
-    prob, st = _problem(dev, dtype, B=B)
+@pytest.mark.parametrize("n, p, split", [(1000, 700, True),
+                                         (256, 600 * 128, False)])
+def test_dense_sweep_kernel_matches_twin(dev, dtype, B, n, p, split):
+    """K5 on the blocked layout: every block, a ragged row tail; few
+    column tiles split the rows (a second, fixed-order pass), 600 tiles or
+    more do not (one launch, no partials)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = gradient_sweep.plan_dense_sweep(-(-p // B), n, B, sms)
+    assert (plan.split > 1) == split
+    prob, st = _problem(dev, dtype, n=n, p=p, B=B)
     n0 = gradient_sweep.LAUNCHES_DENSE
     ck = gradient_sweep.fused_gradient_sweep(prob.Xwb, st.r)
     torch.cuda.synchronize()
@@ -154,11 +210,12 @@ def test_dense_sweep_kernel_matches_twin(dev, dtype, B):
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("p", [700, 100])
+@pytest.mark.parametrize("p", [700, 100, 701])
 def test_grad_f64_kernel_matches_twin(dev, xdtype, p):
     """K5's f64-accumulating instantiation on the dense (n, p) design: a
-    ragged last column tile (p = 700) and a design narrower than one tile
-    (p = 100)."""
+    ragged last column tile (p = 700), a design narrower than one tile
+    (p = 100), and rows whose byte stride is not a multiple of 16
+    (p = 701: the kernel's scalar loads)."""
     rng = np.random.default_rng(2)
     X = torch.as_tensor(rng.standard_normal((1000, p)), dtype=xdtype,
                         device=dev)

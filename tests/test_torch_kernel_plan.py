@@ -1,0 +1,71 @@
+"""The launch planners of the port's hand-written kernels, on the CPU.
+
+``kernels/active_pass.py::plan_active_pass`` sizes K1's cooperative grid
+and its shared memory; ``kernels/gradient_sweep.py::plan_dense_sweep``
+lays out K5's persistent grid and decides when it splits the rows.  Both
+are pure Python, so they are held here against hand-worked cases for an
+H100 (132 SMs, 232,448 bytes of shared memory a CTA may opt in to).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from coordinatedescent_jl_tpu_torch.kernels import (  # noqa: E402
+    active_pass, gradient_sweep)
+
+SMS = 132
+OPTIN = 232_448
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B", [48, 128])
+@pytest.mark.parametrize("n", [100, 10_000, 50_000, 1_000_000])
+def test_active_pass_plan_fits_shared_memory(n, B, itemsize):
+    plan = active_pass.plan_active_pass(n, B, itemsize, SMS, OPTIN)
+    assert plan.smem <= OPTIN
+    assert 1 <= plan.grid <= SMS
+    # every row has exactly one owner, and no CTA is left without rows
+    assert plan.grid * plan.rows >= n > (plan.grid - 1) * plan.rows
+    assert plan.keep_r or not plan.keep_x
+
+
+def test_active_pass_plan_hand_worked():
+    # f32, n = 10K, B = 128: 132 CTAs of 76 rows; the header, 512 threads'
+    # 16-byte sums, the Gram at row stride 160, 9 vectors and 32 slots
+    # (94,864 bytes), then 76 rows of r and 76 rows of X_b (39,216 bytes)
+    plan = active_pass.plan_active_pass(10_000, 128, 4, SMS, OPTIN)
+    assert plan == active_pass.ActivePlan(132, 76, True, True, 134_080)
+    # f64: the Gram at row stride 144 (165,136 bytes) leaves no room for
+    # the 76 rows of X_b (77,824 bytes)
+    f64 = active_pass.plan_active_pass(10_000, 128, 8, SMS, OPTIN)
+    assert (f64.keep_x, f64.keep_r, f64.smem) == (False, True, 165_744)
+    # a small n takes fewer CTAs, 32 rows or more each
+    assert active_pass.plan_active_pass(100, 128, 4, SMS, OPTIN).grid == 4
+    # at n = 50K a CTA's 379 rows of X_b (194 KB) no longer fit: the
+    # kernel keeps r only and reads the rows again in the residual update
+    big = active_pass.plan_active_pass(50_000, 128, 4, SMS, OPTIN)
+    assert (big.rows, big.keep_x, big.keep_r) == (379, False, True)
+    assert big.smem == 94_864 + 4 * 379
+    # a budget below the Gram's own bytes is refused, not launched
+    with pytest.raises(ValueError):
+        active_pass.plan_active_pass(10_000, 128, 8, SMS, 100_000)
+
+
+@pytest.mark.parametrize("nb, n, W, split", [
+    (782, 10_000, 128, 1),     # the bench's blocked design: no partials
+    (1, 10_000, 100_000, 1),   # grad_f64 on the dense design: 782 tiles
+    (8, 10_000, 128, 66),      # the working set: 8 tiles, rows split
+    (8, 200, 128, 1),          # too few rows to split
+])
+def test_dense_sweep_plan(nb, n, W, split):
+    plan = gradient_sweep.plan_dense_sweep(nb, n, W, SMS)
+    assert plan.tiles == nb * -(-W // 128)
+    assert plan.split == split
+    assert plan.split * plan.rows >= n > (plan.split - 1) * plan.rows
+    assert plan.grid == min(plan.tiles * plan.split, 8 * SMS)
+    if split > 1:
+        # the items give at least 4 CTAs per SM, no slice under 128 rows
+        assert plan.tiles * plan.split >= 4 * SMS
+        assert plan.rows >= 128
