@@ -17,7 +17,8 @@ Phases, each failing loudly (exit code 1, no result line):
    inner-solve blocks, with a check that one K1 call launches one device
    kernel and reads nothing to the host; K5 on the working set's 8 blocks
    and on the full design; then the K2/K5 crossover of the gradient
-   refresh;
+   refresh; K3 (screen on and off) and K4 on a mid-solve state, with
+   exact masks, one device kernel and no host read per call;
 4. the main paths on the bench problem (dense Gaussian X, n = 10,000,
    p = 100,000, scattered s = 100 support, f32), each run with the launch
    counts set to 0 just before it and read just after:
@@ -88,6 +89,26 @@ def wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def one_call(fn):
+    """(host reads, device kernels' names, device ms) of one call of
+    ``fn`` under torch.profiler (``fn`` warmed up first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    fn()
+    torch.cuda.synchronize()
+    host.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (host.COUNTS["host_reads"], [e.name for e in kern],
+            sum(e.time_range.elapsed_us() for e in kern) * 1e-3)
 
 
 def maxdiff(a, b) -> float:
@@ -237,19 +258,11 @@ def main():
            4 * n * B + 16 * 2 * B * B)
     ok = ok and errr <= 1e-3
     # one call on the card: no host read, one device kernel
-    from torch.profiler import ProfilerActivity, profile
-
-    host.reset()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        active_pass.fused_active_pass(ws, st.beta, st.r, act8, lam0, float(n),
-                                      border8, corder, **kw)
-        torch.cuda.synchronize()
-    k1_kernels = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    log(f"K1 one call: host reads {host.COUNTS['host_reads']}, device "
-        f"kernels {len(k1_kernels)} {sorted(set(k1_kernels))}")
-    if host.COUNTS["host_reads"] or len(k1_kernels) != 1:
+    reads, names, dms = one_call(lambda: active_pass.fused_active_pass(
+        ws, st.beta, st.r, act8, lam0, float(n), border8, corder, **kw))
+    log(f"K1 one call: host reads {reads}, device kernels {len(names)} "
+        f"{sorted(set(names))}, device {dms:.4f} ms")
+    if reads or len(names) != 1:
         fail("fused_active_pass must launch one kernel and read nothing to "
              "the host")
 
@@ -403,11 +416,17 @@ def main():
         ms = cuda_ms(lambda: check.check_phase_a(*a_args, screen=screen), 50)
         pms = cuda_ms(lambda: check.check_phase_a_plain(*a_args,
                                                         screen=screen), 20)
+        reads, names, dms = one_call(
+            lambda: check.check_phase_a(*a_args, screen=screen))
         report("K3" if screen else None, "K3 check_phase_a", err, tol, ms,
                pms, f"screen={screen}; mask mismatches {masks}; "
-               f"need {int(outp[0].sum())}",
+               f"need {int(outp[0].sum())}; one call: device {dms:.4f} ms, "
+               f"{len(names)} kernel(s), {reads} host reads",
                f4 * (7 * nb_full * B + 5 * nb_full + 5), 40 * nb_full * B)
         ok = ok and masks == 0
+        if reads or len(names) != 1:
+            fail("check_phase_a must launch one kernel and read nothing to "
+                 "the host")
         if screen:
             need_a, ub_a, cand_a, bound_a = outp[0], outp[1], outp[2], outp[3]
     b_args = (c_full, st.beta, bound_a, ub_a, cand_a, full.adiag, full.lamw,
@@ -418,10 +437,15 @@ def main():
     err = maxdiff(outk[0], outp[0])
     ms = cuda_ms(lambda: check.check_phase_b(*b_args), 50)
     pms = cuda_ms(lambda: check.check_phase_b_plain(*b_args), 20)
+    reads, names, dms = one_call(lambda: check.check_phase_b(*b_args))
     report("K4", "K4 check_phase_b", err, 1e-5 * max(1.0, float(outp[0])),
-           ms, pms, f"mask mismatches {masks}",
+           ms, pms, f"mask mismatches {masks}; one call: device {dms:.4f} "
+           f"ms, {len(names)} kernel(s), {reads} host reads",
            f4 * (7 * nb_full * B + 3 * nb_full + 5), 20 * nb_full * B)
     ok = ok and masks == 0
+    if reads or len(names) != 1:
+        fail("check_phase_b must launch one kernel and read nothing to the "
+             "host")
     del full, st, args, a_args, b_args, c_full, bk, rk, bp, rp, ck, cp
     torch.cuda.empty_cache()
 

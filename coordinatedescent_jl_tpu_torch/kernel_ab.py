@@ -1,4 +1,5 @@
-"""Time K1 and K5 at the main paths' shapes, for an A/B of two trees.
+"""Time K1, K3/K4 and K5 at the main paths' shapes, for an A/B of two
+trees.
 
     python -m coordinatedescent_jl_tpu_torch.kernel_ab
     PYTHONPATH=<other tree> python <this tree>/coordinatedescent_jl_tpu_torch/kernel_ab.py
@@ -12,15 +13,20 @@ K1 without a Gram over the full design's active blocks, K1 in float64
 (exact inner) on the polish's inner-solve block, and K5 on the working
 set, on the full blocked design and in its float64-accumulating form on
 the dense design, each beside ``torch.matmul``'s time where one call
-computes the same function.  Per call: milliseconds between CUDA events
+computes the same function; the check phases on the full design's
+mid-solve state (fresh ``c``, a drift on half of the blocks): ``K3``
+(phase A, screen on), ``K3_noscreen`` and ``K4`` (phase B with phase A's
+masks).  Per call: milliseconds between CUDA events
 around back-to-back calls, the host's time to issue a call, the device
-kernels' time and count from ``torch.profiler``; one JSON line, after the
+kernels' time and count from ``torch.profiler`` (events and host time
+are medians of five runs); one JSON line, after the
 card's name and power limit.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -28,32 +34,36 @@ import time
 import torch
 
 
-def _ms(fn, reps: int) -> dict:
+def _ms(fn, reps: int, rounds: int = 5) -> dict:
     """Per call: ``ms`` between CUDA events around ``reps`` calls (what a
-    caller waits), ``host_ms`` the host's time to issue one call,
-    ``dev_ms`` the device kernels' time in a profiler trace and
-    ``kernels`` their number."""
+    caller waits) and ``host_ms`` the host's time to make one call, each
+    the median of ``rounds`` such runs (the host's time varies between
+    runs on a shared machine); ``dev_ms`` the device kernels' time in a
+    profiler trace and ``kernels`` their number."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host = time.perf_counter() - t0
-    end.record()
-    torch.cuda.synchronize()
+    ev, hs = [], []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        hs.append(time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        ev.append(start.elapsed_time(end))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"ms": start.elapsed_time(end) / reps,
-            "host_ms": host * 1e3 / reps,
+    return {"ms": statistics.median(ev) / reps,
+            "host_ms": statistics.median(hs) * 1e3 / reps,
             "dev_ms": sum(e.time_range.elapsed_us() for e in kern)
             * 1e-3 / reps,
             "kernels": len(kern) / reps}
@@ -65,6 +75,7 @@ def main():
         sys.exit(1)
     import coordinatedescent_jl_tpu_torch as tcd
     from coordinatedescent_jl_tpu_torch.kernels import active_pass as ap
+    from coordinatedescent_jl_tpu_torch.kernels import check
     from coordinatedescent_jl_tpu_torch.kernels import gradient_sweep as gs
     from coordinatedescent_jl_tpu_torch.models import polish as pol
     from coordinatedescent_jl_tpu_torch.ops import block_cd
@@ -128,7 +139,21 @@ def main():
         *args, inner="ista", iters=16, rsqr=st.rsqr), 5)
     out["K5"] = _ms(lambda: gs.fused_gradient_sweep(full.Xwb, st.r), 20)
     out["K5_matmul"] = _ms(lambda: torch.matmul(st.r, full.Xwb), 20)
-    del full, st, args
+    c_full = block_cd._full_gradient_c("ls", full, st.r, kernels=False)
+    drift = torch.where(torch.rand(nbf, generator=g, device=dev) < 0.5,
+                        torch.rand(nbf, generator=g, device=dev) * 1e-3,
+                        torch.zeros(nbf, device=dev))
+    scal = block_cd._check_scalars(lam0, float(n), torch.dot(st.r, st.r),
+                                   torch.dot(st.r, y), 1e-6)
+    a_args = (c_full, st.beta, drift, full.adiag, full.lamw,
+              full.valid.float(), full.xwnorm, scal)
+    out["K3"] = _ms(lambda: check.check_phase_a(*a_args, screen=True), 200)
+    out["K3_noscreen"] = _ms(
+        lambda: check.check_phase_a(*a_args, screen=False), 200)
+    _, ub, cand, bound, _, _ = check.check_phase_a(*a_args, screen=True)
+    b_args = (c_full, st.beta, bound, ub, cand, *a_args[3:])
+    out["K4"] = _ms(lambda: check.check_phase_b(*b_args), 200)
+    del full, st, args, c_full, a_args, b_args, bound
     torch.cuda.empty_cache()
 
     r64 = y.double() - X[:, support].double() @ beta_true[support].double()

@@ -48,11 +48,13 @@ _SIGNATURES = {
     # Xwb, r, order, part, out, n_need, n, B, R, stream
     "cdt_rsweep": [_P] * 5 + [_I] * 4 + [_P],
     # c, beta, drift, adiag, lamw, validf, xwnorm, scal, need, ub, cand,
-    # bound, maxh, active, nb, B, screen, stream
-    "cdt_check_a": [_P] * 14 + [_I] * 3 + [_P],
+    # bound, maxh, active, part, nb, B, screen, grid, stream
+    "cdt_check_a": [_P] * 15 + [_I] * 4 + [_P],
     # c, beta, bound, ubf, candf, adiag, lamw, validf, xwnorm, scal, maxh,
-    # active, nb, B, stream
-    "cdt_check_b": [_P] * 12 + [_I] * 2 + [_P],
+    # active, part, nb, B, grid, stream
+    "cdt_check_b": [_P] * 13 + [_I] * 3 + [_P],
+    # phase_b, &ctas (int)
+    "cdt_check_resident": [_I, _P],
     # X, r, part|0, out, nb, n, W, split, rows, grid, stream (both K5
     # instantiations)
     "cdt_dense_sweep": [_P] * 4 + [_I] * 6 + [_P],

@@ -10,19 +10,29 @@ Both plain twins call the same cores as the plain check
 (``ops/block_cd.py``: ``_gap_safe_core``, ``_stale_core_ls``,
 ``_habs_reduce_core``, ``_ls_candidate``).
 
-Design on the H100: one CTA of 1024 threads, a warp per block row, the
-global reductions (max ratio, L1 norm, maxH) as block reductions in a fixed
-order; compiled without multiply-add contraction so each elementwise
-operation rounds as PyTorch's does.  Bounded by latency: the check reads
-about 3 MB at p = 100K.  The JAX package gates the fused check on VMEM
-(``fused_check_fits``); the H100 has no such limit at these sizes, so the
-only gate here is float32.
+Design on the H100 (the CUDA source has the details): one cooperative
+launch per call spreads the block rows over the card, a warp per row and
+16-byte loads, in CTAs of 256 threads laid out by :func:`plan_check`.  The
+screen's global terms (phase A) and the final ``maxh`` are per-CTA
+partials that meet at a grid barrier and are then combined in a fixed
+order, so results are deterministic with no atomics; compiled without
+multiply-add contraction so each elementwise operation rounds as
+PyTorch's does and the masks equal the twins'.  Bounded by latency (a
+launch and one or two grid barriers): a call reads about 2.8 MB at
+p = 100K, 0.8 µs at the card's memory rate.  The JAX package gates the
+fused check on VMEM (``fused_check_fits``); the H100 has no such limit at
+these sizes (the grid strides over any number of rows), so the only gate
+here is float32.
 
 Masks are returned as float {0, 1} tensors of shape ``(nb,)``; ``maxh`` is
 a 0-d tensor.  ``LAUNCHES_A``/``LAUNCHES_B`` count kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,16 +42,61 @@ from ..ops.block_cd import (_gap_safe_core, _habs_reduce_core,
 
 LAUNCHES_A = 0
 LAUNCHES_B = 0
+# the kernels' shape (csrc/check.cu): warps (block rows owned at once) per
+# 256-thread CTA, coordinates of a row one warp loads at once (4 a lane),
+# and float partials per CTA
+_CK_WARPS = 8
+_CK_CHUNK = 128
+_CK_PART = 4
 
 
-def _check_inputs(name, dev, **tensors):
-    req = _build.require
-    for key, (t, shape) in tensors.items():
-        req(t.is_cuda and t.device == dev and t.dtype == torch.float32,
-            f"{name}: {key} must be float32 on {dev}")
-        req(tuple(t.shape) == shape and t.is_contiguous(),
-            f"{name}: {key} must be contiguous {shape}, got "
-            f"{tuple(t.shape)}")
+class CheckPlan(NamedTuple):
+    grid: int    # co-resident CTAs
+    rows: int    # block rows a warp owns, at most (rows stride the warps)
+    keep: bool   # a warp owns one row of one chunk: phase A keeps its
+    #              inputs in registers between the screen and the row pass
+
+
+@functools.lru_cache(maxsize=64)
+def plan_check(nb: int, B: int, sms: int, resident: int) -> CheckPlan:
+    """K3/K4's launch plan: a CTA per 8 block rows (a warp per row), at
+    most ``sms * resident`` CTAs (``resident``: the kernel's CTAs one SM
+    holds at once, so the cooperative grid is co-resident); past that
+    the rows stride over the warps.  Mirrors ``csrc/check.cu``: the
+    kernel keeps a row in registers when every warp owns at most one row
+    and ``B <= 128``."""
+    grid = max(1, min(-(-nb // _CK_WARPS), sms * resident))
+    rows = -(-nb // (grid * _CK_WARPS))
+    return CheckPlan(grid, rows, rows == 1 and B <= _CK_CHUNK)
+
+
+def _resident(phase_b: bool, index: int) -> int:
+    """CTAs of phase A's or B's kernel one SM of device ``index`` holds at
+    once (the C side's cached occupancy query)."""
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_build.library().cdt_check_resident_f32(
+            int(phase_b), ctypes.byref(ctas)), "check_resident")
+    return ctas.value // _build.sm_count(torch.device("cuda", index))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(phase_b: bool, nb: int, B: int, index: int) -> CheckPlan:
+    return plan_check(nb, B, _build.sm_count(torch.device("cuda", index)),
+                      _resident(phase_b, index))
+
+
+def _check_inputs(name, dev, tensors):
+    """The kernels take contiguous float32 tensors on ``dev``: plain
+    comparisons on every call (hundreds a solve), the message built only
+    on failure."""
+    for key, t, shape in tensors:
+        if not (t.device == dev and t.dtype == torch.float32
+                and t.shape == shape and t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {key} must be a contiguous float32 {tuple(shape)} "
+                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
 
 
 def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
@@ -54,23 +109,31 @@ def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
                                    xwnorm, scal, screen=screen)
     global LAUNCHES_A
     nb, B = c.shape
-    sq = (nb, B)
-    _check_inputs("check phase A", c.device, c=(c, sq),
-                  beta=(beta, sq), drift=(drift, (nb,)), adiag=(adiag, sq),
-                  lamw=(lamw, sq), validf=(validf, sq), xwnorm=(xwnorm, sq),
-                  scal=(scal, (5,)))
-    col = dict(dtype=torch.float32, device=c.device)
-    need, ub, cand, active = (torch.empty((nb,), **col) for _ in range(4))
-    bound = torch.empty((nb, B), **col)
-    maxh = torch.empty((1,), **col)
-    P = _build.ptr
+    dev = c.device
+    sq, row = c.shape, (nb,)
+    _check_inputs("check phase A", dev, (
+        ("c", c, sq), ("beta", beta, sq), ("drift", drift, row),
+        ("adiag", adiag, sq), ("lamw", lamw, sq), ("validf", validf, sq),
+        ("xwnorm", xwnorm, sq), ("scal", scal, (5,))))
+    grid = _plan(False, nb, B, dev.index).grid
+    # one allocation: bound, the need / ub / cand / active rows, then maxh
+    # and the grid's partials
+    nbB = nb * B
+    out = torch.empty((nbB + 4 * nb + 1 + _CK_PART * grid,),
+                      dtype=torch.float32, device=dev)
+    o = out.data_ptr()
+    need, ub, cand, active, maxh = (o + 4 * (nbB + i * nb) for i in range(5))
     err = _build.library().cdt_check_a_f32(
-        P(c), P(beta), P(drift), P(adiag), P(lamw), P(validf), P(xwnorm),
-        P(scal), P(need), P(ub), P(cand), P(bound), P(maxh), P(active), nb,
-        B, int(bool(screen)), _build.stream())
+        c.data_ptr(), beta.data_ptr(), drift.data_ptr(), adiag.data_ptr(),
+        lamw.data_ptr(), validf.data_ptr(), xwnorm.data_ptr(),
+        scal.data_ptr(), need, ub, cand, o, maxh, active, maxh + 4, nb, B,
+        int(bool(screen)), grid, _build.stream(dev))
     _build.check(err, "check_a")
     LAUNCHES_A += 1
-    return need, ub, cand, bound, maxh[0], active
+    # the six outputs' views from one call (every view op costs host time)
+    bound, need, ub, cand, active, tail = out.split_with_sizes(
+        (nbB, nb, nb, nb, nb, 1 + _CK_PART * grid))
+    return need, ub, cand, bound.view(nb, B), tail[0], active
 
 
 def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
@@ -82,23 +145,26 @@ def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
                                    lamw, validf, xwnorm, scal)
     global LAUNCHES_B
     nb, B = c_new.shape
-    sq = (nb, B)
-    _check_inputs("check phase B", c_new.device, c=(c_new, sq),
-                  beta=(beta, sq), bound=(bound, sq), ubf=(ubf, (nb,)),
-                  candf=(candf, (nb,)), adiag=(adiag, sq), lamw=(lamw, sq),
-                  validf=(validf, sq), xwnorm=(xwnorm, sq),
-                  scal=(scal, (5,)))
-    col = dict(dtype=torch.float32, device=c_new.device)
-    active = torch.empty((nb,), **col)
-    maxh = torch.empty((1,), **col)
-    P = _build.ptr
+    dev = c_new.device
+    sq, row = c_new.shape, (nb,)
+    _check_inputs("check phase B", dev, (
+        ("c", c_new, sq), ("beta", beta, sq), ("bound", bound, sq),
+        ("ubf", ubf, row), ("candf", candf, row), ("adiag", adiag, sq),
+        ("lamw", lamw, sq), ("validf", validf, sq), ("xwnorm", xwnorm, sq),
+        ("scal", scal, (5,))))
+    grid = _plan(True, nb, B, dev.index).grid
+    # one allocation: active, maxh, then the grid's partials
+    out = torch.empty((nb + 1 + _CK_PART * grid,), dtype=torch.float32,
+                      device=dev)
+    o = out.data_ptr()
     err = _build.library().cdt_check_b_f32(
-        P(c_new), P(beta), P(bound), P(ubf), P(candf), P(adiag), P(lamw),
-        P(validf), P(xwnorm), P(scal), P(maxh), P(active), nb, B,
-        _build.stream())
+        c_new.data_ptr(), beta.data_ptr(), bound.data_ptr(), ubf.data_ptr(),
+        candf.data_ptr(), adiag.data_ptr(), lamw.data_ptr(),
+        validf.data_ptr(), xwnorm.data_ptr(), scal.data_ptr(), o + 4 * nb,
+        o, o + 4 * (nb + 1), nb, B, grid, _build.stream(dev))
     _build.check(err, "check_b")
     LAUNCHES_B += 1
-    return maxh[0], active
+    return out[nb], out[:nb]
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ wall time and counters, then once under ``torch.profiler`` (CPU + CUDA):
 
 For each it prints one JSON line: the wall time, the device time (the
 sum of the kernels' durations in the trace), the device's idle share,
-the number of device kernels, the top kernels by time, the host reads
+the number of device kernels, the top kernels by time, the device time
+and calls of each of the port's own kernels (``cdt``), the host reads
 and the kernel launch counters.  The batched line adds the refine rounds
 (``stats``) and the kernels and device time inside the
 ``union_block_fista`` spans; the polish line adds its rounds and support
@@ -100,6 +101,13 @@ def _trace(fn, top: int = 8):
         by_name[e.name][1] += e.time_range.elapsed_us() * 1e-6
     busy = sum(v[1] for v in by_name.values())
     tops = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    # the port's own kernels (namespace cdt), whether in the top or not
+    ours = collections.defaultdict(lambda: [0, 0.0])
+    for name, (calls, secs) in by_name.items():
+        if "cdt::" in name:
+            key = name.split("(")[0].split("cdt::")[-1]
+            ours[key][0] += calls
+            ours[key][1] += secs
     spans = [e for e in evs if e.name == _SPAN
              and e.device_type == torch.autograd.DeviceType.CPU]
     span_k = [k for e in spans for k in _span_kernels(e)]
@@ -108,6 +116,8 @@ def _trace(fn, top: int = 8):
             "kernels": len(dev_evs),
             "top": [{"name": k[:80], "calls": c, "s": t}
                     for k, (c, t) in tops],
+            "cdt": {k: {"calls": c, "s": t}
+                    for k, (c, t) in sorted(ours.items())},
             "fista_spans": {"count": len(spans), "kernels": len(span_k),
                             "device_s": sum(k.duration for k in span_k) * 1e-6,
                             "host_s": sum(e.cpu_time_total

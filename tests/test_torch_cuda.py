@@ -142,8 +142,54 @@ def test_gradient_sweep_kernel_matches_twin(dev, dtype):
     assert torch.equal(ck[~need], c_prev[~need])
 
 
-@pytest.mark.parametrize("screen", [True, False])
-def test_check_kernels_match_twins(dev, screen):
+def _check_case(dev, nb=40, B=128, *, lamw_zero=False, drift_zero=False,
+                beta_zero=False, seed=0):
+    """Synthetic inputs of the check kernels (no X): rows of four kinds
+    (nonzero β at the KKT edge; zero β with small gradients, screened;
+    zero β with one gradient at 0.99 λ, not screened; small gradients),
+    drifts of 1e-3 (stale, uncertified), 1e-6 (certified) and 0, dead
+    columns and a ragged last row.  ``r'y`` puts the duality gap near 0,
+    so the screen's ball is small; every screen test is at least 3 % of
+    its threshold from the edge, so no mask depends on the order of the
+    L1 sum.  Returns phase A's arguments and
+    a refreshed ``c`` for phase B."""
+    rng = np.random.default_rng(seed)
+    n, lam0 = 1000.0, 0.05
+    valid = np.ones((nb, B))
+    valid[-1, B // 2:] = 0.0
+    adiag = n * (0.5 + rng.random((nb, B))) * valid
+    adiag[0, :3] = 0.0
+    lamw = (0.5 + rng.random((nb, B))) * valid
+    if lamw_zero:
+        lamw[nb // 2, 5] = 0.0          # a valid unpenalised coordinate
+    lamvec = n * lam0 * lamw
+    sign = rng.choice([-1.0, 1.0], (nb, B))
+    kind = np.arange(nb)[:, None] % 4
+    beta = np.where((kind == 0) & (rng.random((nb, B)) < 0.1),
+                    0.8 / max(nb, 40) * sign, 0.0) * valid
+    if beta_zero:
+        beta[:] = 0.0
+    c = sign * lamvec * np.where(kind % 2 == 1, 0.3, 0.6) * rng.random((nb, B))
+    c = np.where(beta != 0, 0.98 * sign * lamvec, c)
+    c[2::4, 7] = 0.99 * sign[2::4, 7] * lamvec[2::4, 7]
+    drift = np.where(np.arange(nb) % 2 == 0, 1e-3 * (1 + rng.random(nb)), 0.0)
+    drift[5::7] = 1e-6
+    if drift_zero:
+        drift[:] = 0.0
+    rn2 = n
+    ry = rn2 + n * lam0 * float(np.sum(lamw * np.abs(beta)))
+    c_new = c + 0.01 * lamvec * rng.standard_normal((nb, B)) * valid
+
+    def f(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+
+    return ((f(c), f(beta), f(drift), f(adiag), f(lamw), f(valid),
+             f(np.sqrt(adiag)), f(np.array([lam0, n, rn2, ry, 1e-6]))),
+            f(c_new))
+
+
+def _problem_case(dev):
+    """The check's inputs on a mid-solve state of a real problem."""
     prob, st = _problem(dev, torch.float32)
     nb = prob.lamw.shape[0]
     c = block_cd._full_gradient_c("ls", prob, st.r, kernels=False)
@@ -152,20 +198,83 @@ def test_check_kernels_match_twins(dev, screen):
                         torch.zeros(nb, device=dev))
     scal = block_cd._check_scalars(0.05, 1000.0, torch.dot(st.r, st.r),
                                    torch.dot(st.r, prob.y), 1e-6)
-    validf = prob.valid.float()
-    a = (c, st.beta, drift, prob.adiag, prob.lamw, validf, prob.xwnorm, scal)
+    return (c, st.beta, drift, prob.adiag, prob.lamw, prob.valid.float(),
+            prob.xwnorm, scal), c
+
+
+CHECK_CASES = {
+    "problem": None,
+    "base": {},
+    "rows_7813": dict(nb=7813),          # p = 1M: more rows than warps
+    "rows_30000": dict(nb=30_000),       # past any co-resident grid
+    "one_row": dict(nb=1),
+    "B48": dict(B=48),
+    "B50": dict(B=50),                   # B % 4 != 0: scalar loads
+    "B200": dict(B=200),                 # two chunks a row
+    "lamw_zero": dict(lamw_zero=True),   # the screen's ok is false
+    "drift_zero": dict(drift_zero=True),
+    "beta_zero": dict(beta_zero=True),
+}
+
+
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+@pytest.mark.parametrize("screen", [True, False])
+def test_check_kernels_match_twins(dev, screen, case):
+    """K3 and K4 against their twins: masks exactly, values to relative
+    1e-5 (the kernel adds the screen's L1 norm in another order)."""
+    kw = CHECK_CASES[case]
+    a, c_new = _problem_case(dev) if kw is None else _check_case(dev, **kw)
+    nb, B = a[0].shape
+    plan = check._plan(False, nb, B, a[0].device.index)
+    if case == "rows_30000":
+        assert plan.rows > 1 and not plan.keep
+    if case == "B200":
+        assert not plan.keep
     outk = check.check_phase_a(*a, screen=screen)
     outp = check.check_phase_a_plain(*a, screen=screen)
     for i in (0, 1, 2, 5):
         assert torch.equal(outk[i], outp[i]), i
     torch.testing.assert_close(outk[3], outp[3], rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(outk[4], outp[4], rtol=1e-5, atol=1e-7)
-    b = (c, st.beta, outp[3], outp[1], outp[2], prob.adiag, prob.lamw,
-         validf, prob.xwnorm, scal)
+    b = (c_new, a[1], outp[3], outp[1], outp[2], a[3], a[4], a[5], a[6],
+         a[7])
     mk, ak = check.check_phase_b(*b)
     mp, ap = check.check_phase_b_plain(*b)
     assert torch.equal(ak, ap)
     torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("screen", [True, False])
+def test_check_kernels_are_one_launch_and_deterministic(dev, screen):
+    """At the bench's 782 rows: a call of each phase is one device kernel
+    and reads nothing to the host, and two calls give bitwise-equal
+    outputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    a, c_new = _check_case(dev, nb=782)
+
+    def both():
+        outa = check.check_phase_a(*a, screen=screen)
+        outb = check.check_phase_b(c_new, a[1], outa[3], outa[1], outa[2],
+                                   a[3], a[4], a[5], a[6], a[7])
+        return (*outa, *outb)
+
+    first = both()
+    torch.cuda.synchronize()
+    reads = host.COUNTS["host_reads"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = both()
+        torch.cuda.synchronize()
+    assert host.COUNTS["host_reads"] == reads
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert sum("check_a_kernel" in k for k in kernels) == 1, kernels
+    assert sum("check_b_kernel" in k for k in kernels) == 1, kernels
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_lasso_kernels_match_plain_path(dev):

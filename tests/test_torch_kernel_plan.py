@@ -2,9 +2,10 @@
 
 ``kernels/active_pass.py::plan_active_pass`` sizes K1's cooperative grid
 and its shared memory; ``kernels/gradient_sweep.py::plan_dense_sweep``
-lays out K5's persistent grid and decides when it splits the rows.  Both
-are pure Python, so they are held here against hand-worked cases for an
-H100 (132 SMs, 232,448 bytes of shared memory a CTA may opt in to).
+lays out K5's persistent grid and decides when it splits the rows;
+``kernels/check.py::plan_check`` sizes K3/K4's cooperative grid.  All are
+pure Python, so they are held here against hand-worked cases for an H100
+(132 SMs, 232,448 bytes of shared memory a CTA may opt in to).
 """
 
 import pytest
@@ -13,7 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from coordinatedescent_jl_tpu_torch.kernels import (  # noqa: E402
-    active_pass, gradient_sweep)
+    active_pass, check, gradient_sweep)
 
 SMS = 132
 OPTIN = 232_448
@@ -69,3 +70,29 @@ def test_dense_sweep_plan(nb, n, W, split):
         # the items give at least 4 CTAs per SM, no slice under 128 rows
         assert plan.tiles * plan.split >= 4 * SMS
         assert plan.rows >= 128
+
+
+@pytest.mark.parametrize("nb, B, resident, grid, rows, keep", [
+    # the bench: 782 rows of 128 on 98 CTAs of 8 warps, a row a warp, kept
+    # in registers between phase A's two passes
+    (782, 128, 4, 98, 1, True),
+    (1, 128, 4, 1, 1, True),
+    # p = 1M: 977 CTAs wanted; 4 per SM cap the grid at 528, so a warp
+    # owns up to 2 rows and reads them again; 8 per SM hold all 977
+    (7813, 128, 4, 528, 2, False),
+    (7813, 128, 8, 977, 1, True),
+    (782, 48, 4, 98, 1, True),
+    (782, 200, 4, 98, 1, False),      # two chunks a row: not kept
+    (30_000, 128, 8, 1056, 4, False),
+])
+def test_check_plan(nb, B, resident, grid, rows, keep):
+    plan = check.plan_check(nb, B, SMS, resident)
+    assert plan == check.CheckPlan(grid, rows, keep)
+    assert 1 <= plan.grid <= SMS * resident
+    # the kernel's loop: warp w of the grid owns rows w, w + 8 G, ...
+    warps = 8 * plan.grid
+    owned = [list(range(w, nb, warps)) for w in range(warps)]
+    assert sorted(b for rs in owned for b in rs) == list(range(nb))
+    assert max(len(rs) for rs in owned) == plan.rows
+    # no CTA is left without rows
+    assert all(owned[8 * g] for g in range(plan.grid))
