@@ -15,7 +15,11 @@ Phases, each failing loudly (exit code 1, no result line):
    kernel's bound: K1 in float32 on the scan's working set (8 active
    blocks, and 1) and the full problem, and in float64 on the polish's
    inner-solve blocks, with a check that one K1 call launches one device
-   kernel and reads nothing to the host; K5 on the working set's 8 blocks
+   kernel and reads nothing to the host; K1's wls form (float32, FISTA,
+   Gram on and off, random positive row weights) and its sqrt form
+   (float32 FISTA and exact on the working set, float64 exact on the sqrt
+   polish's inner-solve blocks), β, r, maxh and the returned ``‖r‖²``
+   against the twins; K5 on the working set's 8 blocks
    and on the full design; then the K2/K5 crossover of the gradient
    refresh; K3 (screen on and off) and K4 on a mid-solve state, with
    exact masks, one device kernel and no host read per call;
@@ -26,7 +30,8 @@ Phases, each failing loudly (exit code 1, no result line):
       from 0.5·λmax to 0.05·λmax (``path_batch=0``), with the kernels and
       with the plain path (``use_pallas=False``); the final point's
       relative duality gap (float64 accumulation) must be <= 1e-5 and the
-      plain solves must reach the same support;
+      plain solves must reach the same support; ``refit_lasso_path`` on
+      the last 5 points' supports, held to its normal equations;
    b. the batched path (``path_batch=128, coarse_stride=99``, bench.py's
       headline configuration): it must certify without falling back, every
       point must agree in support with the scan of 4a, and the plain run
@@ -35,7 +40,21 @@ Phases, each failing loudly (exit code 1, no result line):
       options, as bench.py) then ``polish_lasso`` of its solution, which
       must converge to a relative gap <= 1e-7; the two are counted apart,
       and the polish alone must launch K1's and K5's float64 forms.
-   Every kernel must have launched in the runs that drive it.
+   d. ``sqrt_lasso`` at 1.1·sqrt(2 ln p) (bench.py's options), kernels and
+      plain: same support, K1's sqrt form and K5 launched, K3/K4 never;
+      ``sqrt_lasso_kkt_compensated`` of its solution; ``polish_sqrt_lasso``
+      to a compensated relative KKT <= 1e-7 (K1 sqrt in float64, K5 f64);
+   e. ``scaled_lasso`` at sqrt(2 ln p / n) then ``polish_scaled_lasso``:
+      relative gap and relative σ change <= 1e-7;
+   f. ``feasible_lasso`` at the same level then ``polish_feasible_lasso``:
+      relative gap <= 1e-7, converged;
+   g. one ``coordinate_descent(WeightedLSLoss, ProxL1)`` solve with random
+      row weights in [0.5, 1.5] at 0.05·λmax of the weighted problem,
+      kernels and plain: same support; the run that launches K1's wls form
+      and K3/K4 with the screen off.
+   Every kernel must have launched in the runs that drive it.  (The plain
+   runs repeat the kernels' arithmetic in eager PyTorch and are no
+   yardstick of speed; 4a's plain scan is the longest of them.)
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 1 without one.
@@ -44,6 +63,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -91,24 +111,21 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
+RETAKEN = []   # the traces one_call had to take again, one entry a call
+
+
 def one_call(fn):
-    """(host reads, device kernels' names, device ms) of one call of
-    ``fn`` under torch.profiler (``fn`` warmed up first)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """(host reads, device kernels' names, device ms) of one call of ``fn``
+    under torch.profiler (``profile_paths.trace_one_call``, which retakes a
+    trace that lost a launch its wrapper counted).  Fails unless the
+    wrappers counted exactly one launch."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
 
-    from coordinatedescent_jl_tpu_torch.utils import host
-
-    fn()
-    torch.cuda.synchronize()
-    host.reset()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (host.COUNTS["host_reads"], [e.name for e in kern],
-            sum(e.time_range.elapsed_us() for e in kern) * 1e-3)
+    reads, names, dms, counted, retaken = trace_one_call(fn)
+    RETAKEN.append(retaken)
+    if counted != 1:
+        fail(f"one call counted {counted} launches, traced {names}")
+    return reads, names, dms
 
 
 def maxdiff(a, b) -> float:
@@ -147,7 +164,8 @@ def main():
                                                             gradient_sweep)
         from coordinatedescent_jl_tpu_torch.models import polish as pol
         from coordinatedescent_jl_tpu_torch.ops import block_cd
-        from coordinatedescent_jl_tpu_torch.profile_paths import bench_problem
+        from coordinatedescent_jl_tpu_torch.profile_paths import (
+            bench_problem, launch_counts, reset_launch_counts)
         from coordinatedescent_jl_tpu_torch.utils import host
     except ImportError as e:
         fail(f"the port's package is not importable here: {e}")
@@ -278,7 +296,68 @@ def main():
            1e-5 * float(cp.abs().max()), ms, pms,
            f"8-block working set, split {plan.split} x {plan.rows} rows",
            f4 * (8 * n * B + n + 8 * B), 2 * 8 * n * B, library_ms=lms)
-    del ws, st
+
+    # K1's wls and sqrt forms on the same 8-block working set.  Tolerances
+    # as for ls (beta, maxh 1e-4; r 1e-3 over |r| ~ 1e2); the returned
+    # rsqr = ||r||^2 ~ 1e4 relative: 1e-5 (a sum of n = 10K f32 squares in
+    # another order; through the exact scan it also carries the
+    # cancellation of 1024 three-term updates).
+    def k1_kind(key, what, prob_k, st_k, lam_k, kind, inner, nbytes, flops,
+                reps_plain):
+        nonlocal ok
+        args = (prob_k, st_k.beta, st_k.r, act8, lam_k, float(n), border8,
+                corder)
+        kw = dict(kind=kind, inner=inner, iters=16,
+                  rsqr=torch.dot(st_k.r, st_k.r))
+        bk, rk, mk, sk = active_pass.fused_active_pass(*args, **kw)
+        bp_, rp, mp, sp = active_pass.fused_active_pass_plain(*args, **kw)
+        err = max(maxdiff(bk, bp_), maxdiff(mk, mp))
+        errr = maxdiff(rk, rp)
+        errs = abs(float(sk) - float(sp)) / max(abs(float(sp)), 1e-30)
+        ms = cuda_ms(lambda: active_pass.fused_active_pass(*args, **kw), 20)
+        pms = cuda_ms(lambda: active_pass.fused_active_pass_plain(
+            *args, **kw), reps_plain)
+        reads, names, dms = one_call(
+            lambda: active_pass.fused_active_pass(*args, **kw))
+        report(key, f"K1 fused_active_pass ({kind})", err, 1e-4, ms, pms,
+               f"{what}; r err {errr:.2e} (tol 1.0e-03); rsqr "
+               f"{float(sk):.6e} rel err {errs:.2e} (tol 1.0e-05); nnz "
+               f"{int((bk != 0).sum())}; one call: device {dms:.4f} ms, "
+               f"{len(names)} kernel(s), {reads} host reads", nbytes, flops)
+        ok = ok and errr <= 1e-3 and errs <= 1e-5
+        if kind == "sqrt" and float(sk) == float(kw["rsqr"]):
+            fail("the sqrt pass returned its input rsqr")
+        if reads or len(names) != 1:
+            fail(f"fused_active_pass ({kind}) must launch one kernel and "
+                 "read nothing to the host")
+
+    w_rows = 0.5 + torch.rand(n, generator=g, device=dev)
+    for gram_on in (True, False):
+        wsw = block_cd.build_blocked(
+            "wls", opts.replace(cache_gram=gram_on, compact=False),
+            torch.ones(1024, device=dev), X=X[:, cols].contiguous(), y=y,
+            w=w_rows)
+        if (wsw.Kb is not None) != gram_on or wsw.Xwb is wsw.Xb:
+            fail("the wls working set must hold a second design")
+        stw = block_cd._init_state("wls", wsw, bws, None)
+        # bytes: both designs' 8 blocks (each read once), else as ls;
+        # flops: as ls, and without a Gram 2 n B^2 a block more
+        k1_kind("K1wls" if gram_on else None,
+                f"8 blocks, Gram {'on' if gram_on else 'off'}, ista",
+                wsw, stw, lam0, "wls", "ista",
+                k1_bytes + f4 * 8 * n * B - (0 if gram_on else f4 * 8 * B * B),
+                k1_flops + (0 if gram_on else 8 * 2 * n * B * B), 10)
+        del wsw, stw
+    lam_sq = 1.1 * math.sqrt(2 * math.log(p))
+    wss = block_cd.build_blocked("sqrt", ws_opts, torch.ones(1024, device=dev),
+                                 X=X[:, cols].contiguous(), y=y)
+    sts = block_cd._init_state("sqrt", wss, bws, None)
+    k1_kind("K1sqrt", "8 blocks, Gram on, ista", wss, sts, lam_sq, "sqrt",
+            "ista", k1_bytes + f4, k1_flops + 8 * 2 * n, 10)
+    # the exact scan: ~40 operations a coordinate instead of FISTA's steps
+    k1_kind(None, "8 blocks, Gram on, exact", wss, sts, lam_sq, "sqrt",
+            "exact", k1_bytes + f4, 8 * (4 * n * B + 2 * B * B + 40 * B), 2)
+    del ws, st, wss, sts
 
     # K1, float64 with the exact inner and cached Grams: the polish's inner
     # solve on its own inputs (_restricted_problem), the working set of a
@@ -314,6 +393,52 @@ def main():
            nb64 * (4 * n * B + 2 * B * B), peak="f64")
     ok = ok and errr <= 1e-11 * float(rp.abs().max())
     del prob64, st64, args, sol0
+
+    # K1's sqrt form in float64 with the exact inner: the sqrt polish's
+    # inner solve on its own inputs, the support of a sqrt_lasso at
+    # bench.py's level padded to the polish's allocation, ||r||^2 refreshed
+    # as each of its sweeps starts.  Tolerances as for K1 f64; rsqr 1e-11
+    # relative.
+    opts_sq = tcd.CDOptions(opt_tol=1e-6, max_iter=300, randomize=False,
+                            block_size=B)
+    sol_sq = tcd.sqrt_lasso(X, y, lam_sq, options=opts_sq,
+                            standardize_X=False)
+    sup0 = torch.nonzero(sol_sq.x).flatten()
+    ns0 = sup0.numel()
+    C0 = pol._allocation(ns0, p, 4096)
+    idx0 = torch.full((C0,), p, dtype=torch.int64, device=dev)
+    idx0[:ns0] = sup0
+    beta00 = torch.zeros((C0,), dtype=torch.float64, device=dev)
+    beta00[:ns0] = sol_sq.x[sup0].double()
+    prob64, st64, _ = pol._restricted_problem(
+        X, y.double(), torch.ones(p, dtype=torch.float64, device=dev), idx0,
+        beta00)
+    nb64 = prob64.lamw.shape[0]
+    args = (prob64, st64.beta, st64.r, st64.active, lam_sq, float(n),
+            torch.arange(nb64, device=dev), corder)
+    kw = dict(kind="sqrt", inner="exact", rsqr=torch.dot(st64.r, st64.r))
+    bk, rk, mk, sk = active_pass.fused_active_pass(*args, **kw)
+    bp64, rp, mp, sp = active_pass.fused_active_pass_plain(*args, **kw)
+    err = max(maxdiff(bk, bp64), maxdiff(mk, mp))
+    errr = maxdiff(rk, rp)
+    errs = abs(float(sk) - float(sp)) / float(sp)
+    ms = cuda_ms(lambda: active_pass.fused_active_pass(*args, **kw), 20)
+    pms = cuda_ms(lambda: active_pass.fused_active_pass_plain(*args, **kw), 2)
+    reads, names, dms = one_call(
+        lambda: active_pass.fused_active_pass(*args, **kw))
+    report("K1sqrt_f64", "K1 fused_active_pass (sqrt)", err,
+           1e-11 * max(1.0, float(bp64.abs().max())), ms, pms,
+           f"float64, the sqrt polish's {nb64} block(s) of support {ns0}, "
+           f"Gram on, exact; r err {errr:.2e}; rsqr rel err {errs:.2e} (tol "
+           f"1.0e-11); one call: device {dms:.4f} ms, {len(names)} "
+           f"kernel(s), {reads} host reads",
+           8 * (nb64 * n * B + nb64 * B * B + 4 * nb64 * B + 2 * n + 1),
+           nb64 * (4 * n * B + 2 * B * B + 40 * B), peak="f64")
+    ok = ok and errr <= 1e-11 * float(rp.abs().max()) and errs <= 1e-11
+    if reads or len(names) != 1:
+        fail("fused_active_pass (sqrt, float64) must launch one kernel and "
+             "read nothing to the host")
+    del prob64, st64, args, sol_sq
 
     # K1 on the full 782-block problem (4.0 GB blocked copy), Gram off:
     # the fallback active pass over the planted support's blocks
@@ -464,26 +589,25 @@ def main():
            f4 * n * p + 8 * n + 8 * p, 2 * n * p, peak="f64")
     del gk, gp, r64
     torch.cuda.empty_cache()
+    log(f"one-call traces: {len(RETAKEN)}, retaken {sum(RETAKEN)} (the "
+        "tracer dropped a launch the wrapper counted)")
     if not ok:
         fail("a kernel disagrees with its plain twin")
 
     # ---- 4. the main paths ----------------------------------------------
-    def counts():
-        return {"K1": active_pass.LAUNCHES,
-                "K1f64": active_pass.LAUNCHES_F64, "K2": gs.LAUNCHES,
-                "K3": check.LAUNCHES_A, "K4": check.LAUNCHES_B,
-                "K5": gs.LAUNCHES_DENSE, "K5f64": gs.LAUNCHES_F64}
+    counts = launch_counts
 
     def reset_counts():
-        active_pass.LAUNCHES = active_pass.LAUNCHES_F64 = gs.LAUNCHES = 0
-        check.LAUNCHES_A = check.LAUNCHES_B = 0
-        gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
+        reset_launch_counts()
         host.reset()
 
-    def require_launches(path, launches, keys):
+    def require_launches(path, launches, keys, never=()):
         missing = [k for k in keys if launches[k] == 0]
         if missing:
             fail(f"kernels not launched by the {path} run: {missing}")
+        wrong = [k for k in never if launches[k]]
+        if wrong:
+            fail(f"kernels the {path} run must never launch: {wrong}")
 
     total = dict.fromkeys(counts(), 0)
 
@@ -543,6 +667,25 @@ def main():
         if bad:
             fail(f"{name}: kernel and plain supports differ above {supp_tol:g}")
     del sol_p, path_p
+    # the least-squares refit on the supports of the path's last 5 points,
+    # on the card: each must satisfy its normal equations in float64
+    host.reset()
+    refits, t_refit = wall(lambda: tcd.refit_lasso_path(
+        tcd.LassoPath(path.lam_path[-5:], path.beta_path[-5:]), X, y))
+    worst = 0.0
+    for S, coef in refits.items():
+        if not (coef.is_cuda and coef.shape == (len(S),)):
+            fail("refit_lasso_path: a refit is not on the card or misshapen")
+        Xs = X[:, list(S)].double()
+        res = y.double() - Xs @ coef.double()
+        worst = max(worst, float((res @ Xs).abs().max() / (y.double() @ Xs).abs().max()))
+    log(f"refit_lasso_path: {len(refits)} distinct support(s) of the last 5 "
+        f"points in {t_refit:.3f} s, {host.COUNTS['host_reads']} host "
+        f"read(s); max |X_S'(y - X_S b)| / max |X_S'y| {worst:.2e} (tol "
+        "1.0e-04)")
+    if not refits or not worst <= 1e-4:
+        fail("refit_lasso_path: the normal equations do not hold")
+    del refits
     torch.cuda.empty_cache()
 
     # 4b. the batched path (bench.py:227-261): first call, then the warm
@@ -618,6 +761,158 @@ def main():
         f"{gap_c / primal_c:.3e}")
     if not gap_c / primal_c <= 1.1e-7:
         fail("the recomputed compensated gap is above 1.1e-7")
+    del sol_t, res
+    torch.cuda.empty_cache()
+
+    def same_support(name, a, b):
+        bad = support_mismatch(a, b, supp_tol)
+        log(f"{name}: kernel vs plain support: {int((a != 0).sum())} vs "
+            f"{int((b != 0).sum())}, differing "
+            f"{int(((a != 0) != (b != 0)).sum())} (above {supp_tol:g}: "
+            f"{bad}), max |diff| {maxdiff(a, b):.3e}")
+        if bad or not int((a != 0).sum()):
+            fail(f"{name}: kernel and plain supports differ above "
+                 f"{supp_tol:g} (or the solution is empty)")
+
+    def finite(name, x):
+        if tuple(x.shape) != (p,) or not bool(torch.isfinite(x).all()):
+            fail(f"{name}: not a finite vector of {p} coefficients")
+
+    # 4d. sqrt_lasso (bench.py:358-366) and its 1e-7 polish
+    tcd.sqrt_lasso(X, y, lam_sq, options=opts_sq, standardize_X=False)
+    lam_d = lam_sq * (1.0 + 1e-7)
+    reset_counts()
+    sol_d, t_d = wall(lambda: tcd.sqrt_lasso(X, y, lam_d, options=opts_sq,
+                                             standardize_X=False))
+    launches_d, reads_d = counts(), dict(host.COUNTS)
+    require_launches("sqrt_lasso", launches_d, ("K1sqrt", "K5"),
+                     never=("K3", "K4", "K1", "K1wls"))
+    add(launches_d)
+    finite("sqrt_lasso", sol_d.x)
+    reset_counts()
+    sol_dp, t_dp = wall(lambda: tcd.sqrt_lasso(
+        X, y, lam_d, options=opts_sq.replace(use_pallas=False),
+        standardize_X=False))
+    if any(counts().values()):
+        fail("use_pallas=False launched a kernel")
+    same_support("sqrt_lasso", sol_d.x, sol_dp.x)
+    kkt_d, rn_d = tcd.sqrt_lasso_kkt_compensated(X, y, sol_d.x, lam_d)
+    log(f"sqrt_lasso: kernels {t_d:.4f} s, plain {t_dp:.3f} s; nnz "
+        f"{int((sol_d.x != 0).sum())}, planted support recovered "
+        f"{int((sol_d.x[support] != 0).sum())}/{s}; compensated kkt_rel "
+        f"{kkt_d:.3e}, |r| {rn_d:.4f}; launches {launches_d}; host reads "
+        f"{reads_d['host_reads']} over {reads_d['epochs']} epochs")
+    if not kkt_d <= 1e-3:
+        fail(f"sqrt_lasso: compensated relative KKT {kkt_d:.3e} above 1e-3")
+    tcd.polish_sqrt_lasso(X, y, sol_dp.x, lam_d)                 # warm-up
+    reset_counts()
+    res_d, t_dpol = wall(lambda: tcd.polish_sqrt_lasso(X, y, sol_d.x, lam_d))
+    launches = counts()
+    require_launches("sqrt polish", launches, ("K1sqrt_f64", "K5f64"),
+                     never=("K3", "K4"))
+    add(launches)
+    log(f"sqrt polish: {t_dpol:.4f} s; kkt_rel {res_d.kkt_rel:.3e}, "
+        f"converged {res_d.converged}, rounds {res_d.rounds}, support "
+        f"{res_d.support_size}; launches {launches}; host reads "
+        f"{host.COUNTS['host_reads']}")
+    if not (res_d.converged and res_d.kkt_rel <= 1e-7):
+        fail(f"sqrt polish did not reach kkt_rel 1e-7: {res_d.kkt_rel:.3e}")
+    kkt_chk, _ = tcd.sqrt_lasso_kkt_compensated(X, y, res_d.beta, lam_d)
+    if not kkt_chk <= 1.1e-7:
+        fail(f"the recomputed sqrt certificate is {kkt_chk:.3e} > 1.1e-7")
+    del sol_d, sol_dp, res_d
+    torch.cuda.empty_cache()
+
+    # 4e. scaled_lasso (bench.py:422, the default options) and its polish
+    lam_sc = math.sqrt(2 * math.log(p) / n)
+    tcd.scaled_lasso(X, y, lam_sc)                               # warm-up
+    reset_counts()
+    sol_e, t_e = wall(lambda: tcd.scaled_lasso(X, y, lam_sc * (1.0 + 1e-7)))
+    launches_e, reads_e = counts(), dict(host.COUNTS)
+    require_launches("scaled_lasso", launches_e, ("K1", "K3", "K4", "K5"))
+    add(launches_e)
+    finite("scaled_lasso", sol_e.x)
+    reset_counts()
+    res_e, t_epol = wall(lambda: tcd.polish_scaled_lasso(
+        X, y, sol_e.x, lam_sc * (1.0 + 2e-7)))
+    launches = counts()
+    require_launches("scaled polish", launches, ("K1f64", "K5f64"))
+    add(launches)
+    log(f"scaled_lasso: {t_e:.4f} s, sigma {float(sol_e.sigma):.4f}, nnz "
+        f"{int((sol_e.x != 0).sum())}; launches {launches_e}; host reads "
+        f"{reads_e['host_reads']} over {reads_e['epochs']} epochs; polish "
+        f"{t_epol:.4f} s: rel gap {res_e.rel_gap:.3e}, sigma rel change "
+        f"{res_e.sigma_rel_change:.1e}, sigma {res_e.sigma:.6f}, sigma "
+        f"rounds {res_e.sigma_rounds}, rounds {res_e.rounds}, converged "
+        f"{res_e.converged}; launches {launches}")
+    if not (res_e.converged and res_e.rel_gap <= 1e-7
+            and res_e.sigma_rel_change <= 1e-7):
+        fail("scaled polish did not reach its 1e-7 fixed point")
+    del sol_e, res_e
+
+    # 4f. feasible_lasso at the same level and its polish
+    tcd.feasible_lasso(X, y, lam_sc)                             # warm-up
+    reset_counts()
+    sol_f, t_f = wall(lambda: tcd.feasible_lasso(X, y,
+                                                 lam_sc * (1.0 + 1e-7)))
+    launches_f, reads_f = counts(), dict(host.COUNTS)
+    require_launches("feasible_lasso", launches_f, ("K1", "K3", "K4", "K5"))
+    add(launches_f)
+    finite("feasible_lasso", sol_f.x)
+    reset_counts()
+    res_f, t_fpol = wall(lambda: tcd.polish_feasible_lasso(
+        X, y, sol_f.x, lam_sc * (1.0 + 2e-7)))
+    launches = counts()
+    require_launches("feasible polish", launches, ("K1f64", "K5f64"))
+    add(launches)
+    log(f"feasible_lasso: {t_f:.4f} s, nnz {int((sol_f.x != 0).sum())}; "
+        f"launches {launches_f}; host reads {reads_f['host_reads']} over "
+        f"{reads_f['epochs']} epochs; polish {t_fpol:.4f} s: rel gap "
+        f"{res_f.rel_gap:.3e}, loading rel change "
+        f"{res_f.loading_rel_change:.1e}, loading rounds "
+        f"{res_f.loading_rounds}, rounds {res_f.rounds}, converged "
+        f"{res_f.converged}; launches {launches}")
+    if not (res_f.converged and res_f.rel_gap <= 1e-7):
+        fail("feasible polish did not reach its 1e-7 fixed point")
+    del sol_f, res_f
+    torch.cuda.empty_cache()
+
+    # 4g. one weighted-least-squares solve: K1's wls form, and K3/K4 with
+    # the screen off (the engine screens the ls kind only)
+    w_g = 0.5 + torch.rand(n, generator=g, device=dev)
+    loss_g = tcd.WeightedLSLoss(y, X, w_g)
+    lam_g = 0.05 * float(torch.max(torch.abs((w_g * y) @ X)) / n)
+    beta0 = torch.zeros(p, device=dev)
+    screens = []
+    phase_a = check.check_phase_a
+
+    def phase_a_seen(*a, screen):
+        screens.append(screen)
+        return phase_a(*a, screen=screen)
+
+    tcd.coordinate_descent(beta0, loss_g, tcd.ProxL1(lam_g), opts)  # warm-up
+    check.check_phase_a = phase_a_seen
+    reset_counts()
+    (beta_g, _), t_g = wall(lambda: tcd.coordinate_descent(
+        beta0, loss_g, tcd.ProxL1(lam_g * (1.0 + 1e-7)), opts))
+    check.check_phase_a = phase_a
+    launches_g, reads_g = counts(), dict(host.COUNTS)
+    require_launches("wls solve", launches_g, ("K1wls", "K3", "K4"),
+                     never=("K1", "K1sqrt"))
+    add(launches_g)
+    if not screens or any(screens):
+        fail(f"the wls solve must call phase A with the screen off: {screens}")
+    finite("wls solve", beta_g)
+    reset_counts()
+    (beta_gp, _), t_gp = wall(lambda: tcd.coordinate_descent(
+        beta0, loss_g, tcd.ProxL1(lam_g * (1.0 + 1e-7)), plain))
+    if any(counts().values()):
+        fail("use_pallas=False launched a kernel")
+    same_support("wls solve", beta_g, beta_gp)
+    log(f"wls solve: kernels {t_g:.4f} s, plain {t_gp:.3f} s at lam "
+        f"{lam_g:.6f}; launches {launches_g}; phase A calls {len(screens)}, "
+        f"all with the screen off; host reads {reads_g['host_reads']} over "
+        f"{reads_g['epochs']} epochs")
 
     src = "coordinatedescent_jl_tpu_torch/csrc/"
     meta = {
@@ -625,6 +920,13 @@ def main():
                "coordinatedescent_jl_tpu/ops/pallas_block.py:537"),
         "K1f64": ("fused_active_pass (float64, exact)", "active_pass.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:537"),
+        "K1wls": ("fused_active_pass (wls)", "active_pass.cu",
+                  "coordinatedescent_jl_tpu/ops/pallas_block.py:537"),
+        "K1sqrt": ("fused_active_pass (sqrt)", "active_pass.cu",
+                   "coordinatedescent_jl_tpu/ops/pallas_block.py:537"),
+        "K1sqrt_f64": ("fused_active_pass (sqrt, float64, exact)",
+                       "active_pass.cu",
+                       "coordinatedescent_jl_tpu/ops/pallas_block.py:537"),
         "K2": ("restricted_gradient_sweep", "gradient_sweep.cu",
                "coordinatedescent_jl_tpu/ops/pallas_block.py:752"),
         "K3": ("check_phase_a", "check.cu",

@@ -1,34 +1,54 @@
 """coordinatedescent_jl_tpu_torch: the PyTorch + CUDA port of
 ``coordinatedescent_jl_tpu`` for one NVIDIA H100.
 
-The least-squares Lasso main path — ``lasso``, ``lasso_path`` (scan and
-batched executions), ``coordinate_descent`` and the float64 polish
-``polish_lasso`` with its compensated certificate — runs in PyTorch, with
-the five TPU kernels on that path rewritten by hand for Hopper in CUDA C++
-(``kernels/``, ``csrc/``).  The entry points run on the GPU unless the
-caller passes ``device="cpu"``.  The kernels are built with ``nvcc`` at
-first use on the machine with the GPU; importing the package needs no
-GPU, no ``nvcc`` and no JAX.
+The vector-iterate estimators — ``lasso``, ``lasso_path`` (scan, chunked
+scan and batched executions), ``sqrt_lasso``, ``scaled_lasso``,
+``feasible_lasso``, ``coordinate_descent`` with the least-squares,
+weighted, sqrt and quadratic losses, and the float64 polishes with their
+compensated certificates — run in PyTorch, with every TPU kernel of the
+JAX package (the fused active pass in its ls, wls and sqrt forms, the
+restricted and the dense gradient sweeps, the two phases of the fused KKT
+check) rewritten by hand for Hopper in CUDA C++ (``kernels/``,
+``csrc/``).  Group and symmetric iterates, the varying-coefficient suite
+and the multi-device tiers are not ported yet.  The entry points run on
+the GPU unless the caller passes ``device="cpu"``.  The kernels are built
+with ``nvcc`` at first use on the machine with the GPU; importing the
+package needs no GPU, no ``nvcc`` and no JAX.
 """
 
-from .utils.options import CDOptions
-from .utils.helpers import sample_std, std_X
-from .ops.prox import ProxL1, soft_threshold
-from .ops.losses import LeastSquaresLoss, num_coordinates
+from .utils.options import CDOptions, IterLassoOptions
+from .utils.helpers import (find_init_residuals, find_init_sigma,
+                            find_largest_correlations, get_loadings,
+                            get_sigma, sample_std, std_X)
+from .ops.prox import ProxL1, ProxZero, soft_threshold
+from .ops.losses import (LeastSquaresLoss, QuadraticLoss, SqrtLassoLoss,
+                         WeightedLSLoss, num_coordinates)
 from .ops.block_cd import coordinate_descent
-from .ops.compensated import lasso_duality_gap_compensated
+from .ops.compensated import (lasso_duality_gap_compensated, loadings_f64,
+                              sqrt_lasso_kkt_compensated)
 from .ops.diagnostics import (lasso_duality_gap, lasso_duality_gap_f64,
                               lasso_kkt_residual)
-from .models.lasso import LassoSolution, lasso
-from .models.lasso_path import LassoPath, lasso_path
-from .models.polish import PolishResult, polish_lasso
+from .models.lasso import (LassoSolution, feasible_lasso, lasso,
+                           scaled_lasso, sqrt_lasso)
+from .models.lasso_path import LassoPath, lasso_path, refit_lasso_path
+from .models.polish import (FeasiblePolishResult, PolishResult,
+                            ScaledPolishResult, SqrtPolishResult,
+                            polish_feasible_lasso, polish_lasso,
+                            polish_scaled_lasso, polish_sqrt_lasso)
 
 __all__ = [
-    "CDOptions", "ProxL1", "soft_threshold", "LeastSquaresLoss",
-    "num_coordinates", "coordinate_descent", "lasso_duality_gap",
-    "lasso_duality_gap_f64", "lasso_duality_gap_compensated",
-    "lasso_kkt_residual", "LassoSolution", "lasso", "LassoPath",
-    "lasso_path", "PolishResult", "polish_lasso", "std_X", "sample_std",
+    "CDOptions", "IterLassoOptions", "ProxL1", "ProxZero", "soft_threshold",
+    "LeastSquaresLoss", "WeightedLSLoss", "SqrtLassoLoss", "QuadraticLoss",
+    "num_coordinates", "get_loadings", "get_sigma",
+    "find_largest_correlations", "find_init_residuals", "find_init_sigma",
+    "coordinate_descent", "lasso_duality_gap", "lasso_duality_gap_f64",
+    "lasso_duality_gap_compensated",
+    "lasso_kkt_residual", "sqrt_lasso_kkt_compensated", "loadings_f64",
+    "LassoSolution", "lasso", "sqrt_lasso", "scaled_lasso", "feasible_lasso",
+    "LassoPath", "lasso_path", "refit_lasso_path", "PolishResult",
+    "polish_lasso", "SqrtPolishResult", "polish_sqrt_lasso",
+    "ScaledPolishResult", "polish_scaled_lasso", "FeasiblePolishResult",
+    "polish_feasible_lasso", "std_X", "sample_std",
 ]
 
 __version__ = "0.1.0"

@@ -1,5 +1,8 @@
 // Fused active pass (K1): one active-set block-CD pass over the visit order,
-// least-squares kind, float and double, in one cooperative kernel launch.
+// for the least-squares, weighted least-squares and sqrt-lasso kinds, float
+// and double, in one cooperative kernel launch (the kind is a template
+// argument: the least-squares instantiation carries none of the others'
+// code).
 //
 // Replaces coordinatedescent_jl_tpu/ops/pallas_block.py:fused_active_pass
 // (its kernels _make_chunked_kernel and _make_resident_kernel).  On the TPU
@@ -47,6 +50,30 @@
 //   - each CTA updates its own rows, r -= X_b d, from the rows it kept.
 // Every sum is in a fixed order: no atomics, deterministic.
 //
+// The weighted kind (wls) has a second design, Xw = diag(w) X: c = Xw_b' r
+// and, with no cached Gram, K = Xw_b' X_b read the weighted rows, once; the
+// rows a CTA keeps in shared memory, and the residual update, are the
+// unweighted X_b's (pallas_block.py:428, 439-444, 471-473).
+//
+// The sqrt kind threads ||r||^2 through the pass and returns it:
+//   - inner = ista: the threshold scale of a visit is lam0 sqrt(max(||r||^2,
+//     1e-30)) with the ||r||^2 that stands at its start (the input's for the
+//     first visit), and after the residual update ||r||^2 is rebuilt from
+//     the new r (pallas_block.py:451-453, 475-480).  Each CTA owns a slice
+//     of r, so it writes the sum of squares of its slice beside the partial
+//     c of the next visit (double-buffered by parity like them), and after
+//     the next visit's grid barrier every CTA adds the G partials in one
+//     fixed order: every CTA holds the same threshold, and the rebuild costs
+//     no barrier of its own.  Only the pass's last visit needs one more
+//     barrier, before CTA 0 adds the partials into the output;
+//   - inner = exact: the scan is the three-branch closed-form minimizer
+//     (block_cd._sqrt_candidate) with the running ||r||^2 carried through
+//     the B coordinates and from visit to visit, in every CTA alike; no
+//     rebuild.  Each operation of the candidate is rounded on its own
+//     (__fmul_rn and friends, IEEE square roots and divisions), in the
+//     expression order of _sqrt_candidate: the zero test |s| > lam
+//     sqrt(rsb) decides the support, and the plain twin rounds that way.
+//
 // What bounds it on an H100: with a cached Gram (the working-set solve,
 // the main path) a visit reads the (n, B) block once, 2 n B sizeof(T)
 // bytes spread over G CTAs, plus the B x B Gram per CTA from L2, for
@@ -71,6 +98,9 @@ constexpr int AP_NVEC = 9;       // B-long vectors in shared memory
 constexpr int AP_KCH = 8;        // partial-Gram columns per sweep of rows
 constexpr int AP_GBATCH = 4;     // Gram loads in flight per thread
 constexpr int AP_CBATCH = 8;     // partial-c loads in flight per thread
+constexpr int AP_RS = 24;        // slot of `red` that holds the running
+                                 // ||r||^2 (block reductions use 0..15)
+constexpr int KIND_LS = 0, KIND_WLS = 1, KIND_SQRT = 2;
 
 // The Gram in shared memory: row l starts at l ld + V ((l / 4) % 8), ld =
 // B + 8 V (V = 16 / sizeof(T)), so that the rows 4 apart that the lanes
@@ -265,18 +295,64 @@ __device__ __forceinline__ void bar_scan() {
   asm volatile("bar.sync 1, 128;" ::: "memory");
 }
 
+// One rounding per operation (the compiler may not contract these into
+// fused multiply-adds).
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// The exact sqrt-lasso coordinate minimizer, block_cd._sqrt_candidate in
+// its expression order: with the coordinate's own contribution added back,
+// s = c + a beta and rsb = ||r_back||^2 = rsqr + 2 beta c + beta^2 a; zero
+// if |s| <= lam sqrt(rsb), else sign(s) (|s| - lam / sqrt(1 - lam^2 / a)
+// sqrt(rsb - s^2 / a)) / a.  `lam` = lam0 lamw, `lod` = lam / sqrt(1 -
+// lam^2 / a) (1 for the root when lam^2 >= a), both fixed for the scan.
+// Dead columns (a <= 0) keep beta.  `rs` is ||r||^2 before the move and
+// after it on return.
 template <typename T>
+__device__ __forceinline__ T sqrt_candidate(T bk, T ck, T a, T lam, T lod,
+                                            T& rs) {
+  const bool safe = a > T(0);
+  const T asafe = safe ? a : T(1);
+  const T sv = add_rn(ck, mul_rn(a, bk));
+  const T rsb = tmax(add_rn(add_rn(rs, mul_rn(mul_rn(T(2), bk), ck)),
+                            mul_rn(mul_rn(bk, bk), a)), T(0));
+  const bool ok = safe && mul_rn(lam, lam) < a;
+  const T inner = sqrt(tmax(add_rn(rsb, -(mul_rn(sv, sv) / asafe)), T(0)));
+  const T mag = add_rn(tabs(sv), -mul_rn(lod, inner)) / asafe;
+  const bool nz = ok && tabs(sv) > mul_rn(lam, sqrt(rsb));
+  T val = T(0);
+  if (nz) val = sv > T(0) ? mag : (sv < T(0) ? -mag : mul_rn(T(0), mag));
+  if (!safe) val = bk;
+  rs = tmax(add_rn(add_rn(rsb, -mul_rn(mul_rn(T(2), val), sv)),
+                   mul_rn(mul_rn(val, val), a)), T(0));
+  return val;
+}
+
+template <typename T, int KIND>
 __global__ void __launch_bounds__(AP_THREADS, 1)
-active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
-                   const T* __restrict__ lamw,
+active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
+                   const T* __restrict__ Kb, const T* __restrict__ lamw,
                    const long long* __restrict__ border,
                    const unsigned char* __restrict__ active,
                    const long long* __restrict__ corder,
                    const T* __restrict__ beta_in, const T* __restrict__ r_in,
-                   T* beta_out, T* r_out, T* maxh_out, T* part_c, T* part_k,
-                   T* kred, int nb, int n, int B, int rows, int keep_x,
-                   int keep_r, int ista, int iters, T lam0, T nsc) {
+                   const T* __restrict__ rsqr_in, T* beta_out, T* r_out,
+                   T* maxh_out, T* rsqr_out, T* part_c, T* part_rs,
+                   T* part_k, T* kred, int nb, int n, int B, int rows,
+                   int keep_x, int keep_r, int ista, int iters, T lam0,
+                   T nsc) {
   constexpr int V = vec_of<T>();
+  constexpr bool WLS = KIND == KIND_WLS, SQRT = KIND == KIND_SQRT;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* hdr = reinterpret_cast<int*>(smem_raw);  // [0] cursor, [1] block
@@ -286,6 +362,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
   T* scr = base + Ly.scr;
   T* Y0 = scr;          // the solve's two MAXB-long vectors, over the
   T* Y1 = scr + MAXB;   // row-group sums
+  T* LD = scr + 2 * MAXB;  // the sqrt scan's lam / sqrt(1 - lam^2 / a)
   T* xs = base + Ly.xs;
   T* K = base + Ly.K;
   T* c = base + Ly.vecs;
@@ -308,6 +385,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
   // 16-byte paths: X's rows (and with them the kept rows, c's vectors and
   // the staggered Gram rows in shared memory) are 16-byte aligned
   const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+                   (!WLS || reinterpret_cast<uintptr_t>(Xw) % 16 == 0) &&
                    ((size_t)B * sizeof(T)) % 16 == 0;
   const bool gvec = vec &&
       reinterpret_cast<uintptr_t>(gram ? Kb : kred) % 16 == 0;
@@ -322,7 +400,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
   const int k = tid / AP_QUAD, q = tid % AP_QUAD;  // the FISTA roles
   const bool own = k < B;
   const bool lead = own && q == 0;  // writes coordinate k
-  const T ts = nsc * lam0;
+  T ts = nsc * lam0;  // the threshold scale (sqrt + ista: set per visit)
 
   // beta_out starts as beta_in (the first grid barrier orders this copy
   // before CTA 0 writes any visited block); r from r_in, own rows
@@ -331,17 +409,23 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
     beta_out[e] = beta_in[e];
   for (int i = tid; i < nr; i += AP_THREADS) rl[i] = r_in[row0 + i];
   if (tid < B) CO[tid] = T(corder[tid]);
-  if (tid == 0) hdr[0] = 0;
+  if (tid == 0) {
+    hdr[0] = 0;
+    if (SQRT) red[AP_RS] = *rsqr_in;
+  }
   __syncthreads();
   if (w == 0) find_next(hdr, border, active, nb);
 
   T mh_all = T(0);
-  for (int t = 0;; ++t) {
+  int t = 0;
+  for (;; ++t) {
     __syncthreads();
     const int b = hdr[1];  // (found during the previous visit's residual)
     if (b < 0) break;
     const int par = t & 1;
     const T* Xb = X + (size_t)b * n * B;
+    // the rows of c's (and the Gram's) left operand
+    const T* Xwb = WLS ? Xw + (size_t)b * n * B : Xb;
 
     // 1. this CTA's partial c over its rows (kept in shared memory when
     //    planned), and without a Gram its partial Gram
@@ -352,11 +436,16 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
       if (rg < RG) {
         for (int i = rg; i < nr; i += RG * AP_UNROLL) {
           T x[AP_UNROLL][V];
+          // wls: the unweighted rows beside the weighted, to be kept
+          T xu[WLS ? AP_UNROLL : 1][V];
 #pragma unroll
           for (int u = 0; u < AP_UNROLL; ++u) {
             const int ii = i + u * RG;
             if (ii < nr) {
-              load_chunk(Xb + (size_t)(row0 + ii) * B, cl * V, B, vec, x[u]);
+              load_chunk(Xwb + (size_t)(row0 + ii) * B, cl * V, B, vec, x[u]);
+              if (WLS && keep_x)
+                load_chunk(Xb + (size_t)(row0 + ii) * B, cl * V, B, vec,
+                           xu[WLS ? u : 0]);
             } else {
 #pragma unroll
               for (int e = 0; e < V; ++e) x[u][e] = T(0);
@@ -367,12 +456,13 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
             const int ii = i + u * RG;
             if (ii < nr) {
               T* xd = xs + (size_t)ii * B + cl * V;
+              const T(&xk)[V] = WLS ? xu[WLS ? u : 0] : x[u];
               if (keep_x && vec) {
-                sts16(xd, x[u]);
+                sts16(xd, xk);
               } else if (keep_x) {
 #pragma unroll
                 for (int e = 0; e < V; ++e)
-                  if (cl * V + e < B) xd[e] = x[u][e];
+                  if (cl * V + e < B) xd[e] = xk[e];
               }
               const T rv = rl[ii];
 #pragma unroll
@@ -401,7 +491,8 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
           for (int i = 0; i < nr; ++i) {
             const T* xr = keep_x ? xs + (size_t)i * B
                                  : Xb + (size_t)(row0 + i) * B;
-            const T a = own ? xr[k] : T(0);
+            const T a = !own ? T(0)
+                        : WLS ? Xwb[(size_t)(row0 + i) * B + k] : xr[k];
 #pragma unroll
             for (int j = 0; j < AP_KCH; ++j) {
               const int kk = q + AP_QUAD * (j0 + j);
@@ -492,6 +583,15 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
     }
     __syncthreads();  // the sums of c are read out of scr, which Y0 and
                       // Y1 overlay
+    // sqrt + ista: ||r||^2 as the previous visit left it, the G partials
+    // added in the same order in every CTA
+    if (SQRT && ista && t > 0 && w == 0) {
+      T s = T(0);
+      for (int gg = lane; gg < G; gg += 32)
+        s += __ldcg(part_rs + (size_t)par * G + gg);
+      s = warp_sum(s);
+      if (lane == 0) red[AP_RS] = s;
+    }
     // Y0 = beta0 and Y1 = 0 past B (the FISTA product reads all MAXB)
     if (tid < MAXB) {
       const T bk = tid < B ? beta_in[(size_t)b * B + tid] : T(0);
@@ -507,6 +607,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
     // 4. the block solve, redundantly in every CTA -> D, DD, mh
     T mh = T(0);
     if (ista) {
+      if (SQRT) ts = lam0 * sqrt(tmax(red[AP_RS], T(1e-30)));
       // K[4 lane + i, 8 w + c] in registers for the whole solve.  K is
       // symmetric only up to rounding: column k, as the plain twin's
       // yv @ K.
@@ -585,11 +686,23 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
       const bool mine = tid < B;
       T *Cc = c, *Cx = Cn, *Dc = Y0, *Dx = Y1;
       T cr = T(0), dr = T(0);  // this thread's own c[k] and beta[k]
+      T rs = SQRT ? red[AP_RS] : T(0);  // the running ||r||^2 (sqrt)
       if (mine) {
         const T a = K[grow<T>(tid, ld) + tid];
         const bool safe = a > T(0);
-        AS[tid] = safe ? a : T(0);
-        TH[tid] = safe ? ts * lw[tid] / a : T(0);
+        if (SQRT) {
+          // the scan's constants are a, lam = lam0 lamw and lam / den
+          const T lam = mul_rn(lam0, lw[tid]);
+          const bool okk = safe && mul_rn(lam, lam) < a;
+          const T den =
+              sqrt(okk ? add_rn(T(1), -(mul_rn(lam, lam) / a)) : T(1));
+          AS[tid] = a;
+          TH[tid] = lam;
+          LD[tid] = lam / den;
+        } else {
+          AS[tid] = safe ? a : T(0);
+          TH[tid] = safe ? ts * lw[tid] / a : T(0);
+        }
         cr = c[tid];
         dr = b0[tid];
         Dc[tid] = dr;
@@ -598,12 +711,16 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
       // the scan's constants (AS, TH, corder) do not change in the scan:
       // the next coordinate's are read before each barrier
       int kk = (int)CO[0];
-      T as = AS[kk], th = TH[kk];
+      T as = AS[kk], th = TH[kk], lo = SQRT ? LD[kk] : T(0);
       for (int i = 0; i < B; ++i) {
         const T bk = Dc[kk];
         const T ck = Cc[kk];
         const T kr = mine ? K[grow<T>(kk, ld) + tid] : T(0);
-        const T val = as > T(0) ? soft(bk + ck / as, th) : bk;
+        T val;
+        if (SQRT)
+          val = sqrt_candidate(bk, ck, as, th, lo, rs);
+        else
+          val = as > T(0) ? soft(bk + ck / as, th) : bk;
         const T h = val - bk;
         if (mine) {
           cr -= kr * h;
@@ -613,18 +730,20 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
         }
         mh = tmax(mh, tabs(h));
         const int kn = i + 1 < B ? (int)CO[i + 1] : kk;
-        const T asn = AS[kn], thn = TH[kn];
+        const T asn = AS[kn], thn = TH[kn], lon = SQRT ? LD[kn] : T(0);
         bar_scan();
         T* tc = Cc; Cc = Cx; Cx = tc;
         T* td = Dc; Dc = Dx; Dx = td;
         kk = kn;
         as = asn;
         th = thn;
+        lo = lon;
       }
       if (mine) {
         D[tid] = dr;
         DD[tid] = dr - b0[tid];
       }
+      if (SQRT && tid == 0) red[AP_RS] = rs;
     }
     __syncthreads();
     mh_all = tmax(mh_all, mh);
@@ -633,6 +752,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
     // 5. r -= X_b d over this CTA's rows, one warp per row; warp 0 first
     //    finds the next visit's block, its loads under the other warps' rows
     if (w == 0) find_next(hdr, border, active, nb);
+    T rsacc = T(0);  // sqrt + ista: this warp's share of the new ||r||^2
     for (int i = w; i < nr; i += AP_THREADS / 32) {
       T s = T(0);
       for (int k0 = lane * V; k0 < B; k0 += 32 * V) {
@@ -653,29 +773,62 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Kb,
         for (int e = 0; e < V; ++e) s += x[e] * dd[e];
       }
       s = warp_sum(s);
-      if (lane == 0) rl[i] -= s;
+      if (lane == 0) {
+        const T rn = rl[i] - s;
+        rl[i] = rn;
+        if (SQRT) rsacc += rn * rn;
+      }
+    }
+    if (SQRT && ista) {
+      // this CTA's sum of squares, for the next visit's (parity's) threshold
+      const T tot = block_sum(rsacc, red);
+      if (tid == 0) part_rs[(size_t)((t + 1) & 1) * G + g] = tot;
     }
     __syncthreads();
   }
   if (keep_r)
     for (int i = tid; i < nr; i += AP_THREADS) r_out[row0 + i] = rl[i];
   if (g == 0 && tid == 0) *maxh_out = mh_all;
+  // ||r||^2 out (sqrt only; ls and wls do not read it and leave it to the
+  // caller): the input's for a pass with no visit; the scan's running value
+  // (exact); the last visit's rebuild (ista), whose partials the other CTAs
+  // wrote: one more grid barrier
+  if constexpr (SQRT) {
+    if (ista && t > 0) {
+      grid.sync();
+      if (g == 0 && w == 0) {
+        T s = T(0);
+        for (int gg = lane; gg < G; gg += 32)
+          s += __ldcg(part_rs + (size_t)(t & 1) * G + gg);
+        s = warp_sum(s);
+        if (lane == 0) *rsqr_out = s;
+      }
+    } else if (g == 0 && tid == 0) {
+      *rsqr_out = red[AP_RS];
+    }
+  }
 }
 
 template <typename T>
-int active_pass(const T* X, const T* Kb, const T* lamw,
+int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
                 const long long* border, const unsigned char* active,
                 const long long* corder, const T* beta_in, const T* r_in,
-                T* beta_out, T* r_out, T* maxh, T* part_c, T* part_k, T* kred,
+                const T* rsqr_in, T* beta_out, T* r_out, T* maxh,
+                T* rsqr_out, T* part_c, T* part_rs, T* part_k, T* kred,
                 int nb, int n, int B, int grid, int rows, int keep_x,
-                int keep_r, int smem, int ista, int iters, double lam0,
-                double nsc, cudaStream_t s) {
+                int keep_r, int smem, int kind, int ista, int iters,
+                double lam0, double nsc, cudaStream_t s) {
   if (B < 1 || B > MAXB || nb < 1 || n < 1 || grid < 1 || rows < 1 ||
-      (long long)grid * rows < n || (Kb == nullptr && (!part_k || !kred)))
+      (long long)grid * rows < n || (Kb == nullptr && (!part_k || !kred)) ||
+      kind < KIND_LS || kind > KIND_SQRT || !Xw || !rsqr_in || !rsqr_out ||
+      !part_rs)
     return (int)cudaErrorInvalidValue;
   if ((size_t)smem < ap_layout<T>(B, rows, keep_x, keep_r).bytes)
     return (int)cudaErrorInvalidValue;
-  const void* kern = (const void*)active_pass_kernel<T>;
+  const void* kern =
+      kind == KIND_WLS    ? (const void*)active_pass_kernel<T, KIND_WLS>
+      : kind == KIND_SQRT ? (const void*)active_pass_kernel<T, KIND_SQRT>
+                          : (const void*)active_pass_kernel<T, KIND_LS>;
   // the grid must be co-resident (a plain launch of too large a grid
   // would hang at the first barrier; the cooperative launch refuses it)
   int resident = 0;
@@ -683,10 +836,11 @@ int active_pass(const T* X, const T* Kb, const T* lamw,
   if (e != cudaSuccess) return (int)e;
   if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   T tl = T(lam0), tn = T(nsc);
-  void* args[] = {&X,      &Kb,     &lamw,   &border, &active, &corder,
-                  &beta_in, &r_in,  &beta_out, &r_out, &maxh,  &part_c,
-                  &part_k, &kred,   &nb,     &n,      &B,      &rows,
-                  &keep_x, &keep_r, &ista,   &iters,  &tl,     &tn};
+  void* args[] = {&X,       &Xw,      &Kb,     &lamw,     &border, &active,
+                  &corder,  &beta_in, &r_in,   &rsqr_in,  &beta_out, &r_out,
+                  &maxh,    &rsqr_out, &part_c, &part_rs, &part_k, &kred,
+                  &nb,      &n,       &B,      &rows,     &keep_x, &keep_r,
+                  &ista,    &iters,   &tl,     &tn};
   e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(AP_THREADS), args,
                                   (size_t)smem, s);
   if (e != cudaSuccess) return (int)e;
@@ -697,18 +851,21 @@ int active_pass(const T* X, const T* Kb, const T* lamw,
 
 #define CDT_ACTIVE_PASS(SUFFIX, T)                                            \
   extern "C" int cdt_active_pass_##SUFFIX(                                    \
-      const void* X, const void* Kb, const void* lamw, const void* border,    \
-      const void* active, const void* corder, const void* beta_in,            \
-      const void* r_in, void* beta_out, void* r_out, void* maxh,              \
-      void* part_c, void* part_k, void* kred, int nb, int n, int B, int grid, \
-      int rows, int keep_x, int keep_r, int smem, int ista, int iters,        \
-      double lam0, double nsc, void* stream) {                                \
+      const void* X, const void* Xw, const void* Kb, const void* lamw,        \
+      const void* border, const void* active, const void* corder,             \
+      const void* beta_in, const void* r_in, const void* rsqr_in,             \
+      void* beta_out, void* r_out, void* maxh, void* rsqr_out, void* part_c,  \
+      void* part_rs, void* part_k, void* kred, int nb, int n, int B,          \
+      int grid, int rows, int keep_x, int keep_r, int smem, int kind,         \
+      int ista, int iters, double lam0, double nsc, void* stream) {           \
     return cdt::active_pass<T>(                                               \
-        (const T*)X, (const T*)Kb, (const T*)lamw, (const long long*)border,  \
-        (const unsigned char*)active, (const long long*)corder,               \
-        (const T*)beta_in, (const T*)r_in, (T*)beta_out, (T*)r_out,           \
-        (T*)maxh, (T*)part_c, (T*)part_k, (T*)kred, nb, n, B, grid, rows,     \
-        keep_x, keep_r, smem, ista, iters, lam0, nsc, (cudaStream_t)stream);  \
+        (const T*)X, (const T*)Xw, (const T*)Kb, (const T*)lamw,              \
+        (const long long*)border, (const unsigned char*)active,               \
+        (const long long*)corder, (const T*)beta_in, (const T*)r_in,          \
+        (const T*)rsqr_in, (T*)beta_out, (T*)r_out, (T*)maxh, (T*)rsqr_out,   \
+        (T*)part_c, (T*)part_rs, (T*)part_k, (T*)kred, nb, n, B, grid, rows,  \
+        keep_x, keep_r, smem, kind, ista, iters, lam0, nsc,                   \
+        (cudaStream_t)stream);                                                \
   }
 
 CDT_ACTIVE_PASS(f32, float)

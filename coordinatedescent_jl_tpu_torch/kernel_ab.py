@@ -1,5 +1,5 @@
-"""Time K1, K3/K4 and K5 at the main paths' shapes, for an A/B of two
-trees.
+"""Time K1 (every form), K3/K4 and K5 at the main paths' shapes, for an A/B
+of two trees.
 
     python -m coordinatedescent_jl_tpu_torch.kernel_ab
     PYTHONPATH=<other tree> python <this tree>/coordinatedescent_jl_tpu_torch/kernel_ab.py
@@ -9,6 +9,10 @@ The second form times the kernels of the package found first on the path
 both trees have.  Shapes and inputs are ``chip_smoke.py``'s, from the bench
 problem (``profile_paths.bench_problem``, seed 0): K1 in float32 with the
 FISTA inner over the scan's 8-block working set (8 active blocks, and 1),
+its wls form there with random positive row weights (``K1wls``, and
+``K1wls_nogram`` without cached Grams) and its sqrt form (``K1sqrt`` FISTA,
+``K1sqrt_exact``) where the tree under test has them, ``K1sqrt_f64`` (exact)
+on the sqrt polish's inner-solve blocks,
 K1 without a Gram over the full design's active blocks, K1 in float64
 (exact inner) on the polish's inner-solve block, and K5 on the working
 set, on the full blocked design and in its float64-accumulating form on
@@ -26,6 +30,7 @@ card's name and power limit.  Needs a CUDA GPU.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -107,6 +112,29 @@ def main():
         args = (ws, st.beta, st.r, act, lam0, float(n), border8, corder)
         out[key] = _ms(lambda: ap.fused_active_pass(
             *args, inner="ista", iters=16, rsqr=st.rsqr), 50)
+    # the wls and sqrt forms (trees from before them have no LAUNCHES_KIND)
+    kinds = hasattr(ap, "LAUNCHES_KIND")
+    lam_sq = 1.1 * math.sqrt(2 * math.log(p))
+    if kinds:
+        act8 = torch.ones(8, dtype=torch.bool, device=dev)
+        Xc = X[:, cols].contiguous()
+        w = 0.5 + torch.rand(n, generator=g, device=dev)
+        for key, gram in (("K1wls", True), ("K1wls_nogram", False)):
+            pw = block_cd.build_blocked(
+                "wls", bp.opts.replace(cache_gram=gram, compact=False),
+                torch.ones(1024, device=dev), X=Xc, y=y, w=w)
+            sw = block_cd._init_state("wls", pw, st.beta, None)
+            args = (pw, sw.beta, sw.r, act8, lam0, float(n), border8, corder)
+            out[key] = _ms(lambda: ap.fused_active_pass(
+                *args, kind="wls", inner="ista", iters=16, rsqr=sw.rsqr), 50)
+        ps = block_cd.build_blocked("sqrt", bp.opts.replace(cache_gram=True),
+                                    torch.ones(1024, device=dev), X=Xc, y=y)
+        ss = block_cd._init_state("sqrt", ps, st.beta, None)
+        args = (ps, ss.beta, ss.r, act8, lam_sq, float(n), border8, corder)
+        for key, inner in (("K1sqrt", "ista"), ("K1sqrt_exact", "exact")):
+            out[key] = _ms(lambda: ap.fused_active_pass(
+                *args, kind="sqrt", inner=inner, iters=16, rsqr=ss.rsqr), 50)
+        del pw, sw, ps, ss, Xc
     out["K5_ws"] = _ms(lambda: gs.fused_gradient_sweep(ws.Xwb, st.r), 100)
     out["K5_ws_matmul"] = _ms(lambda: torch.matmul(st.r, ws.Xwb), 100)
     del ws, st
@@ -126,6 +154,12 @@ def main():
             torch.arange(nb64, device=dev), corder)
     out["K1f64"] = _ms(lambda: ap.fused_active_pass(
         *args, inner="exact", rsqr=st64.rsqr), 50)
+    if kinds:
+        args = (prob64, st64.beta, st64.r, st64.active, lam_sq, float(n),
+                torch.arange(nb64, device=dev), corder)
+        rs64 = torch.dot(st64.r, st64.r)
+        out["K1sqrt_f64"] = _ms(lambda: ap.fused_active_pass(
+            *args, kind="sqrt", inner="exact", rsqr=rs64), 50)
     del prob64, st64, args, sol
 
     full = block_cd.build_blocked("ls", bp.opts, torch.ones(p, device=dev),

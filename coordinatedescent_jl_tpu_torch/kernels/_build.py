@@ -41,10 +41,11 @@ _D = ctypes.c_double
 # argument types of every C entry point (pointers and the stream as
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
-    # X, Kb|0, lamw, border, active, corder, beta_in, r_in, beta_out,
-    # r_out, maxh, part_c, part_k|0, kred|0, nb, n, B, grid, rows, keep_x,
-    # keep_r, smem, ista, iters, lam0, n_scale, stream
-    "cdt_active_pass": [_P] * 14 + [_I] * 10 + [_D, _D, _P],
+    # X, Xw, Kb|0, lamw, border, active, corder, beta_in, r_in, rsqr_in,
+    # beta_out, r_out, maxh, rsqr_out, part_c, part_rs, part_k|0, kred|0,
+    # nb, n, B, grid, rows, keep_x, keep_r, smem, kind, ista, iters, lam0,
+    # n_scale, stream
+    "cdt_active_pass": [_P] * 18 + [_I] * 11 + [_D, _D, _P],
     # Xwb, r, order, part, out, n_need, n, B, R, stream
     "cdt_rsweep": [_P] * 5 + [_I] * 4 + [_P],
     # c, beta, drift, adiag, lamw, validf, xwnorm, scal, need, ub, cand,

@@ -3,11 +3,17 @@
 Replaces ``coordinatedescent_jl_tpu/ops/pallas_block.py:fused_active_pass``
 (the chunked kernel ``_make_chunked_kernel`` that runs at n = 10K, and the
 resident kernel ``_make_resident_kernel`` for small n: the CUDA kernels'
-row-chunk loop covers both).  One active-set block-CD pass over the blocks
-in ``_prefetch_order``: per active block, ``K = Xw_b'X_b`` (or the cached
-Gram), ``c = Xw_b'r``, a block solve (``_block_ista``: FISTA with a
-Gershgorin step, zero-snap and dead-column guard; or ``_block_scan``: the
-exact Gauss-Seidel scan through the Gram recursion), then
+row-chunk loop covers both), for the three kinds it takes: ``ls``, ``wls``
+(a second, row-weighted design ``Xwb`` for the Gram and the gradient; the
+residual update reads the unweighted ``Xb``) and ``sqrt`` (the running
+``‖r‖²`` goes in and comes back).  One active-set block-CD pass over the
+blocks in ``_prefetch_order``: per active block, ``K = Xw_b'X_b`` (or the
+cached Gram), ``c = Xw_b'r``, a block solve (``_block_ista``: FISTA with a
+Gershgorin step, zero-snap and dead-column guard, for sqrt on the MM
+majorizer's threshold ``λ0·‖r‖`` with ``‖r‖²`` rebuilt from the new
+residual after every visit; or ``_block_scan``: the exact Gauss-Seidel
+scan through the Gram recursion, for sqrt with the three-branch
+minimizer and ``‖r‖²`` carried through the coordinates), then
 ``r -= X_b·Δβ_b``.
 
 Design on the H100 (see the CUDA source for the details): the TPU kernel
@@ -19,8 +25,8 @@ each block redundantly.  :func:`plan_active_pass` sizes the grid and the
 shared memory.  Per visit it is bounded by the barrier's latency, the
 Gram's read from L2 and the solve's chain of steps.
 
-``LAUNCHES`` (float32) and ``LAUNCHES_F64`` (float64, the polish's inner
-solve) count wrapper calls that launched the kernel; the plain twin
+``LAUNCHES_KIND[kind][dtype is float64]`` counts the wrapper calls that
+launched the kernel (float64: the polishes' inner solves).  The plain twin
 never counts.
 """
 
@@ -33,10 +39,11 @@ import numpy as np
 import torch
 
 from . import _build
+from ..ops.prox import sqrt_candidate
 from ..utils import host
 
-LAUNCHES = 0
-LAUNCHES_F64 = 0
+LAUNCHES_KIND = {"ls": [0, 0], "wls": [0, 0], "sqrt": [0, 0]}
+_KINDS = {"ls": 0, "wls": 1, "sqrt": 2}   # csrc/active_pass.cu's KIND_*
 _MAX_B = 128       # widest block the kernel takes (K fits shared memory)
 # the kernel's shape (csrc/active_pass.cu): threads per CTA, B-long vectors
 # in shared memory, and the fewest rows of r a CTA should own (below it a
@@ -116,7 +123,6 @@ def fused_active_pass(prob, beta_b, r, active, lam0, n_scale, border, corder,
 
 def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
                             corder, kind, rsqr, inner, iters):
-    global LAUNCHES, LAUNCHES_F64
     # the checks run on every pass (hundreds per solve): plain comparisons,
     # messages built only on failure
     nb, B = prob.lamw.shape
@@ -124,16 +130,19 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
     dt = beta_b.dtype
     dev = beta_b.device
     Kb, Xb = prob.Kb, prob.Xb
-    if not (kind == "ls" and inner in ("ista", "exact")
+    Xwb = Xb if prob.Xwb is None else prob.Xwb
+    if not (kind in _KINDS and inner in ("ista", "exact")
             and dt in (torch.float32, torch.float64) and 1 <= B <= _MAX_B):
         raise ValueError(
             f"active-pass kernel: kind {kind!r}, inner {inner!r}, dtype "
-            f"{dt}, block width {B} (ls; ista or exact; float32 or "
-            f"float64; at most {_MAX_B})")
+            f"{dt}, block width {B} (ls, wls or sqrt; ista or exact; "
+            f"float32 or float64; at most {_MAX_B})")
     for name, t, shape, dts in (
-            ("Xb", Xb, (nb, n, B), (dt,)), ("lamw", prob.lamw, (nb, B), (dt,)),
+            ("Xb", Xb, (nb, n, B), (dt,)),
+            ("Xwb", None if Xwb is Xb else Xwb, (nb, n, B), (dt,)),
+            ("lamw", prob.lamw, (nb, B), (dt,)),
             ("beta", beta_b, (nb, B), (dt,)), ("r", r, (n,), (dt,)),
-            ("Kb", Kb, (nb, B, B), (dt,)),
+            ("rsqr", rsqr, (), (dt,)), ("Kb", Kb, (nb, B, B), (dt,)),
             ("active", active, (nb,), (torch.bool,)),
             ("border", border, (nb,), (torch.int64, torch.int32)),
             ("corder", corder, (B,), (torch.int64, torch.int32))):
@@ -141,9 +150,9 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
                                   and t.shape == shape and t.is_contiguous()):
             raise ValueError(f"active-pass kernel: {name} must be contiguous "
                              f"{shape} {dts} on {dev}")
-    if prob.Xwb is not None and prob.Xwb.data_ptr() != Xb.data_ptr():
-        raise ValueError("active-pass kernel: least squares needs Xwb to be "
-                         "Xb")
+    if kind != "wls" and Xwb.data_ptr() != Xb.data_ptr():
+        raise ValueError(f"active-pass kernel: kind {kind!r} has one design: "
+                         "Xwb must be Xb")
     # int64 orders (torch.arange / randperm) pass through without a copy
     if border.dtype != torch.int64:
         border = border.to(torch.int64)
@@ -152,34 +161,40 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
     plan = plan_active_pass(n, B, dt.itemsize, _build.sm_count(dev),
                             _build.smem_optin(dev))
     gram = Kb is not None
-    # outputs: beta, r and maxh in one allocation; scratch: the partial c's
-    # (2 parities x G x B), and without a Gram the partial Grams (G x B x B)
-    # and their sum (B x B)
-    out = torch.empty((nb * B + n + 1,), dtype=dt, device=dev)
+    # outputs: beta, r, maxh and rsqr in one allocation; scratch: the
+    # partial c's (2 parities x G x B) and the partial sums of r^2 (2
+    # parities x G, the sqrt kind's), and without a Gram the partial Grams
+    # (G x B x B) and their sum (B x B)
+    out = torch.empty((nb * B + n + 2,), dtype=dt, device=dev)
     nc = 2 * plan.grid * B
+    nrs = 2 * plan.grid
     nk = 0 if gram else plan.grid * B * B
-    scratch = torch.empty((nc + (0 if gram else nk + B * B),), dtype=dt,
-                          device=dev)
+    scratch = torch.empty((nc + nrs + (0 if gram else nk + B * B),),
+                          dtype=dt, device=dev)
     op, sp, w = out.data_ptr(), scratch.data_ptr(), dt.itemsize
     lib = _build.library()
     fn = lib.cdt_active_pass_f32 if dt == torch.float32 else \
         lib.cdt_active_pass_f64
-    err = fn(Xb.data_ptr(), None if Kb is None else Kb.data_ptr(),
+    err = fn(Xb.data_ptr(), Xwb.data_ptr(),
+             None if Kb is None else Kb.data_ptr(),
              prob.lamw.data_ptr(), border.data_ptr(), active.data_ptr(),
-             corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(), op,
-             op + nb * B * w, op + (nb * B + n) * w, sp,
-             None if gram else sp + nc * w,
-             None if gram else sp + (nc + nk) * w,
+             corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(),
+             rsqr.data_ptr(), op, op + nb * B * w, op + (nb * B + n) * w,
+             op + (nb * B + n + 1) * w, sp, sp + nc * w,
+             None if gram else sp + (nc + nrs) * w,
+             None if gram else sp + (nc + nrs + nk) * w,
              nb, n, B, plan.grid, plan.rows, int(plan.keep_x),
-             int(plan.keep_r), plan.smem, int(inner == "ista"), int(iters),
-             float(lam0), float(n_scale), _build.stream(dev))
+             int(plan.keep_r), plan.smem, _KINDS[kind],
+             int(inner == "ista"), int(iters), float(lam0), float(n_scale),
+             _build.stream(dev))
     _build.check(err, "active_pass")
-    if dt == torch.float64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
-    return (out[:nb * B].view(nb, B), out[nb * B:nb * B + n], out[-1],
-            rsqr)
+    LAUNCHES_KIND[kind][dt == torch.float64] += 1
+    # three view ops for the four outputs (each costs the host as much as
+    # the C call); only the sqrt kind moves ||r||^2, and only its kernel
+    # writes it
+    beta2, r2, tail = out.split_with_sizes((nb * B, n, 2))
+    maxh, rsqr2 = tail.unbind()
+    return beta2.view(nb, B), r2, maxh, rsqr2 if kind == "sqrt" else rsqr
 
 
 # ---------------------------------------------------------------------------
@@ -216,56 +231,69 @@ def _soft(x, t):
     return torch.sign(x) * torch.clamp_min(torch.abs(x) - t, 0.0)
 
 
-def _block_scan(corder, K, c, beta0, lamw, thr_scale):
+def _block_scan(corder, K, c, beta0, lamw, thr_scale, kind="ls", lam0=0.0,
+                rsqr=None):
     """Exact sequential CD over one block in ``corder`` (host list) via
-    ``c ← c − K[k, :]·h``.  Returns ``(beta1, maxh)``."""
+    ``c ← c − K[k, :]·h``; for ``kind="sqrt"`` the running ``‖r‖²`` goes
+    through the three-branch minimizer.  Returns ``(beta1, maxh, rsqr1)``."""
     beta = beta0.clone()
     adiag = torch.diagonal(K)
     mh = torch.zeros((), dtype=c.dtype, device=c.device)
     for k in corder:
         a = adiag[k]
         bk = beta[k].clone()
-        safe = a > 0
-        asafe = torch.where(safe, a, torch.ones_like(a))
-        val = torch.where(safe, _soft(bk + c[k] / asafe,
-                                      thr_scale * lamw[k] / asafe), bk)
+        if kind == "sqrt":
+            val, sv, rsb = sqrt_candidate(bk, c[k], a, rsqr, lam0, lamw[k])
+            rsqr = torch.clamp_min(rsb - 2.0 * val * sv + val * val * a, 0.0)
+        else:
+            safe = a > 0
+            asafe = torch.where(safe, a, torch.ones_like(a))
+            val = torch.where(safe, _soft(bk + c[k] / asafe,
+                                          thr_scale * lamw[k] / asafe), bk)
         h = val - bk
         c = c - K[k, :] * h
         beta[k] = bk + h
         mh = torch.maximum(mh, torch.abs(h))
-    return beta, mh
+    return beta, mh, rsqr
 
 
 def fused_active_pass_plain(prob, beta_b, r, active, lam0, n_scale, border,
                             corder, *, kind: str = "ls", rsqr=None,
                             inner: str = "exact", iters: int = 16):
     """Plain PyTorch twin of the fused active pass (same visit order, same
-    inner solves, same outputs)."""
-    if kind != "ls":
-        raise NotImplementedError(f"kind {kind!r} is not ported yet")
+    inner solves, same thresholds and ``rsqr`` rules, same outputs), for the
+    kinds ``ls``, ``wls`` and ``sqrt``."""
+    if kind not in _KINDS:
+        raise ValueError(f"active pass: kind {kind!r} (ls, wls or sqrt)")
     if rsqr is None:
         rsqr = torch.zeros((), dtype=beta_b.dtype, device=beta_b.device)
     nb, B = prob.lamw.shape
+    Xwb = prob.Xb if prob.Xwb is None else prob.Xwb
     order, n_active = _prefetch_order(active, border)
     flat = host.tolist(torch.cat([n_active.reshape(1), order,
                                   corder.to(torch.int32)]))
     na, order_h, corder_h = flat[0], flat[1:1 + nb], flat[1 + nb:]
     npdt = np.dtype(str(beta_b.dtype).replace("torch.", "")).type
     thr_scale = float(npdt(n_scale) * npdt(lam0))
+    lam0_t = float(npdt(lam0))
     beta = beta_b.clone()
     maxh = torch.zeros((), dtype=beta.dtype, device=beta.device)
     for b in order_h[:na]:
         X = prob.Xb[b]
-        K = prob.Kb[b] if prob.Kb is not None else prob.Xwb[b].T @ X
-        c = r @ prob.Xwb[b]
+        K = prob.Kb[b] if prob.Kb is not None else Xwb[b].T @ X
+        c = r @ Xwb[b]
         beta0 = beta[b].clone()
         if inner == "ista":
-            beta1, mh = _block_ista(K, c, beta0, prob.lamw[b], thr_scale,
-                                    iters)
+            # sqrt: the MM majorizer's threshold λ0·‖r‖ at this visit's start
+            ts = (lam0_t * torch.sqrt(torch.clamp_min(rsqr, 1e-30))
+                  if kind == "sqrt" else thr_scale)
+            beta1, mh = _block_ista(K, c, beta0, prob.lamw[b], ts, iters)
         else:
-            beta1, mh = _block_scan(corder_h, K, c, beta0, prob.lamw[b],
-                                    thr_scale)
+            beta1, mh, rsqr = _block_scan(corder_h, K, c, beta0, prob.lamw[b],
+                                          thr_scale, kind, lam0_t, rsqr)
         r = r - X @ (beta1 - beta0)
+        if kind == "sqrt" and inner == "ista":
+            rsqr = torch.sum(r * r)     # rebuilt for the next visit
         beta[b] = beta1
         maxh = torch.maximum(maxh, mh)
     return beta, r, maxh, rsqr

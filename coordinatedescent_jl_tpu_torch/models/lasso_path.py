@@ -1,7 +1,7 @@
 """Warm-started Lasso paths (counterpart of
 ``coordinatedescent_jl_tpu/models/lasso_path.py``): the sequential scan and
-the batched execution.  ``scan_chunk`` and ``refit_lasso_path`` are not
-ported yet."""
+the batched execution, and the least-squares refit on the path's
+supports."""
 
 from __future__ import annotations
 
@@ -34,14 +34,15 @@ def _lasso_path_core(X, y, lam_path, lamw, key, max_hat_s,
                      opts: CDOptions):
     """One warm-started sweep over ``lam_path`` (host floats).  The full
     solver state — residual, cached gradient, drift — and the working-set
-    cache carry from point to point.  Returns ``(betas (L, p), valids)``."""
-    prob = build_blocked("ls", opts, lamw, X=X, y=y)
+    cache carry from point to point.  Returns ``(betas (L, p), valids)``;
+    after the ``max_hat_s`` stop the remaining points are not solved."""
     p = X.shape[1]
     n_scale = float(y.shape[0])
+    prob = build_blocked("ls", opts, lamw, X=X, y=y)
     nc = _compact_mode("ls", opts, prob, X.dtype)
     st = _init_state("ls", prob, _to_blocked_beta(
-        torch.zeros((p,), dtype=X.dtype, device=X.device), opts.block_size),
-        key)
+        torch.zeros((p,), dtype=X.dtype, device=X.device),
+        opts.block_size), key)
     cache = _empty_ws_cache("ls", prob, nc, opts) if nc else None
     beta_prev = st.beta
     lam_k = lam_km1 = lam_path[0]
@@ -166,7 +167,7 @@ def _lasso_path_batched_core(X, y, lam_t, lamw, key, max_hat_s,
     rest = np.setdiff1d(np.arange(g), cidx)
     lam_dev = lam_t.to(dev)
     betas_c, valids_c = _lasso_path_core(X, y, lam_t[cidx].tolist(), lamw,
-                                         key, max_hat_s, opts)
+                                            key, max_hat_s, opts)
     valids_c = torch.tensor(valids_c, device=dev)
     if rest.size:
         # one read of X, no (n, p) temporary
@@ -211,7 +212,8 @@ def _lasso_path_batched_core(X, y, lam_t, lamw, key, max_hat_s,
 def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
                max_hat_s: float = math.inf, standardize_X: bool = True,
                path_batch: int | None = None,
-               coarse_stride: int | None = None, seed: int = 0,
+               coarse_stride: int | None = None,
+               scan_chunk: int | None = None, seed: int = 0,
                stats: dict | None = None, device=None) -> LassoPath:
     """Solve the Lasso along a **decreasing** λ grid with warm starts.
 
@@ -230,6 +232,13 @@ def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
     scan.  A batched run that does not certify every point warns
     (``RuntimeWarning``) and returns the scan's result.
 
+    ``scan_chunk`` is taken for the JAX package's interface, checked
+    (``>= 1``) and otherwise ignored: there it cuts the scan into device
+    programs of that many λ points with the carry handed on by the host,
+    for a runtime that bounds one program's time; here the scan is a host
+    loop of short kernels already, the ``max_hat_s`` stop is in it, and
+    the result is the same bit for bit with or without the option.
+
     ``stats``, if a dict, receives ``used_batched``, ``batched_certified``
     and ``stall_escaped_lanes`` (as in the JAX package), and
     ``refine_rounds``, the batched execution's certify/refine rounds.
@@ -247,6 +256,8 @@ def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
         raise ValueError("coarse_stride must be >= 1")
     if path_batch < 0:
         raise ValueError("path_batch must be >= 0")
+    if scan_chunk is not None and scan_chunk <= 0:
+        raise ValueError("scan_chunk must be >= 1")
     key = torch.Generator().manual_seed(seed)
     batched_ok = used_batched = False
     n_escaped = rounds = 0
@@ -278,3 +289,33 @@ def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
         stats["refine_rounds"] = rounds
     k = int(np.sum(valids))
     return LassoPath(lam_t[:k].to(dev), betas[:k])
+
+
+def refit_lasso_path(path: LassoPath, X, y, *, device=None) -> dict:
+    """Least-squares refit on each distinct support along the path: a dict
+    from the support (a tuple of 0-based indices) to the OLS coefficients
+    ``X[:, S] \\ y``, tensors on ``device`` (``None``: the GPU, raising
+    when there is none; ``"cpu"`` for the CPU).  The supports come to the
+    host in one counted read; each refit gathers ``X[:, S]`` and solves on
+    the device with ``torch.linalg.lstsq``: by QR on the card (``gels``,
+    which takes a support of full column rank with ``|S| ≤ n``), by a
+    complete orthogonal factorization on the CPU (``gelsy``, the
+    minimum-norm solution, as ``numpy.linalg.lstsq`` gives in the JAX
+    package)."""
+    dev = target_device(device)
+    X = on_device(X, dev)
+    y = on_device(y, dev, X.dtype)
+    beta_path = on_device(path.beta_path, dev)
+    rows, cols = host.numpy(torch.nonzero(beta_path).T)
+    out = {}
+    for i in range(beta_path.shape[0]):
+        S = tuple(cols[rows == i].tolist())
+        if S in out:
+            continue
+        if len(S) == 0:
+            out[S] = torch.zeros((0,), dtype=X.dtype, device=dev)
+        else:
+            idx = torch.as_tensor(S, dtype=torch.int64, device=dev)
+            out[S] = torch.linalg.lstsq(X.index_select(1, idx),
+                                        y[:, None]).solution[:, 0]
+    return out

@@ -1,9 +1,12 @@
-"""Active-set float64 polish: from an f32 Lasso solve to the 1e-7 duality
-gap (counterpart of ``coordinatedescent_jl_tpu/models/polish.py::polish_lasso``;
-the sqrt, scaled, feasible and group polishes are not ported yet).
+"""Active-set float64 polishes: from an f32 solve to the 1e-7 certificate
+(counterpart of ``coordinatedescent_jl_tpu/models/polish.py``):
+``polish_lasso`` (duality gap), ``polish_sqrt_lasso`` (compensated
+relative KKT, the exact three-branch inner solve), ``polish_scaled_lasso``
+(the (β, σ) fixed point) and ``polish_feasible_lasso`` (the (β, Γ) loading
+fixed point).  The group polish is not ported yet.
 
-The host loop is the JAX package's: the f32 solution's support plus 25 %
-slack, rounded up to a multiple of 128, becomes the working set; the
+``polish_lasso``'s host loop is the JAX package's: the f32 solution's
+support plus 25 % slack, rounded up to a multiple of 128, becomes the working set; the
 restricted problem is solved by cyclic exact coordinate descent in
 float64 on the gathered columns; one float64-accumulated full sweep
 ``X'r`` certifies all p coordinates, and coordinates that violate join
@@ -16,8 +19,8 @@ What differs on the H100:
 - The certificate's sweep is the full f64-accumulating ``grad_f64`` (K5
   on the card), not the JAX package's hybrid ``grad_f64_certified``,
   which exists because f64 is emulated on a TPU (``ops/compensated.py``).
-- The inner solve (:func:`_restricted_cd_f64`).  The JAX package's
-  residual form, its matvec-only contractions and its 1e-30 guards answer
+- The inner solve (:func:`_restricted_cd_f64`, every polish's).  The JAX
+  package's residual form, its matvec-only contractions and its 1e-30 guards answer
   the TPU's emulated f64; on a card with native f64 a Python loop of
   per-coordinate ops would cost ~6 launches per coordinate visit.  The
   port runs its own block pass instead (``block_cd._active_pass`` with
@@ -26,7 +29,10 @@ What differs on the H100:
   Grams.  Exact Gauss-Seidel through the Gram recursion visits the same
   coordinates in the same order with the same closed-form update, so the
   iterates are the JAX package's up to rounding; the exact residual
-  ``y − X_S β`` is recomputed at the end.
+  ``y − X_S β`` is recomputed at the end.  The sqrt polish runs the same
+  pass with ``kind="sqrt"`` (K1's sqrt form in float64, exact inner):
+  ``‖r‖²`` is refreshed exactly at every sweep's start and carried
+  through the three-branch updates within it.
 
 The returned β is float64: the certificate belongs to the f64 iterate.
 """
@@ -41,8 +47,9 @@ import torch
 
 from ..ops.block_cd import (BlockedProblem, CDState, _active_pass,
                             _blockify_cols, _block_grams)
-from ..ops.compensated import (fenchel_gap_f64, grad_f64, host_f64,
-                               residual_f64)
+from ..ops.compensated import (_sqrt_kkt_rel_from_grad, _support_residual,
+                               fenchel_gap_f64, grad_f64, host_f64,
+                               loadings_f64, residual_f64)
 from ..utils import host
 from ..utils.helpers import on_device, target_device
 from ..utils.options import CDOptions
@@ -100,27 +107,60 @@ def _restricted_problem(X, y64, lamw, idx, beta0):
     return prob, st, Xs
 
 
-def _restricted_cd_f64(X, y64, lamw, idx, lam0: float, beta0, tol: float,
+def _restricted_sweeps(kind, prob, st, Xs, y64, lam0: float, tol: float,
                        max_sweeps: int = 400):
-    """Cyclic exact float64 coordinate descent on the working set ``idx``
-    (see :func:`_restricted_problem`), swept until the largest coordinate
-    step of a sweep is ≤ ``tol``.  Returns ``(beta (C,), r64 (n,), sweeps,
-    maxh)`` with ``r64`` the exact residual of the final β."""
-    n = X.shape[0]
-    C = idx.shape[0]
-    prob, st, Xs = _restricted_problem(X, y64, lamw, idx, beta0)
-    every = st.active
+    """Sweep the restricted problem from ``st`` (every block active) until
+    the largest coordinate step of a sweep is ≤ ``tol``; ``kind="sqrt"``
+    refreshes ``‖r‖²`` exactly at each sweep's start.  Returns ``(st, beta
+    (Cb,), r64, sweeps, maxh)`` with ``r64`` the exact residual of the
+    final β, which the returned state carries too."""
+    n = y64.shape[0]
+    every = torch.ones_like(st.active)
     opts = CDOptions(inner="exact", randomize=False)
     sweeps, mx = 0, math.inf
     while mx > tol and sweeps < max_sweeps:
-        st, maxh = _active_pass("ls", prob, st._replace(active=every), lam0,
+        if kind == "sqrt":
+            st = st._replace(rsqr=torch.dot(st.r, st.r))
+        st, maxh = _active_pass(kind, prob, st._replace(active=every), lam0,
                                 float(n), False, opts)
         mx = host.item(maxh)
         sweeps += 1
     beta = st.beta.reshape(-1)
     # the exact residual of the FINAL β: the certificate must evaluate a
     # consistent (β, r) pair, not the incrementally updated one
-    return beta[:C], y64 - Xs @ beta, sweeps, mx
+    r64 = y64 - Xs @ beta
+    return st._replace(r=r64), beta, r64, sweeps, mx
+
+
+def _restricted_cd_f64(X, y64, lamw, idx, lam0: float, beta0, tol: float,
+                       max_sweeps: int = 400, kind: str = "ls"):
+    """Cyclic exact float64 coordinate descent on the working set ``idx``
+    (see :func:`_restricted_problem`), least squares or (``kind="sqrt"``)
+    the sqrt-lasso's three-branch minimizer.  Returns ``(beta (C,), r64
+    (n,), sweeps, maxh)``."""
+    C = idx.shape[0]
+    prob, st, Xs = _restricted_problem(X, y64, lamw, idx, beta0)
+    _, beta, r64, sweeps, mx = _restricted_sweeps(kind, prob, st, Xs, y64,
+                                                  lam0, tol, max_sweeps)
+    return beta[:C], r64, sweeps, mx
+
+
+def _working_set(sup, beta_np, C: int, p: int):
+    """Host index and start vectors of a working set of width ``C``: the
+    support first, the pad slots at ``p`` (zero columns)."""
+    idx_np = np.full((C,), p, np.int64)
+    idx_np[:sup.size] = sup
+    beta_s0 = np.zeros((C,), np.float64)
+    beta_s0[:sup.size] = beta_np[sup]
+    return idx_np, beta_s0
+
+
+def _scatter(beta_s, idx_np, p: int):
+    """The working set's coefficients as a dense host vector."""
+    real = idx_np < p
+    beta_np = np.zeros((p,), np.float64)
+    beta_np[idx_np[real]] = host_f64(beta_s)[:idx_np.shape[0]][real]
+    return beta_np
 
 
 def polish_lasso(X, y, beta, lam0, weights=None, *,
@@ -171,19 +211,14 @@ def polish_lasso(X, y, beta, lam0, weights=None, *,
             break
         if sup.size > C:
             C = min(p, -(-sup.size // 128) * 128)
-        idx_np = np.full((C,), p, np.int64)
-        idx_np[:sup.size] = sup
-        beta_s0 = np.zeros((C,), np.float64)
-        beta_s0[:sup.size] = beta_np[sup]
+        idx_np, beta_s0 = _working_set(sup, beta_np, C, p)
         beta_s, r64, _, _ = _restricted_cd_f64(
             X, y64, lamw, torch.as_tensor(idx_np, device=dev), lam0,
             torch.as_tensor(beta_s0, device=dev), tol_inner)
-        real = idx_np < p
-        beta_np = np.zeros((p,), np.float64)
-        beta_np[idx_np[real]] = host_f64(beta_s)[real]
+        beta_np = _scatter(beta_s, idx_np, p)
         g_np, gap, primal = certify(r64, beta_np)
         viol = np.maximum(np.abs(g_np) / n - lam0 * w_np, 0.0)
-        viol[idx_np[real]] = 0.0
+        viol[idx_np[idx_np < p]] = 0.0
         nz = np.nonzero(viol > 0)[0]
         extra_ranked = nz[np.argsort(-viol[nz])]
         rel = gap / max(primal, 1e-300)
@@ -209,3 +244,303 @@ def polish_lasso(X, y, beta, lam0, weights=None, *,
                         gap=float(gap), rel_gap=float(rel),
                         primal=float(primal), rounds=rounds,
                         support_size=int(sup.size), converged=converged)
+
+
+# ---------------------------------------------------------------------------
+# Sqrt-lasso polish
+# ---------------------------------------------------------------------------
+
+
+class SqrtPolishResult(NamedTuple):
+    beta: torch.Tensor      # (p,) float64 polished coefficients
+    kkt_rel: float          # compensated per-coordinate relative KKT
+    norm_r: float           # ‖y − Xβ‖₂ of the polished iterate
+    rounds: int
+    support_size: int
+    converged: bool         # kkt_rel <= target
+
+
+def _sqrt_cert(X, r64, beta_np, lam0, w_np, sup):
+    """Compensated sqrt-KKT certificate of a (β, exact r64) pair (the
+    formulas of ``sqrt_lasso_kkt_compensated``).  Returns ``(kkt_rel, ‖r‖,
+    g, t)``."""
+    r_np = host_f64(r64)
+    rn = float(np.sqrt(r_np @ r_np))
+    t = np.maximum(lam0 * rn * w_np, 1e-300)
+    g_np = host_f64(grad_f64(X, r64))
+    return _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np), rn, g_np, t
+
+
+def polish_sqrt_lasso(X, y, beta, lam0, weights=None, *,
+                      target_kkt_rel: float = 1e-7, max_rounds: int = 6,
+                      support_cap: int = 4096,
+                      device=None) -> SqrtPolishResult:
+    """Refine an (f32) sqrt-lasso solution to a compensated relative KKT
+    residual ≤ ``target_kkt_rel`` (the sqrt-lasso analogue of
+    ``polish_lasso``): an active-set loop with the exact three-branch
+    float64 inner solve, certified against the whole design every round.
+    Runs on ``device`` (``None``: the GPU, raising when there is none;
+    ``"cpu"``: the plain twins on the CPU)."""
+    dev = target_device(device)
+    X = on_device(X, dev).contiguous()
+    y = on_device(y, dev)
+    n, p = X.shape
+    lam0 = float(lam0)
+    w_np = (np.ones((p,), np.float64) if weights is None
+            else host_f64(weights))
+    lamw = torch.as_tensor(w_np, device=dev)
+    beta_np = host_f64(beta)
+    y64 = y.to(torch.float64)
+
+    sup = np.nonzero(beta_np)[0]
+    C = _allocation(sup.size, p, support_cap)
+    rounds = 0
+    converged = False
+    kkt = rn = float("nan")
+    tol_inner = 1e-10 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
+    while True:
+        if sup.size > min(support_cap, p):
+            r64, sup_now = _support_residual(X, y, beta_np)
+            kkt, rn, _, _ = _sqrt_cert(X, r64, beta_np, lam0, w_np, sup_now)
+            break
+        if sup.size > C:
+            C = min(p, -(-sup.size // 128) * 128)
+        idx_np, beta_s0 = _working_set(sup, beta_np, C, p)
+        beta_s, r64, _, _ = _restricted_cd_f64(
+            X, y64, lamw, torch.as_tensor(idx_np, device=dev), lam0,
+            torch.as_tensor(beta_s0, device=dev), tol_inner, kind="sqrt")
+        beta_np = _scatter(beta_s, idx_np, p)
+        sup_now = np.nonzero(beta_np)[0]
+        kkt, rn, g_np, t = _sqrt_cert(X, r64, beta_np, lam0, w_np, sup_now)
+        rounds += 1
+        if kkt <= target_kkt_rel:
+            converged = True
+            break
+        if rounds >= max_rounds:
+            break
+        viol = np.maximum(np.abs(g_np) - t, 0.0) / t
+        viol[idx_np[idx_np < p]] = 0.0
+        extra = np.nonzero(viol > 0)[0]
+        room = max(0, min(support_cap, p) - sup_now.size)
+        extra = extra[np.argsort(-viol[extra])][: min(room, max(256, C))]
+        new_sup = np.union1d(sup_now, extra)
+        if new_sup.size == sup.size and np.array_equal(new_sup, sup):
+            tol_inner = tol_inner / 10.0
+        sup = new_sup
+
+    return SqrtPolishResult(beta=torch.as_tensor(beta_np, device=dev),
+                            kkt_rel=float(kkt), norm_r=float(rn),
+                            rounds=rounds, support_size=int(sup.size),
+                            converged=converged)
+
+
+# ---------------------------------------------------------------------------
+# Scaled-lasso polish: the float64 (β, σ) fixed point
+# ---------------------------------------------------------------------------
+
+
+class ScaledPolishResult(NamedTuple):
+    beta: torch.Tensor
+    sigma: float            # ‖r‖/√n of the final polished iterate
+    gap: float              # duality gap of the final λ·σ lasso subproblem
+    rel_gap: float
+    primal: float
+    rounds: int             # total inner polish rounds
+    sigma_rounds: int
+    sigma_rel_change: float  # |σ_new − σ_used| / σ_used at the last round
+    converged: bool         # rel_gap ≤ target AND σ consistent
+
+
+def _sigma_of(X, y, beta_np):
+    """``‖y − Xβ‖/√n`` of a sparse host β, through its exact float64
+    residual."""
+    r_np = host_f64(_support_residual(X, y, beta_np)[0])
+    return float(np.sqrt(r_np @ r_np / X.shape[0]))
+
+
+def _restricted_set(X, y64, lamw, beta_np):
+    """The settled support of ``beta_np`` plus 25 % slack as a restricted
+    problem, or ``None`` when the support is empty.  Returns ``(prob, st,
+    Xs, idx_np, sup)``."""
+    p = X.shape[1]
+    sup = np.nonzero(beta_np)[0]
+    C = min(p, max(128, -(-int(1.25 * max(sup.size, 1)) // 128) * 128))
+    if not (sup.size and sup.size <= C):
+        return None
+    idx_np, beta_s0 = _working_set(sup, beta_np, C, p)
+    prob, st, Xs = _restricted_problem(
+        X, y64, lamw, torch.as_tensor(idx_np, device=X.device),
+        torch.as_tensor(beta_s0, device=X.device))
+    return prob, st, Xs, idx_np, sup
+
+
+def polish_scaled_lasso(X, y, beta, lam, weights=None, *,
+                        target_rel_gap: float = 1e-7,
+                        sigma_rtol: float = 1e-7,
+                        max_sigma_rounds: int = 12, device=None,
+                        **polish_kw) -> ScaledPolishResult:
+    """Polish a scaled-lasso solution to the float64 (β, σ) fixed point: β
+    optimal (rel gap ≤ target) for the Lasso at λ·σ, σ = ‖y−Xβ‖/√n.  Each σ
+    round is one warm ``polish_lasso`` at the current λ·σ; convergence
+    needs both the subproblem's certificate and σ's self-consistency
+    (``sigma_rtol``).  Between certifying rounds the (β_S, σ) alternation
+    runs on the gathered support alone, collapsed by a scalar secant on
+    ``h(σ) = ‖r(β(λσ))‖/√n − σ``; the next certifying round validates the
+    off-set KKT at the final σ.  ``polish_kw`` goes to ``polish_lasso``.
+    Runs on ``device`` as ``polish_lasso`` does."""
+    dev = target_device(device)
+    X = on_device(X, dev).contiguous()
+    y = on_device(y, dev)
+    n, p = X.shape
+    y64 = y.to(torch.float64)
+    beta_np = host_f64(beta)
+    lam = float(lam)
+    w_np = (np.ones((p,), np.float64) if weights is None
+            else host_f64(weights))
+    lamw = torch.as_tensor(w_np, device=dev)
+    sig = _sigma_of(X, y, beta_np)
+    rounds = 0
+    res = None
+    rel_change = float("nan")
+    converged = False
+    for sr in range(max_sigma_rounds):
+        res = polish_lasso(X, y, beta_np, lam * sig, weights,
+                           target_rel_gap=target_rel_gap, device=dev,
+                           **polish_kw)
+        beta_np = host_f64(res.beta)
+        rounds += res.rounds
+        signew = _sigma_of(X, y, beta_np)
+        rel_change = abs(signew - sig) / max(sig, 1e-300)
+        if res.converged and rel_change <= sigma_rtol:
+            sig = signew
+            converged = True
+            break
+        ws = _restricted_set(X, y64, lamw, beta_np)
+        if ws is None:
+            sig = signew
+            continue
+        prob, st, Xs, idx_np, _ = ws
+        tol_in = 1e-10 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
+        sp = hp = None
+        sig_i = signew
+        for _ in range(40):
+            st, beta_s, r64, _, _ = _restricted_sweeps(
+                "ls", prob, st, Xs, y64, lam * sig_i, tol_in)
+            so = math.sqrt(host.item(torch.dot(r64, r64)) / n)
+            hi = so - sig_i
+            if abs(hi) / max(sig_i, 1e-300) <= 0.1 * sigma_rtol:
+                sig_i = so
+                break
+            if hp is not None and hi != hp:
+                nxt = sig_i - hi * (sig_i - sp) / (hi - hp)
+                if not np.isfinite(nxt) or nxt <= 0:
+                    nxt = so
+            else:
+                nxt = so
+            sp, hp = sig_i, hi
+            sig_i = nxt
+        beta_np = _scatter(beta_s, idx_np, p)
+        sig = sig_i
+    return ScaledPolishResult(
+        beta=torch.as_tensor(beta_np, device=dev), sigma=sig, gap=res.gap,
+        rel_gap=res.rel_gap, primal=res.primal, rounds=rounds,
+        sigma_rounds=sr + 1, sigma_rel_change=rel_change,
+        converged=converged)
+
+
+# ---------------------------------------------------------------------------
+# Feasible-lasso polish: the float64 (β, Γ) loading fixed point
+# ---------------------------------------------------------------------------
+
+
+class FeasiblePolishResult(NamedTuple):
+    beta: torch.Tensor
+    loadings: torch.Tensor   # (p,) float64 loadings of the fixed point
+    gap: float
+    rel_gap: float
+    primal: float
+    rounds: int
+    loading_rounds: int
+    loading_rel_change: float
+    converged: bool
+
+
+def _ws_loadings(Xs, r64):
+    """Working-set loadings ``sqrt(mean((X_ij r_i)²))`` over the gathered
+    float64 columns ``Xs`` only: the cheap per-round update of the
+    restricted (β_S, Γ_S) loop (pad slots are zero columns: loading 0)."""
+    return torch.sqrt((r64 * r64) @ Xs.square() / Xs.shape[0])
+
+
+def polish_feasible_lasso(X, y, beta, lam0, *, target_rel_gap: float = 1e-7,
+                          gamma_rtol: float = 1e-7,
+                          max_loading_rounds: int = 12,
+                          col_chunk: int = 2048, device=None,
+                          **polish_kw) -> FeasiblePolishResult:
+    """Polish a feasible (heteroscedastic) Lasso solution to the float64
+    (β, Γ) fixed point: β optimal (rel gap ≤ target) for the weighted Lasso
+    at (λ0, Γ), Γ_j = sqrt(mean((X_ij r_i)²)) from β's exact residual
+    (``loadings_f64``).  Convergence needs the subproblem's certificate
+    and the loading-stability rule ``max|ΔΓ|/maxΓ ≤ gamma_rtol``.  Between
+    certifying rounds the (β_S, Γ_S) alternation runs on the gathered
+    support alone; the next certifying round validates the off-set KKT at
+    the final loadings.  ``polish_kw`` goes to ``polish_lasso``.  Runs on
+    ``device`` as ``polish_lasso`` does."""
+    dev = target_device(device)
+    X = on_device(X, dev).contiguous()
+    y = on_device(y, dev)
+    n, p = X.shape
+    y64 = y.to(torch.float64)
+    beta_np = host_f64(beta)
+    lam0 = float(lam0)
+
+    def loadings(b_np):
+        return host_f64(loadings_f64(X, _support_residual(X, y, b_np)[0],
+                                     col_chunk=col_chunk))
+
+    gam = loadings(beta_np)
+    rounds = 0
+    res = None
+    rel_change = float("nan")
+    converged = False
+    for lr in range(max_loading_rounds):
+        res = polish_lasso(X, y, beta_np, lam0, gam,
+                           target_rel_gap=target_rel_gap, device=dev,
+                           **polish_kw)
+        beta_np = host_f64(res.beta)
+        rounds += res.rounds
+        gam_new = loadings(beta_np)
+        rel_change = float(np.max(np.abs(gam_new - gam))
+                           / max(float(np.max(gam_new)), 1e-300))
+        gam = gam_new
+        if res.converged and rel_change <= gamma_rtol:
+            converged = True
+            break
+        ws = _restricted_set(X, y64, torch.as_tensor(gam, device=dev),
+                             beta_np)
+        if ws is None:
+            continue
+        prob, st, Xs, idx_np, sup = ws
+        gam = np.array(gam, np.float64)                  # writable copy
+        tol_in = 1e-10 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
+        gmax = max(float(np.max(gam)), 1e-300)
+        for _ in range(40):
+            st, beta_s, r64, _, _ = _restricted_sweeps(
+                "ls", prob, st, Xs, y64, lam0, tol_in)
+            gS = _ws_loadings(Xs, r64)
+            dS = host.item(torch.max(torch.abs(gS - prob.lamw.reshape(-1))
+                                     [:sup.size])) / gmax
+            # the pad slots keep their weight 1 (zero columns, pinned at 0)
+            lamw_s = prob.lamw.reshape(-1).clone()
+            lamw_s[:sup.size] = gS[:sup.size]
+            prob = prob._replace(lamw=lamw_s.reshape(prob.lamw.shape))
+            if dS <= 0.1 * gamma_rtol:
+                break
+        gam[sup] = host_f64(prob.lamw.reshape(-1)[:sup.size])
+        beta_np = _scatter(beta_s, idx_np, p)
+    return FeasiblePolishResult(
+        beta=torch.as_tensor(beta_np, device=dev),
+        loadings=torch.as_tensor(gam, device=dev), gap=res.gap,
+        rel_gap=res.rel_gap, primal=res.primal, rounds=rounds,
+        loading_rounds=lr + 1, loading_rel_change=rel_change,
+        converged=converged)

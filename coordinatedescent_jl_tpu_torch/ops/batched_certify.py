@@ -10,7 +10,6 @@ them outside any Pallas kernel) and must run with full-f32 matmuls
 certify sweep and no lane certifies at ``opt_tol = 1e-6``.
 ``union_block_fista``'s ``lax.scan`` loops are host loops of small
 products (8 sweeps × blocks × ``block_iters`` FISTA steps per round).
-``run_chunked_segments`` is not ported yet (it serves ``scan_chunk``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
-"""Block-coordinate-descent engine, least-squares kind (counterpart of
+"""Block-coordinate-descent engine (counterpart of
 ``coordinatedescent_jl_tpu/ops/block_cd.py``; see that module's docstring
 for the algorithm: column blocks ``Xb (nb, n, B)``, exact in-block
 sequential CD through the Gram recursion, a vectorized KKT full check
 with cached gradients, drift-ball certification and gap-safe screening,
-and working-set compaction).
+and working-set compaction).  Four kinds, as there: ``ls``
+(least squares), ``wls`` (row-weighted least squares, a second blocked
+design ``Xwb``), ``sqrt`` (sqrt-lasso, the running ``‖r‖²`` in the state)
+and ``quad`` (a quadratic ``x'Ax/2 + x'q`` whose blocks hold ``A``; plain
+PyTorch only, no kernel takes it).
 
 What differs from the JAX engine:
 
@@ -32,8 +36,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .losses import LeastSquaresLoss, num_coordinates
-from .prox import ProxL1, as_l1, soft_threshold
+from .losses import (LeastSquaresLoss, QuadraticLoss, SqrtLassoLoss,
+                     WeightedLSLoss, num_coordinates)
+from .prox import ProxL1, ProxZero, as_l1, soft_threshold
+from .prox import sqrt_candidate as _sqrt_candidate
 from ..utils import host
 from ..utils.helpers import on_device, target_device
 from ..utils.options import CDOptions, resolve_extrapolate, use_kernels
@@ -93,12 +99,14 @@ def _step_noise(r, xwnorm, dtype):
 
 
 class BlockedProblem(NamedTuple):
-    """Column-blocked least-squares problem: ``Xb (nb, n, B)`` the design,
-    ``Xwb`` its row-weighted copy (the same tensor for ls), ``y`` the
-    response, ``adiag (nb, B)`` the curvatures ``‖X_j‖²``, ``lamw`` the
-    blocked penalty weights, ``valid`` the mask of real (unpadded)
-    columns, ``xwnorm`` ``‖Xw_j‖`` and ``Kb (nb, B, B)`` the optional
-    cached per-block Grams."""
+    """Column-blocked problem.  For ls/wls/sqrt: ``Xb (nb, n, B)`` the
+    design, ``Xwb`` its row-weighted copy (the same tensor unless wls),
+    ``y`` the response.  For quad: ``Xb (nb, P, B)`` holds the column
+    blocks of ``A`` and ``q`` the linear term (``y``/``Xwb`` unused).
+    ``adiag (nb, B)`` the curvatures (``Σ w X²``; ``A_jj`` for quad),
+    ``lamw`` the blocked penalty weights, ``valid`` the mask of real
+    (unpadded) columns, ``xwnorm`` ``‖Xw_j‖`` and ``Kb (nb, B, B)`` the
+    optional cached per-block Grams ``Xw_b'X_b``."""
 
     Xb: torch.Tensor
     Xwb: Optional[torch.Tensor]
@@ -142,21 +150,45 @@ def _blockify_cols(X, B):
     return X.reshape(n, P // B, B).permute(1, 0, 2).contiguous()
 
 
-def build_blocked(kind: str, opts: CDOptions, lamw_full, *, X, y):
-    """Assemble the blocked problem (least-squares kind)."""
-    if kind != "ls":
-        raise NotImplementedError(f"kind {kind!r} is not ported yet")
+def build_blocked(kind: str, opts: CDOptions, lamw_full, *, X=None, y=None,
+                  w=None, A=None, q=None):
+    """Assemble the blocked problem: ``X``, ``y`` (and the row weights ``w``
+    for wls), or ``A``, ``q`` for quad."""
+    if kind not in ("ls", "wls", "sqrt", "quad"):
+        raise ValueError(f"unknown kind {kind!r}")
     B = opts.block_size
-    P0 = X.shape[1]
-    dtype = X.dtype
-    Xb = _blockify_cols(_pad_to_blocks(X, B), B)
-    nb = Xb.shape[0]
-    adiag = torch.sum(Xb * Xb, dim=1)            # (nb, B): X'X diagonal
-    xwnorm = torch.sqrt(torch.clamp_min(adiag, 0.0))
-    lamw_b = _pad_to_blocks(lamw_full.to(dtype), B, fill=1.0).reshape(nb, B)
-    valid = (torch.arange(nb * B, device=X.device) < P0).reshape(nb, B)
-    Kb = _block_grams(Xb, Xb) if _gram_mode(kind, opts, nb, B, dtype) else None
-    return BlockedProblem(Xb=Xb, Xwb=Xb, y=y, q=None, adiag=adiag,
+    if kind == "quad":
+        P0 = q.shape[0]
+        dtype = q.dtype
+        Ap = _pad_to_blocks(A, B)                          # pad cols
+        Ap = _pad_to_blocks(Ap.T, B).T                     # pad rows
+        qp = _pad_to_blocks(q, B)
+        Xb = _blockify_cols(Ap, B)                         # (nb, P, B)
+        nb = Xb.shape[0]
+        adiag = torch.diagonal(Ap).reshape(nb, B)
+        Xwb, yv = None, None
+        xwnorm = torch.sqrt(torch.clamp_min(adiag, 0.0))   # unused for quad
+    else:
+        P0 = X.shape[1]
+        dtype = X.dtype
+        Xp = _pad_to_blocks(X, B)
+        Xb = _blockify_cols(Xp, B)
+        nb = Xb.shape[0]
+        if kind == "wls":
+            Xwb = _blockify_cols(Xp * w[:, None], B)
+            adiag = torch.sum(Xwb * Xb, dim=1)             # Σ w X²
+            xwnorm = torch.sqrt(torch.sum(Xwb * Xwb, dim=1))   # ‖w·X_j‖
+        else:
+            Xwb = Xb
+            adiag = torch.sum(Xb * Xb, dim=1)              # X'X diagonal
+            xwnorm = torch.sqrt(torch.clamp_min(adiag, 0.0))
+        yv, qp = y, None
+    dev = Xb.device
+    lamw_b = _pad_to_blocks(torch.as_tensor(lamw_full, device=dev).to(dtype),
+                            B, fill=1.0).reshape(nb, B)
+    valid = (torch.arange(nb * B, device=dev) < P0).reshape(nb, B)
+    Kb = _block_grams(Xwb, Xb) if _gram_mode(kind, opts, nb, B, dtype) else None
+    return BlockedProblem(Xb=Xb, Xwb=Xwb, y=yv, q=qp, adiag=adiag,
                           lamw=lamw_b, valid=valid, xwnorm=xwnorm, Kb=Kb)
 
 
@@ -185,8 +217,11 @@ def _block_grams(Xwb, Xb):
 
 
 def _ls_candidate(beta, c, a, lam0, lamw, n_scale):
-    """Closed-form least-squares coordinate minimizer
-    ``prox(β + c/a; n·λ0·λw/a)``; dead columns (``a ≤ 0``) keep β."""
+    """Closed-form (weighted) least-squares / quadratic coordinate minimizer
+    ``prox(β + c/a; scale·λ0·λw/a)`` (``scale`` is n for ls/wls, 1 for
+    quad); dead columns (``a ≤ 0``) keep β.  The sqrt kind's is
+    ``_sqrt_candidate`` (``ops/prox.py::sqrt_candidate``, shared
+    with K1's plain twin)."""
     safe = a > 0
     asafe = torch.where(safe, a, torch.ones_like(a))
     z = beta + c / asafe
@@ -199,21 +234,27 @@ def _ls_candidate(beta, c, a, lam0, lamw, n_scale):
 # ---------------------------------------------------------------------------
 
 
-def _visit_block(kind, K, beta_b, lamw_b, lam0, c, n_scale, order):
+def _visit_block(kind, K, beta_b, lamw_b, lam0, c, rsqr, n_scale, order):
     """Sequentially minimize each coordinate of one block (``order`` a
     host list); after coordinate ``i`` moves by ``h`` every remaining
-    gradient shifts by ``K[:, i]·h``.  Returns ``(beta_b, maxh)``."""
+    gradient shifts by ``K[:, i]·h``.  For sqrt the running ``‖r‖²`` is
+    threaded through.  Returns ``(beta_b, rsqr, maxh)``."""
     a_diag = torch.diagonal(K)
     beta_b = beta_b.clone()
     maxh = torch.zeros((), dtype=beta_b.dtype, device=beta_b.device)
     for i in order:
         bi = beta_b[i].clone()
-        val = _ls_candidate(bi, c[i], a_diag[i], lam0, lamw_b[i], n_scale)
+        a = a_diag[i]
+        if kind == "sqrt":
+            val, s, rsb = _sqrt_candidate(bi, c[i], a, rsqr, lam0, lamw_b[i])
+            rsqr = torch.clamp_min(rsb - 2.0 * val * s + val * val * a, 0.0)
+        else:
+            val = _ls_candidate(bi, c[i], a, lam0, lamw_b[i], n_scale)
         h = val - bi
         c = c - K[:, i] * h
         beta_b[i] = val
         maxh = torch.maximum(maxh, torch.abs(h))
-    return beta_b, maxh
+    return beta_b, rsqr, maxh
 
 
 def _inner(opts: CDOptions, dtype) -> str:
@@ -225,8 +266,9 @@ def _inner(opts: CDOptions, dtype) -> str:
 def _active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
                  randomize: bool, opts: Optional[CDOptions] = None):
     """One pass over the active blocks.  Runs the fused active-pass kernel
-    (``kernels/active_pass.py``) when the mode rule allows it, else the
-    plain exact-scan pass."""
+    (``kernels/active_pass.py``; the residual kinds ls, wls and sqrt, with
+    ``rsqr`` in and out) when the mode rule allows it, else the plain
+    exact-scan pass (always for quad)."""
     nb, B = prob.lamw.shape
     dev = st.beta.device
     if randomize:
@@ -236,7 +278,8 @@ def _active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
         border = torch.arange(nb, device=dev)
         corder = torch.arange(B, device=dev)
 
-    if opts is not None and use_kernels(opts, st.beta):
+    if (opts is not None and kind in ("ls", "wls", "sqrt")
+            and use_kernels(opts, st.beta)):
         from ..kernels.active_pass import fused_active_pass
 
         beta2, r2, maxh, rsqr2 = fused_active_pass(
@@ -265,21 +308,28 @@ def _xla_active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     act, border_h, corder_h = flat[:nb], flat[nb:2 * nb], flat[2 * nb:]
     beta = st.beta.clone()
     r = st.r
+    rsqr = st.rsqr
     maxh = torch.zeros((), dtype=beta.dtype, device=beta.device)
     for b in border_h:
         if not act[b]:
             continue
         G = prob.Xb[b]
-        Gw = prob.Xwb[b]
-        K = prob.Kb[b] if prob.Kb is not None else Gw.T @ G
-        c = Gw.T @ r
+        if kind == "quad":
+            # the block's rows of A are its Gram; r caches Ax
+            K = G[b * B:(b + 1) * B]
+            c = -(r[b * B:(b + 1) * B] + prob.q[b * B:(b + 1) * B])
+        else:
+            Gw = prob.Xwb[b]
+            K = prob.Kb[b] if prob.Kb is not None else Gw.T @ G
+            c = Gw.T @ r
         bb = beta[b].clone()
-        bb2, mh = _visit_block(kind, K, bb, prob.lamw[b], lam0, c, n_scale,
-                               corder_h)
-        r = r - G @ (bb2 - bb)
+        bb2, rsqr, mh = _visit_block(kind, K, bb, prob.lamw[b], lam0, c,
+                                     rsqr, n_scale, corder_h)
+        h = bb2 - bb
+        r = r + G @ h if kind == "quad" else r - G @ h
         beta[b] = bb2
         maxh = torch.maximum(maxh, mh)
-    return st._replace(beta=beta, r=r,
+    return st._replace(beta=beta, r=r, rsqr=rsqr,
                        active=torch.any(beta != 0, dim=1)), maxh
 
 
@@ -292,7 +342,10 @@ def _full_gradient_c(kind, prob: BlockedProblem, r, kernels: bool):
     """Blocked ``c = Xw'r`` for every coordinate at once: the dense sweep
     kernel K5 (``kernels/gradient_sweep.py``) when the kernels are on, else
     its plain twin, one batched product straight off the (nb, n, B)
-    layout."""
+    layout.  Quad: ``−(Ax + q)`` from the maintained ``Ax``, O(p)."""
+    if kind == "quad":
+        nb, B = prob.lamw.shape
+        return -(r.reshape(nb, B) + prob.q.reshape(nb, B))
     from ..kernels.gradient_sweep import (fused_gradient_sweep,
                                           fused_gradient_sweep_plain)
 
@@ -310,7 +363,11 @@ def _blocks_matvec(Xb, beta_b):
 def _potential_steps(kind, prob, beta, c, rsqr, lam0, n_scale):
     """Jacobi-style per-coordinate optimal displacement given the full
     gradient — the order-independent optimality residual."""
-    val = _ls_candidate(beta, c, prob.adiag, lam0, prob.lamw, n_scale)
+    if kind == "sqrt":
+        val, _, _ = _sqrt_candidate(beta, c, prob.adiag, rsqr, lam0,
+                                    prob.lamw)
+    else:
+        val = _ls_candidate(beta, c, prob.adiag, lam0, prob.lamw, n_scale)
     return torch.where(prob.valid, val - beta, torch.zeros_like(beta))
 
 
@@ -391,12 +448,23 @@ def _stale_core_ls(c, beta, drift2, adiag, lamw, valid, xwnorm, lam0,
 def _stale_certified(kind, prob: BlockedProblem, st: CDState, rsqr, lam0,
                      n_scale, opt_tol):
     """Per-block certificate that every potential step is < ``opt_tol``
-    without refreshing the cached gradient.  Returns ``(certified (nb,),
-    bound (nb, B))``."""
-    certified2, bound, _ = _stale_core_ls(
-        st.c, st.beta, st.drift[:, None], prob.adiag, prob.lamw,
-        prob.valid, prob.xwnorm, lam0, n_scale, opt_tol)
-    return certified2[:, 0], bound
+    without refreshing the cached gradient.  For sqrt only all-zero blocks
+    certify, through the exact zero condition ``|X_j'r| ≤ λ0·λw_j·‖r‖``
+    bounded from above with the staleness ball.  Returns ``(certified
+    (nb,), bound (nb, B))``."""
+    if kind != "sqrt":
+        certified2, bound, _ = _stale_core_ls(
+            st.c, st.beta, st.drift[:, None], prob.adiag, prob.lamw,
+            prob.valid, prob.xwnorm, lam0, n_scale, opt_tol)
+        return certified2[:, 0], bound
+    dball = st.drift[:, None] * (1.0 + 64.0 * _eps(st.beta.dtype))
+    e_c = prob.xwnorm * dball
+    zero_blk = ~torch.any(st.beta != 0, dim=1)
+    thr = lam0 * prob.lamw * torch.sqrt(torch.clamp_min(rsqr, 0.0))
+    ok = (torch.abs(st.c) + e_c) <= thr
+    bound = torch.where(ok & zero_blk[:, None], 0.0, math.inf).to(st.c.dtype)
+    bound = torch.where(prob.valid, bound, torch.zeros_like(bound))
+    return torch.all(bound < opt_tol, dim=1), bound
 
 
 def _refresh_c(kind, prob: BlockedProblem, st: CDState, need, n_need: int,
@@ -433,7 +501,7 @@ def _check_scalars(lam0, n_scale, rn2, ry, opt_tol):
 
 def _fused_full_check(kind, prob: BlockedProblem, st: CDState, lam0,
                       n_scale, opt_tol, rsqr, screen):
-    """Fused execution of the least-squares full check (f32): check
+    """Fused execution of the ls/wls full check (f32): check
     phase A evaluates the whole no-refresh check and the ``need`` mask;
     when some block needs a refresh, the gradient is refreshed
     (``_refresh_c``) and phase B re-evaluates the steps with it.  The
@@ -466,36 +534,54 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
                 opt_tol, opts: Optional[CDOptions] = None):
     """Vectorized full pass: KKT sweep + (re)activation of violating blocks,
     reading X only for stale, uncertified, unscreened blocks."""
-    rsqr = st.rsqr
+    # sqrt: refresh the exact ‖r‖² (the zero threshold λ·√rsqr inherits
+    # its accuracy)
+    rsqr = torch.dot(st.r, st.r) if kind == "sqrt" else st.rsqr
     nb, B = prob.lamw.shape
-    screen = opts is not None and opts.screen is not False
-    kernels = opts is not None and use_kernels(opts, st.beta)
-    if (kernels and opts.fuse_check is not False
-            and st.beta.dtype == torch.float32):
-        return _fused_full_check(kind, prob, st, lam0, n_scale, opt_tol,
-                                 rsqr, screen)
-
-    if screen:
-        rn2 = torch.dot(st.r, st.r)
-        cand = _gap_safe_candidates(prob, st, lam0, n_scale, rn2)
+    dev = st.beta.device
+    if kind == "quad":
+        # the gradient term is O(p) from the maintained Ax: recompute
+        c = _full_gradient_c(kind, prob, st.r, False)
+        drift_new = torch.zeros_like(st.drift)
+        cand = torch.ones((nb,), dtype=torch.bool, device=dev)
+        use_bound = torch.zeros((nb,), dtype=torch.bool, device=dev)
+        bound = torch.zeros_like(st.c)
     else:
-        cand = torch.ones((nb,), dtype=torch.bool, device=st.beta.device)
-    stale = st.drift > 0
-    certified, bound = _stale_certified(kind, prob, st, rsqr, lam0, n_scale,
-                                        opt_tol)
-    need = cand & stale & ~certified
-    use_bound = stale & certified
-    n_need = host.item(torch.sum(need))
-    c = (_refresh_c(kind, prob, st, need, n_need, kernels) if n_need
-         else st.c)
-    drift_new = torch.where(need, torch.zeros_like(st.drift), st.drift)
+        # the gap-safe screen is the least-squares Lasso's; the fused check
+        # kernels hold the ls/wls formulas in f32
+        screen = (kind == "ls" and opts is not None
+                  and opts.screen is not False)
+        kernels = opts is not None and use_kernels(opts, st.beta)
+        if (kind in ("ls", "wls") and kernels
+                and opts.fuse_check is not False
+                and st.beta.dtype == torch.float32):
+            return _fused_full_check(kind, prob, st, lam0, n_scale, opt_tol,
+                                     rsqr, screen)
+
+        if screen:
+            rn2 = torch.dot(st.r, st.r)
+            cand = _gap_safe_candidates(prob, st, lam0, n_scale, rn2)
+        else:
+            cand = torch.ones((nb,), dtype=torch.bool, device=dev)
+        stale = st.drift > 0
+        certified, bound = _stale_certified(kind, prob, st, rsqr, lam0,
+                                            n_scale, opt_tol)
+        need = cand & stale & ~certified
+        use_bound = stale & certified
+        n_need = host.item(torch.sum(need))
+        c = (_refresh_c(kind, prob, st, need, n_need, kernels) if n_need
+             else st.c)
+        drift_new = torch.where(need, torch.zeros_like(st.drift), st.drift)
 
     h = _potential_steps(kind, prob, st.beta, c, rsqr, lam0, n_scale)
     habs = torch.abs(h)
     habs = torch.where(use_bound[:, None], bound, habs)
     habs = torch.where(cand[:, None], habs, torch.zeros_like(habs))
-    habs = noise_floor_mask(habs, st.beta,
-                            _step_noise(st.r, prob.xwnorm, st.beta.dtype))
+    # quad's state caches Ax, not a residual: only the iterate term
+    habs = noise_floor_mask(
+        habs, st.beta,
+        None if kind == "quad" else _step_noise(st.r, prob.xwnorm,
+                                                st.beta.dtype))
     maxh = torch.max(habs)
     viol = torch.any(habs >= opt_tol, dim=1)
     active = torch.any(st.beta != 0, dim=1) | viol
@@ -529,8 +615,8 @@ def _compact_nc(kind, opts: CDOptions, nb: int, B: int, dtype) -> int:
 class WsCache(NamedTuple):
     """Persistent working-set cache for compaction: ``idx`` the gathered
     coordinates (sorted), ``Xb`` the gathered column blocks ``(nc, n, B)``,
-    ``ok`` (host bool) whether it holds a real gather, ``Kb`` their
-    Grams."""
+    ``Xwb`` their row-weighted copy (wls only, else ``None``), ``ok``
+    (host bool) whether it holds a real gather, ``Kb`` their Grams."""
 
     idx: torch.Tensor
     Xb: torch.Tensor
@@ -547,7 +633,9 @@ def _empty_ws_cache(kind, prob: BlockedProblem, nc: int,
     gram = _gram_mode(kind, opts, nc, B)
     return WsCache(idx=torch.zeros((nc * B,), dtype=torch.int64,
                                    device=prob.Xb.device),
-                   Xb=torch.zeros((nc, n, B), **like), Xwb=None, ok=False,
+                   Xb=torch.zeros((nc, n, B), **like),
+                   Xwb=(torch.zeros((nc, n, B), **like) if kind == "wls"
+                        else None), ok=False,
                    Kb=torch.zeros((nc, B, B), **like) if gram else None)
 
 
@@ -598,10 +686,16 @@ def _ws_cache_from_idx(kind, prob: BlockedProblem, nc: int,
     """(Re)build a working-set cache from a coordinate index set."""
     B = prob.lamw.shape[1]
     bi, li = idx // B, idx % B
-    g = prob.Xb[bi, :, li]                            # (C, n)
-    Xb = g.reshape(nc, B, -1).transpose(1, 2).contiguous()
-    Kb = _block_grams(Xb, Xb) if _gram_mode(kind, opts, nc, B) else None
-    return WsCache(idx=idx, Xb=Xb, Xwb=None, ok=ok, Kb=Kb)
+
+    def grab(Ab):
+        g = Ab[bi, :, li]                             # (C, n)
+        return g.reshape(nc, B, -1).transpose(1, 2).contiguous()
+
+    Xb = grab(prob.Xb)
+    Xwb = grab(prob.Xwb) if kind == "wls" else None
+    Kb = (_block_grams(Xb if Xwb is None else Xwb, Xb)
+          if _gram_mode(kind, opts, nc, B) else None)
+    return WsCache(idx=idx, Xb=Xb, Xwb=Xwb, ok=ok, Kb=Kb)
 
 
 def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
@@ -640,7 +734,8 @@ def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
         cache = _ws_cache_from_idx(kind, prob, nc, opts, idx, True)
     bi, li = cache.idx // B, cache.idx % B
     sub_prob = BlockedProblem(
-        Xb=cache.Xb, Xwb=cache.Xb, y=prob.y, q=None,
+        Xb=cache.Xb, Xwb=cache.Xwb if kind == "wls" else cache.Xb, y=prob.y,
+        q=None,
         adiag=prob.adiag[bi, li].reshape(nc, B),
         lamw=prob.lamw[bi, li].reshape(nc, B),
         valid=prob.valid[bi, li].reshape(nc, B),
@@ -720,13 +815,16 @@ def _solve_at_lambda(kind, opts: CDOptions, prob: BlockedProblem, lam0,
 
 
 def _init_state(kind, prob: BlockedProblem, beta_b, key) -> CDState:
-    """Recompute the residuals from scratch; every cached gradient block
-    starts invalid (drift sentinel 1e30, finite so that ``inf·0`` never
-    reaches the screening arithmetic)."""
-    r = prob.y - _blocks_matvec(prob.Xb, beta_b)
+    """Recompute the residuals (``Ax`` for quad) from scratch, and ``‖r‖²``
+    for sqrt; every cached gradient block starts invalid (drift sentinel
+    1e30, finite so that ``inf·0`` never reaches the screening
+    arithmetic)."""
+    Xbeta = _blocks_matvec(prob.Xb, beta_b)
+    r = Xbeta if kind == "quad" else prob.y - Xbeta
     nb = beta_b.shape[0]
-    return CDState(beta=beta_b, r=r, rsqr=torch.zeros((), dtype=r.dtype,
-                                                      device=r.device),
+    rsqr = (torch.dot(r, r) if kind == "sqrt"
+            else torch.zeros((), dtype=r.dtype, device=r.device))
+    return CDState(beta=beta_b, r=r, rsqr=rsqr,
                    active=torch.any(beta_b != 0, dim=1), key=key, it=0,
                    conv=True, done=False, c=torch.zeros_like(beta_b),
                    drift=torch.full((nb,), 1e30, dtype=beta_b.dtype,
@@ -735,10 +833,17 @@ def _init_state(kind, prob: BlockedProblem, beta_b, key) -> CDState:
 
 def _lambda_max(kind, prob: BlockedProblem, st: CDState, n_scale,
                 kernels: bool):
-    """Smallest λ0 zeroing the solution: ``max_k |X_k'r|/(n·λw_k)``."""
+    """Smallest λ0 zeroing the solution, ``max_k |∇_k f(0)|/λw_k``: the
+    gradient is ``|X_k'r|/n`` for ls/wls, ``|X_k'r|/‖r‖`` for sqrt and
+    ``|q_k|`` for quad."""
     c = _full_gradient_c(kind, prob, st.r, kernels)
-    t = torch.where(prob.valid, torch.abs(c) / n_scale / prob.lamw,
-                    torch.zeros_like(c))
+    if kind in ("ls", "wls"):
+        g = torch.abs(c) / n_scale
+    elif kind == "sqrt":
+        g = torch.abs(c) / torch.sqrt(torch.clamp_min(st.rsqr, 1e-30))
+    else:
+        g = torch.abs(c)
+    t = torch.where(prob.valid, g / prob.lamw, torch.zeros_like(c))
     return torch.max(t)
 
 
@@ -747,7 +852,7 @@ def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
     """Warm start from ``beta0`` or zero-start with log-spaced
     λ-continuation from λmax to ``lam0``."""
     dtype = beta0_b.dtype
-    n_scale = float(prob.y.shape[0])
+    n_scale = 1.0 if kind == "quad" else float(prob.y.shape[0])
     if opts.warm_start:
         st = _init_state(kind, prob, beta0_b, key)
         return _solve_at_lambda(kind, opts, prob, lam0, st, n_scale)
@@ -755,13 +860,16 @@ def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
     st = _init_state(kind, prob, torch.zeros_like(beta0_b), key)
     npdt = _np_dtype(dtype)
     lammax = npdt.type(host.item(_lambda_max(
-        kind, prob, st, n_scale, use_kernels(opts, st.beta))))
+        kind, prob, st, n_scale,
+        kind != "quad" and use_kernels(opts, st.beta))))
     # log-spaced schedule, num_steps + 1 points inclusive, in dtype
     lams = np.exp(np.linspace(np.log(lammax), np.log(npdt.type(lam0)),
                               opts.num_steps + 1).astype(npdt)).tolist()
     nc = _compact_mode(kind, opts, prob, dtype)
     cache = _empty_ws_cache(kind, prob, nc, opts) if nc else None
-    extrap = nc and resolve_extrapolate(opts, True)
+    # the secant start is for the residual kinds (quad's r caches Ax)
+    extrap = (nc and resolve_extrapolate(opts, True)
+              and kind in ("ls", "wls", "sqrt"))
     beta_prev = st.beta
     lam_k = lam_km1 = lams[0]
     for lam in lams:
@@ -791,30 +899,49 @@ def _to_blocked_beta(beta0, B):
 
 def coordinate_descent(beta0, loss, penalty, options: CDOptions = CDOptions(),
                        *, seed: int = 0, key=None, device=None):
-    """Minimize ``‖y − Xβ‖²/(2n) + Σ_j λ0 λw_j |β_j|``; returns
-    ``(beta, residuals)``.  Only ``LeastSquaresLoss`` with a ``ProxL1``
-    penalty is ported; ``key`` is an optional ``torch.Generator`` for the
-    randomized visit orders (default: one seeded with ``seed``).  Runs on
-    ``device`` (``None``: the GPU; ``"cpu"`` for the plain path on the
-    CPU), where the inputs are moved."""
-    if not isinstance(loss, LeastSquaresLoss):
+    """Minimize ``f(β) + Σ_j λ0 λw_j |β_j|``; returns ``(beta, residuals)``,
+    ``residuals`` being ``y − Xβ`` for the regression losses and ``Aβ`` for
+    ``QuadraticLoss``.  ``penalty`` is a ``ProxL1`` (optionally weighted)
+    or ``ProxZero``; group penalties are not ported.  ``key`` is an
+    optional ``torch.Generator`` for the randomized visit orders (default:
+    one seeded with ``seed``).  Runs on ``device`` (``None``: the GPU;
+    ``"cpu"`` for the plain path on the CPU), where the inputs are moved."""
+    if not isinstance(loss, (LeastSquaresLoss, WeightedLSLoss, SqrtLassoLoss,
+                             QuadraticLoss)):
         raise NotImplementedError(
-            f"{type(loss).__name__} is not ported yet (least squares only)")
-    if not isinstance(penalty, ProxL1):
+            f"{type(loss).__name__} is not a loss of this package")
+    if not isinstance(penalty, (ProxL1, ProxZero)):
         raise NotImplementedError(
-            f"{type(penalty).__name__} is not ported yet (ProxL1 only)")
+            f"{type(penalty).__name__} is not ported yet (ProxL1 and "
+            "ProxZero only)")
     p = beta0.shape[0]
     if num_coordinates(loss) != p:
         raise ValueError("dimension mismatch between beta0 and loss")
     dev = target_device(device)
-    X = on_device(loss.X, dev)
-    y = on_device(loss.y, dev, X.dtype)
-    lam0, lamw = as_l1(penalty, p, X.dtype, dev)
+    quad = isinstance(loss, QuadraticLoss)
+    lead = on_device(loss.b if quad else loss.X, dev)
+    dtype = lead.dtype
+    lam0, lamw = as_l1(penalty, p, dtype, dev)
     if key is None:
         key = torch.Generator().manual_seed(seed)
-    beta0 = on_device(beta0, dev, X.dtype)
+    beta0 = on_device(beta0, dev, dtype)
+    if isinstance(penalty, ProxZero):
+        # the unpenalized solve never runs the λ-continuation: from beta0
+        # when warm-started, from zero otherwise, one solve either way
+        if not options.warm_start:
+            beta0 = torch.zeros_like(beta0)
+        options = options.replace(warm_start=True)
     with full_f32_matmuls():
-        prob = build_blocked("ls", options, lamw, X=X, y=y)
-        st = solve_blocked("ls", options, prob, lam0,
+        if quad:
+            prob = build_blocked("quad", options, lamw,
+                                 A=on_device(loss.A, dev, dtype), q=lead)
+        else:
+            w = (on_device(loss.w, dev, dtype)
+                 if isinstance(loss, WeightedLSLoss) else None)
+            if w is not None and tuple(w.shape) != (lead.shape[0],):
+                raise ValueError("row weight vector has wrong length")
+            prob = build_blocked(loss.kind, options, lamw, X=lead,
+                                 y=on_device(loss.y, dev, dtype), w=w)
+        st = solve_blocked(loss.kind, options, prob, lam0,
                            _to_blocked_beta(beta0, options.block_size), key)
     return _unblock(st.beta, p), st.r

@@ -1,6 +1,6 @@
 """Float64-accumulated certification (counterpart of
-``coordinatedescent_jl_tpu/ops/compensated.py``, the pieces the Lasso
-polish and the compensated gap need).
+``coordinatedescent_jl_tpu/ops/compensated.py``, the pieces the polishes
+and the compensated certificates need).
 
 - ``grad_f64`` — ``X'r`` with float64 accumulation over the float32
   design: K5's f64-accumulating instantiation on the card
@@ -10,6 +10,11 @@ polish and the compensated gap need).
 - ``fenchel_gap_f64`` — the host float64 Fenchel gap finish.
 - ``lasso_duality_gap_compensated`` — the measurement-grade gap built
   from the three.
+- ``sqrt_lasso_kkt_compensated`` — the sqrt-lasso's measurement-grade
+  relative KKT residual (``_sqrt_kkt_rel_from_grad`` its roll-up).
+- ``loadings_f64`` — the feasible Lasso's loadings with float64
+  accumulation, column-chunked (plain PyTorch: an einsum outside any
+  kernel in the JAX package too).
 
 What is not ported, and why: the JAX package's hybrid sweep
 ``grad_f64_certified`` (with ``_grad32_and_mag``, ``_hybrid_estimate`` and
@@ -17,9 +22,12 @@ What is not ported, and why: the JAX package's hybrid sweep
 full f64 sweep costs ~6× an f32 one; it computes exact values only where
 the certificate can read them.  The H100 has native float64, and the full
 f64-accumulating sweep is one read of the float32 design, so the port
-uses ``grad_f64`` wherever the JAX package calls the hybrid.  The
-``col_chunk`` arguments bounded the TPU emulation's temporaries and are
-dropped with it.
+uses ``grad_f64`` wherever the JAX package calls the hybrid: the sqrt
+certificate then reads the exact f64 gradient at every coordinate, which
+is stricter than the hybrid's "exact where it matters".  The gradient
+sweeps' ``col_chunk`` arguments bounded the TPU emulation's temporaries
+and are dropped with it; ``loadings_f64`` keeps its own (a whole-design
+float64 ``X∘X`` would be 8 GB at n = 10K, p = 100K).
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ from ..utils import host
 from ..utils.helpers import on_device, target_device
 
 __all__ = ["grad_f64", "residual_f64", "fenchel_gap_f64",
-           "lasso_duality_gap_compensated"]
+           "lasso_duality_gap_compensated", "sqrt_lasso_kkt_compensated",
+           "loadings_f64"]
 
 
 def host_f64(x) -> np.ndarray:
@@ -102,3 +111,53 @@ def lasso_duality_gap_compensated(X, y, beta, lam0, weights=None, *,
     r64, _ = _support_residual(X, y, beta_np)
     return fenchel_gap_f64(host_f64(r64), host_f64(grad_f64(X, r64)),
                            beta_np, lam0, w, n, host_f64(y))
+
+
+def _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np):
+    """Sqrt-lasso KKT roll-up from the float64 gradient, shared by
+    ``sqrt_lasso_kkt_compensated`` and ``models.polish.polish_sqrt_lasso``:
+    the off-support excess ``max(|g_j| − t_j, 0)/t_j`` and the on-support
+    stationarity deviation ``|g_j − t_j·sign β_j|/t_j``, the larger of the
+    two maxima."""
+    off_rel = float(np.max(np.maximum(np.abs(g_np) - t, 0.0) / t))
+    on_rel = (float(np.max(
+        np.abs(g_np[sup] - t[sup] * np.sign(beta_np[sup])) / t[sup]))
+        if sup.size else 0.0)
+    return max(off_rel, on_rel)
+
+
+def sqrt_lasso_kkt_compensated(X, y, beta, lam0, weights=None, *,
+                               device=None):
+    """Measurement-grade sqrt-lasso KKT residual, relative to the
+    threshold scale ``t_j = λ‖r‖w_j`` of the zero rule: 0 at an exact
+    solution, each violation measured against its own coordinate's
+    threshold.  The exact float64 residual through the gathered support,
+    the full f64-accumulating gradient sweep, every scalar float64.
+    Returns ``(kkt_rel, norm_r)``.  Runs on ``device`` (``None``: the GPU,
+    raising when there is none; ``"cpu"``: the plain twins on the CPU)."""
+    dev = target_device(device)
+    X = on_device(X, dev).contiguous()
+    y = on_device(y, dev)
+    p = X.shape[1]
+    beta_np = host_f64(beta)
+    w = np.ones((p,), np.float64) if weights is None else host_f64(weights)
+    r64, sup = _support_residual(X, y, beta_np)
+    r_np = host_f64(r64)
+    rn = float(np.sqrt(r_np @ r_np))
+    t = np.maximum(float(lam0) * rn * w, 1e-300)
+    g_np = host_f64(grad_f64(X, r64))
+    return _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np), rn
+
+
+def loadings_f64(X, r64, col_chunk: int = 2048):
+    """Heteroscedastic penalty loadings ``sqrt(mean((X_ij r_i)²))`` with
+    float64 accumulation, ``col_chunk`` columns at a time (the float32
+    form's squared terms alone carry ~6e-8 relative error, too coarse to
+    certify the feasible Lasso's loading fixed point at 1e-7).  Per chunk
+    one ``(n, chunk)`` float64 square and one float64 product; no
+    design-sized temporary."""
+    n, p = X.shape
+    rr = r64 * r64
+    out = torch.cat([rr @ X[:, c:c + col_chunk].to(torch.float64).square()
+                     for c in range(0, p, col_chunk)])
+    return torch.sqrt(out / n)

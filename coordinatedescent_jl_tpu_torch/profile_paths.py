@@ -8,7 +8,20 @@ wall time and counters, then once under ``torch.profiler`` (CPU + CUDA):
 
 - ``scan``: the 100-point ``lasso_path`` (``path_batch=0``);
 - ``batched``: the same grid with ``path_batch=128, coarse_stride=99``;
-- ``polish``: ``lasso`` at 0.05·λmax (default options) + ``polish_lasso``.
+- ``polish``: ``lasso`` at 0.05·λmax (default options) + ``polish_lasso``;
+- ``sqrt``, ``scaled``, ``feasible``: ``sqrt_lasso`` at 1.1·sqrt(2 ln p)
+  (bench.py's options), ``scaled_lasso`` and ``feasible_lasso`` at
+  sqrt(2 ln p / n)·(1 + 1e-7) (default options: the calls bench.py and
+  ``chip_smoke.py`` time);
+- ``sqrt_polish``, ``scaled_polish``, ``feasible_polish``: the float64
+  polish of each of those solutions;
+- ``scaled_lam``, ``feasible_lam``: the same two estimators at sqrt(2 ln p
+  / n) itself (bench.py's first, untimed call).  At the default float32
+  ``opt_tol = 1e-7`` the epochs of a solve depend on whether an inner
+  working-set solve reaches the tolerance or runs to ``max_iter``, and
+  these two levels, 1e-7 apart, differ in that;
+- ``wls``: one ``coordinate_descent(WeightedLSLoss, ProxL1)`` solve with
+  random row weights in [0.5, 1.5] at 0.05·λmax of the weighted problem.
 
 For each it prints one JSON line: the wall time, the device time (the
 sum of the kernels' durations in the trace), the device's idle share,
@@ -16,15 +29,22 @@ the number of device kernels, the top kernels by time, the device time
 and calls of each of the port's own kernels (``cdt``), the host reads
 and the kernel launch counters.  The batched line adds the refine rounds
 (``stats``) and the kernels and device time inside the
-``union_block_fista`` spans; the polish line adds its rounds and support
-(``PolishResult``).  The line before them gives the card's name and power
-limit.  Needs a CUDA GPU.
+``union_block_fista`` spans; a polish line adds its rounds, whether it
+converged and (where the result has one) its support.  The line before
+them gives the card's name and power limit.  Needs a CUDA GPU.
+
+    python -m coordinatedescent_jl_tpu_torch.profile_paths --trace-probe 1500
+
+counts instead how many of that many one-call traces (:func:`trace_one_call`
+on K1's wls form at the working set's shape, random data) the tracer
+returned short of the launch the wrapper counted, and had to be retaken.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -64,6 +84,99 @@ def bench_problem(dev, n: int = 10_000, p: int = 100_000, s: int = 100,
     opts = CDOptions(opt_tol=1e-6, max_iter=300, block_size=128,
                      randomize=False, block_iters=16)
     return BenchProblem(X, y, support, beta_true, lammax, lams, opts)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter, by the names ``chip_smoke.py``
+    reports them under."""
+    from .kernels import active_pass, check
+    from .kernels import gradient_sweep as gs
+
+    k1 = active_pass.LAUNCHES_KIND
+    return {"K1": k1["ls"][0], "K1f64": k1["ls"][1], "K1wls": k1["wls"][0],
+            "K1sqrt": k1["sqrt"][0], "K1sqrt_f64": k1["sqrt"][1],
+            "K2": gs.LAUNCHES, "K3": check.LAUNCHES_A, "K4": check.LAUNCHES_B,
+            "K5": gs.LAUNCHES_DENSE, "K5f64": gs.LAUNCHES_F64}
+
+
+def reset_launch_counts():
+    from .kernels import active_pass, check
+    from .kernels import gradient_sweep as gs
+
+    for by_dtype in active_pass.LAUNCHES_KIND.values():
+        by_dtype[0] = by_dtype[1] = 0
+    gs.LAUNCHES = gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
+    check.LAUNCHES_A = check.LAUNCHES_B = 0
+
+
+def trace_one_call(fn, retakes: int = 10):
+    """One call of ``fn`` (warmed up first) under ``torch.profiler``:
+    ``(host reads, device kernels' names, their ms, launches the wrappers
+    counted, traces retaken)``.
+
+    The tracer (Kineto) now and then discards a kernel's record as outside
+    its capture window (its log counts the record "Out-of-range"; padding
+    the window with sleeps or tracing the CPU as well changes nothing).  The
+    wrappers' launch counters tell that loss from a wrapper that launched
+    nothing: a trace with fewer device kernels than launches counted lost a
+    record and is taken again, at most ``retakes`` times (the losses come
+    a few in a row); a trace with as
+    many or more is returned as it is, so a call that launched no kernel,
+    or more kernels than its wrappers counted, still shows as such."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils import host
+
+    fn()
+    for retaken in range(retakes + 1):
+        torch.cuda.synchronize()
+        reads = host.COUNTS["host_reads"]
+        before = sum(launch_counts().values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counted = sum(launch_counts().values()) - before
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kern) >= counted:
+            break
+    return (host.COUNTS["host_reads"] - reads, [e.name for e in kern],
+            sum(e.time_range.elapsed_us() for e in kern) * 1e-3, counted,
+            retaken)
+
+
+def trace_probe(traces: int):
+    """Print how many of ``traces`` one-call traces of K1 (wls, FISTA, 8
+    blocks of n = 10,000 rows, random data) had to be retaken."""
+    from .kernels import active_pass
+    from .ops import block_cd
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    n, B = 10_000, 128
+    X = torch.randn((n, 8 * B), generator=g, device=dev)
+    y = torch.randn((n,), generator=g, device=dev)
+    w = 0.5 + torch.rand(n, generator=g, device=dev)
+    prob = block_cd.build_blocked(
+        "wls", CDOptions(block_size=B, cache_gram=True, compact=False),
+        torch.ones(8 * B, device=dev), X=X, y=y, w=w)
+    st = block_cd._init_state("wls", prob, torch.zeros((8, B), device=dev),
+                              None)
+    args = (prob, st.beta, st.r, torch.ones(8, dtype=torch.bool, device=dev),
+            0.05, float(n), torch.arange(8, device=dev),
+            torch.arange(B, device=dev))
+    hist = collections.Counter()
+    for _ in range(traces):
+        _, names, _, counted, retaken = trace_one_call(
+            lambda: active_pass.fused_active_pass(
+                *args, kind="wls", inner="ista", iters=16, rsqr=st.rsqr))
+        if len(names) != 1 or counted != 1:
+            print(f"trace_probe: {len(names)} kernel(s), {counted} counted",
+                  file=sys.stderr)
+            sys.exit(1)
+        hist[retaken] += 1
+    print(json.dumps({"traces": traces, "retaken": dict(sorted(hist.items()))}),
+          flush=True)
 
 
 def _timed(fn):
@@ -129,13 +242,14 @@ def main():
         print("profile_paths: needs a CUDA GPU", file=sys.stderr)
         sys.exit(1)
     import coordinatedescent_jl_tpu_torch as tcd
-    from .kernels import active_pass, check, gradient_sweep as gs
     from .utils import host
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if sys.argv[1:2] == ["--trace-probe"]:
+        return trace_probe(int(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     bp = bench_problem(torch.device("cuda", 0))
     X, y, lams, opts = bp.X, bp.y, bp.lams, bp.opts
@@ -156,24 +270,68 @@ def main():
         sol = tcd.lasso(X, y, lam_end)
         out["polish"] = tcd.polish_lasso(X, y, sol.x, lam_end)
 
+    n, p = X.shape
+    lam_sq = 1.1 * math.sqrt(2 * math.log(p))
+    lam_sc = math.sqrt(2 * math.log(p) / n)
+    opts_sq = CDOptions(opt_tol=1e-6, max_iter=300, randomize=False,
+                        block_size=128)
+    g = torch.Generator(device=X.device).manual_seed(1)
+    w = 0.5 + torch.rand(n, generator=g, device=X.device)
+    lam_w = 0.05 * float(torch.max(torch.abs((w * y) @ X)) / n)
+    sols = {}
+
+    def sqrt():
+        sols["sqrt"] = tcd.sqrt_lasso(X, y, lam_sq, options=opts_sq,
+                                      standardize_X=False).x
+
+    def scaled():
+        sols["scaled"] = tcd.scaled_lasso(X, y, lam_sc * (1.0 + 1e-7)).x
+
+    def feasible():
+        sols["feasible"] = tcd.feasible_lasso(X, y, lam_sc * (1.0 + 1e-7)).x
+
+    def scaled_lam():
+        tcd.scaled_lasso(X, y, lam_sc)
+
+    def feasible_lam():
+        tcd.feasible_lasso(X, y, lam_sc)
+
+    def sqrt_polish():
+        out["polish"] = tcd.polish_sqrt_lasso(X, y, sols["sqrt"], lam_sq)
+
+    def scaled_polish():
+        out["polish"] = tcd.polish_scaled_lasso(X, y, sols["scaled"],
+                                                lam_sc * (1.0 + 2e-7))
+
+    def feasible_polish():
+        out["polish"] = tcd.polish_feasible_lasso(X, y, sols["feasible"],
+                                                  lam_sc * (1.0 + 2e-7))
+
+    def wls():
+        tcd.coordinate_descent(torch.zeros(p, device=X.device),
+                               tcd.WeightedLSLoss(y, X, w),
+                               tcd.ProxL1(lam_w), opts)
+
     for name, fn in (("scan", scan), ("batched", batched),
-                     ("polish", polish)):
+                     ("polish", polish), ("sqrt", sqrt),
+                     ("sqrt_polish", sqrt_polish), ("scaled", scaled),
+                     ("scaled_polish", scaled_polish),
+                     ("feasible", feasible),
+                     ("feasible_polish", feasible_polish),
+                     ("scaled_lam", scaled_lam),
+                     ("feasible_lam", feasible_lam), ("wls", wls)):
         fn()                                          # warm-up
-        active_pass.LAUNCHES = active_pass.LAUNCHES_F64 = gs.LAUNCHES = 0
-        check.LAUNCHES_A = check.LAUNCHES_B = 0
-        gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
+        reset_launch_counts()
         host.reset()
         _, wall = _timed(fn)
         rec = {"path": name, "wall_s": wall, **dict(host.COUNTS),
-               "launches": {"K1": active_pass.LAUNCHES,
-                            "K1f64": active_pass.LAUNCHES_F64,
-                            "K2": gs.LAUNCHES, "K3": check.LAUNCHES_A,
-                            "K4": check.LAUNCHES_B, "K5": gs.LAUNCHES_DENSE,
-                            "K5f64": gs.LAUNCHES_F64}}
+               "launches": launch_counts()}
         if name == "batched":
             rec["refine_rounds"] = out["stats"]["refine_rounds"]
-        if name == "polish":
+        if name.endswith("polish"):
             rec["polish_rounds"] = out["polish"].rounds
+            rec["converged"] = out["polish"].converged
+        if name in ("polish", "sqrt_polish"):
             rec["support"] = out["polish"].support_size
         rec.update(_trace(fn))
         print(json.dumps(rec), flush=True)

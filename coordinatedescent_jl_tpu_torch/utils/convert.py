@@ -1,9 +1,9 @@
 """Carry options and solver state across from the JAX package.
 
 The parity tests feed identical state to both packages: these functions
-take the JAX package's records (``CDOptions``, ``BlockedProblem``,
-``CDState``, ``WsCache``) and build the port's, on a given device and
-dtype.  They read the JAX arrays through ``numpy.asarray`` only, so this
+take the JAX package's records (``CDOptions``, ``IterLassoOptions``,
+``BlockedProblem``, ``CDState``, ``WsCache``) and build the port's, on a
+given device and dtype.  They read the JAX arrays through ``numpy.asarray`` only, so this
 module imports no JAX.
 """
 
@@ -15,12 +15,20 @@ import numpy as np
 import torch
 
 from ..ops.block_cd import BlockedProblem, CDState, WsCache
-from .options import CDOptions
+from .options import CDOptions, IterLassoOptions
 
 
 def options_from_jax(opts) -> CDOptions:
     """A JAX ``CDOptions`` as the port's (same fields)."""
     return CDOptions(**dataclasses.asdict(opts))
+
+
+def iter_options_from_jax(opts) -> IterLassoOptions:
+    """A JAX ``IterLassoOptions`` as the port's (same fields; the inner
+    ``options_cd`` through :func:`options_from_jax`)."""
+    kw = {f.name: getattr(opts, f.name) for f in dataclasses.fields(opts)}
+    kw["options_cd"] = options_from_jax(opts.options_cd)
+    return IterLassoOptions(**kw)
 
 
 def _t(a, device, dtype):
@@ -34,11 +42,20 @@ def _t(a, device, dtype):
 
 
 def problem_from_jax(prob, device="cpu", dtype=torch.float64) -> BlockedProblem:
-    """A JAX ``BlockedProblem`` (least-squares kind) as the port's."""
+    """A JAX ``BlockedProblem`` of any kind as the port's: ``Xwb`` stays
+    one tensor with ``Xb`` where the JAX record holds one array for both
+    (ls, sqrt), is a second tensor where it is distinct (wls), and stays
+    ``None`` in the quad layout (``Xb`` the blocks of ``A``, ``q`` set,
+    no ``y``)."""
     Xb = _t(prob.Xb, device, dtype)
-    same = prob.Xwb is None or prob.Xwb is prob.Xb
+    if prob.Xwb is None:
+        Xwb = None
+    elif prob.Xwb is prob.Xb:
+        Xwb = Xb
+    else:
+        Xwb = _t(prob.Xwb, device, dtype)
     return BlockedProblem(
-        Xb=Xb, Xwb=Xb if same else _t(prob.Xwb, device, dtype),
+        Xb=Xb, Xwb=Xwb,
         y=_t(prob.y, device, dtype), q=_t(prob.q, device, dtype),
         adiag=_t(prob.adiag, device, dtype), lamw=_t(prob.lamw, device, dtype),
         valid=_t(prob.valid, device, dtype), xwnorm=_t(prob.xwnorm, device,
@@ -48,8 +65,9 @@ def problem_from_jax(prob, device="cpu", dtype=torch.float64) -> BlockedProblem:
 
 def state_from_jax(st, device="cpu", dtype=torch.float64,
                    key=None) -> CDState:
-    """A JAX ``CDState`` as the port's; ``key`` is the port's generator
-    (JAX PRNG keys do not carry over)."""
+    """A JAX ``CDState`` as the port's (``rsqr``, the sqrt kind's running
+    ``‖r‖²``, included); ``key`` is the port's generator (JAX PRNG keys do
+    not carry over)."""
     return CDState(beta=_t(st.beta, device, dtype), r=_t(st.r, device, dtype),
                    rsqr=_t(st.rsqr, device, dtype),
                    active=_t(st.active, device, dtype), key=key,

@@ -42,3 +42,56 @@ def sample_std(r):
     n = r.shape[0]
     m = torch.mean(r)
     return torch.sqrt(torch.sum((r - m) ** 2) / (n - 1))
+
+
+def get_loadings(X, e):
+    """Heteroscedastic penalty loadings ``sqrt(mean((X_ij e_i)^2))`` (the
+    feasible Lasso's)."""
+    n = X.shape[0]
+    return torch.sqrt(torch.einsum("i,ij->j", e * e, X * X) / n)
+
+
+def get_loadings_blocked(Xb, e, p: int):
+    """``get_loadings`` from the blocked design ``Xb (nb, n, B)``, 16
+    column blocks at a time, so that no design-sized ``X∘X`` temporary is
+    made (4 GB at n = 10K, p = 100K).
+    Padded columns are all-zero (loading 0) and are sliced off."""
+    n = Xb.shape[1]
+    ee = e * e
+    s = torch.cat([torch.matmul(ee, Xb[i:i + 16].square())
+                   for i in range(0, Xb.shape[0], 16)])    # (nb, B)
+    return torch.sqrt(s.reshape(-1)[:p] / n)
+
+
+def get_sigma(w, r):
+    """Weighted residual scale ``sqrt(Σ w_i r_i^2 / Σ w_i)``."""
+    return torch.sqrt(torch.sum(r * r * w) / torch.sum(w))
+
+
+def find_largest_correlations(X, y, s: int, w=None):
+    """Indices of the ``s`` columns with the largest ``|X_j' y|`` (or the
+    weighted ``|Σ_i X_ij w_i y_i|``), ties toward the lower index as
+    ``lax.top_k`` breaks them."""
+    c = torch.abs((y if w is None else w * y) @ X)
+    return torch.sort(c, descending=True, stable=True)[1][:s]
+
+
+def find_init_residuals(X, y, s: int, w=None):
+    """Residuals of the (weighted) OLS of ``y`` on its ``s`` most
+    correlated columns, through the normal equations with an eps-scaled
+    jitter, as the JAX package writes them (both packages then pick the
+    same start, also when the top-s columns are collinear)."""
+    idx = find_largest_correlations(X, y, s, w)
+    Xs = X.index_select(1, idx)
+    A = Xs.T @ Xs if w is None else Xs.T @ (w[:, None] * Xs)
+    b = y @ Xs if w is None else (w * y) @ Xs
+    jitter = (10 * torch.finfo(X.dtype).eps * torch.trace(A) / s) * torch.eye(
+        s, dtype=A.dtype, device=A.device)
+    coef = torch.linalg.solve(A + jitter, b)
+    return y - Xs @ coef
+
+
+def find_init_sigma(X, y, s: int):
+    """Initial σ upper bound: the sample std of the screened-OLS
+    residuals."""
+    return sample_std(find_init_residuals(X, y, s))

@@ -1,15 +1,15 @@
 """Solver option records (counterpart of ``coordinatedescent_jl_tpu/utils/options.py``).
 
-``CDOptions`` keeps every field and default of the JAX package's record, so a
-JAX ``CDOptions`` converts 1:1 (``utils/convert.py``).  Fields that steer the
-TPU hardware mapping keep their names and mean the nearest thing here:
+``CDOptions`` and ``IterLassoOptions`` keep every field and default of the
+JAX package's records, so they convert 1:1 (``utils/convert.py``).  Fields
+that steer the TPU hardware mapping keep their names and mean the nearest thing here:
 
 - ``use_pallas`` selects the hand-written CUDA kernels (``kernels/``).
   ``None`` = on for CUDA tensors; ``True`` forces them and raises for CPU
   tensors; ``False`` takes the plain PyTorch path everywhere (the JAX
   package's own A/B switch).  No effect on solutions.
 - ``fuse_check`` selects the fused check kernels (phase A/B) for the f32
-  least-squares full check.  The JAX package also gates them on a VMEM
+  ls/wls full check.  The JAX package also gates them on a VMEM
   budget (``fused_check_fits``); the H100 has no such limit at the sizes
   this solver runs, so the port's gate is dtype only.
 """
@@ -17,7 +17,7 @@ TPU hardware mapping keep their names and mean the nearest thing here:
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -50,6 +50,27 @@ class CDOptions:
     fuse_check: bool | None = None
 
     def replace(self, **kw) -> "CDOptions":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class IterLassoOptions:
+    """Options for the outer loops of Scaled-Lasso and Feasible-Lasso (same
+    fields and defaults as the JAX package's record): ``max_iter`` outer
+    (σ / loading) rounds, ``opt_tol`` the relative tolerance on the outer
+    fixed point, ``init_procedure`` one of ``'screening' | 'init_std' |
+    'warm_start'``, ``s_init`` the screened columns of the initial σ /
+    residual estimate, ``sigma_init`` the initial σ for ``'init_std'``,
+    ``options_cd`` the inner solver's options."""
+
+    max_iter: int = 20
+    opt_tol: float = 1e-2
+    init_procedure: str = "screening"
+    s_init: int = 5
+    sigma_init: float = 1.0
+    options_cd: CDOptions = field(default_factory=CDOptions)
+
+    def replace(self, **kw) -> "IterLassoOptions":
         return dataclasses.replace(self, **kw)
 
 

@@ -86,14 +86,15 @@ def test_active_pass_kernel_matches_twin(dev, dtype, gram, inner, B, n):
     nb = prob.lamw.shape[0]
     args = (prob, st.beta, st.r, st.active, 0.05, float(n),
             torch.arange(nb, device=dev), torch.arange(B, device=dev))
-    counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
-    n0 = getattr(active_pass, counter)
+    count = active_pass.LAUNCHES_KIND["ls"]
+    f64 = dtype == torch.float64
+    n0 = count[f64]
     reads = host.COUNTS["host_reads"]
     bk, rk, mk, _ = active_pass.fused_active_pass(*args, inner=inner,
                                                   rsqr=st.rsqr)
     assert host.COUNTS["host_reads"] == reads
     torch.cuda.synchronize()
-    assert getattr(active_pass, counter) == n0 + 1
+    assert count[f64] == n0 + 1
     bp, rp, mp, _ = active_pass.fused_active_pass_plain(*args, inner=inner)
     tol = TOL[dtype]
     torch.testing.assert_close(bk, bp, atol=tol, rtol=0)
@@ -102,11 +103,117 @@ def test_active_pass_kernel_matches_twin(dev, dtype, gram, inner, B, n):
     torch.testing.assert_close(mk, mp, atol=tol, rtol=0)
 
 
+def _kind_problem(dev, dtype, kind, n, B, gram, seed=0):
+    """``_problem`` with the wls kind's row weights, or the sqrt kind's
+    running ``‖r‖²`` in the state."""
+    prob, st = _problem(dev, dtype, n=n, B=B, gram=gram, seed=seed)
+    if kind == "ls":
+        return prob, st
+    rng = np.random.default_rng(seed + 100)
+    p = int(prob.valid.sum())
+    X = prob.Xb.permute(1, 0, 2).reshape(n, -1)[:, :p].contiguous()
+    w = torch.as_tensor(0.5 + rng.random(n), dtype=dtype, device=dev)
+    opts = CDOptions(block_size=B, cache_gram=gram, compact=False)
+    prob = block_cd.build_blocked(kind, opts, prob.lamw.reshape(-1)[:p],
+                                  X=X, y=prob.y, w=w)
+    return prob, block_cd._init_state(kind, prob, st.beta, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gram", [False, True])
+@pytest.mark.parametrize("inner", ["ista", "exact"])
+@pytest.mark.parametrize("n,B", [(1000, 128), (1000, 48), (50_000, 128)])
+@pytest.mark.parametrize("kind", ["wls", "sqrt"])
+def test_active_pass_kernel_kinds_match_twin(dev, kind, n, B, inner, gram,
+                                             dtype):
+    """K1's wls and sqrt forms against the twin (β, r, maxh and rsqr), with
+    the rows kept in shared memory (n = 1000) and read again for the
+    update (n = 50,000), one launch and no host read, counted by kind.
+    rsqr is relative: 1e-5 in f32 (a sum of n squares in another order;
+    through the exact scan it also carries the cancellation of its
+    three-term updates), 1e-11 in f64."""
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    prob, st = _kind_problem(dev, dtype, kind, n, B, gram)
+    assert (prob.Xwb is prob.Xb) == (kind != "wls")
+    nb = prob.lamw.shape[0]
+    lam0 = 0.05 if kind == "wls" else 0.05 * n ** 0.5
+    args = (prob, st.beta, st.r, st.active, lam0, float(n),
+            torch.arange(nb, device=dev), torch.arange(B, device=dev))
+    kw = dict(kind=kind, inner=inner, rsqr=torch.dot(st.r, st.r))
+    f64 = dtype == torch.float64
+    n0 = active_pass.LAUNCHES_KIND[kind][f64]
+    reads = host.COUNTS["host_reads"]
+    bk, rk, mk, sk = active_pass.fused_active_pass(*args, **kw)
+    assert host.COUNTS["host_reads"] == reads
+    torch.cuda.synchronize()
+    assert active_pass.LAUNCHES_KIND[kind][f64] == n0 + 1
+    bp, rp, mp, sp = active_pass.fused_active_pass_plain(*args, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(bk, bp, atol=tol, rtol=0)
+    torch.testing.assert_close(rk, rp, atol=10 * tol * max(1.0, n / 1000),
+                               rtol=0)
+    torch.testing.assert_close(mk, mp, atol=tol, rtol=0)
+    torch.testing.assert_close(sk, sp, atol=0, rtol=1e-11 if f64 else 1e-5)
+    if kind == "sqrt":
+        assert float(mk) > 0 and float(sk) != float(kw["rsqr"])
+    else:
+        assert float(sk) == float(kw["rsqr"])
+
+
+def test_active_pass_kernel_refuses_a_second_design_unless_wls(dev):
+    prob, st = _kind_problem(dev, torch.float32, "wls", 1000, 128, True)
+    nb = prob.lamw.shape[0]
+    with pytest.raises(ValueError, match="Xwb must be Xb"):
+        active_pass.fused_active_pass(
+            prob, st.beta, st.r, st.active, 0.05, 1000.0,
+            torch.arange(nb, device=dev), torch.arange(128, device=dev),
+            kind="sqrt", inner="ista")
+
+
+@pytest.mark.parametrize("kind", ["wls", "sqrt"])
+def test_solve_kinds_kernels_match_plain(dev, kind):
+    """A whole wls / sqrt solve (f32, working set on) with the kernels and
+    with ``use_pallas=False``: the same support; the sqrt solve never
+    launches K3/K4, the wls solve does."""
+    from coordinatedescent_jl_tpu_torch import (ProxL1, SqrtLassoLoss,
+                                                WeightedLSLoss,
+                                                coordinate_descent)
+
+    rng = np.random.default_rng(5)
+    n, p = 2000, 6000
+    X = torch.as_tensor(rng.standard_normal((n, p)), dtype=torch.float32,
+                        device=dev)
+    beta = torch.zeros(p, device=dev)
+    beta[::400] = 2.0
+    y = X @ beta + torch.as_tensor(rng.standard_normal(n),
+                                   dtype=torch.float32, device=dev)
+    w = torch.as_tensor(0.5 + rng.random(n), dtype=torch.float32, device=dev)
+    loss = (WeightedLSLoss(y, X, w) if kind == "wls" else SqrtLassoLoss(y, X))
+    lam = 0.2 if kind == "wls" else 0.2 * n ** 0.5
+    opts = CDOptions(opt_tol=1e-6, randomize=False, max_iter=300)
+    a0, b0 = check.LAUNCHES_A, check.LAUNCHES_B
+    k0 = active_pass.LAUNCHES_KIND[kind][0]
+    bk, _ = coordinate_descent(torch.zeros(p, device=dev), loss, ProxL1(lam),
+                               opts)
+    assert active_pass.LAUNCHES_KIND[kind][0] > k0
+    if kind == "sqrt":
+        assert (check.LAUNCHES_A, check.LAUNCHES_B) == (a0, b0)
+    else:
+        assert check.LAUNCHES_A > a0
+    bp, _ = coordinate_descent(torch.zeros(p, device=dev), loss, ProxL1(lam),
+                               opts.replace(use_pallas=False))
+    differ = (bk != 0) != (bp != 0)
+    assert int((differ & (torch.maximum(bk.abs(), bp.abs()) > 1e-4)).sum()) == 0
+    assert int((bk != 0).sum()) >= 15
+    torch.testing.assert_close(bk, bp, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_active_pass_kernel_is_one_launch(dev, dtype):
     """One device kernel per call (the engine's call, with its rsqr), and
     with no active block the outputs are the inputs."""
-    from torch.profiler import ProfilerActivity, profile
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
 
     prob, st = _problem(dev, dtype, gram=True)
     nb = prob.lamw.shape[0]
@@ -114,15 +221,12 @@ def test_active_pass_kernel_is_one_launch(dev, dtype):
     corder = torch.arange(128, device=dev)
     for act in (st.active, torch.zeros_like(st.active)):
         args = (prob, st.beta, st.r, act, 0.05, 1000.0, border, corder)
-        active_pass.fused_active_pass(*args, inner="ista", rsqr=st.rsqr)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            bk, rk, mk, _ = active_pass.fused_active_pass(
-                *args, inner="ista", rsqr=st.rsqr)
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == 1, kernels
+        out = []
+        _, kernels, _, counted, _ = trace_one_call(
+            lambda: out.append(active_pass.fused_active_pass(
+                *args, inner="ista", rsqr=st.rsqr)))
+        bk, rk, mk, _ = out[-1]
+        assert counted == 1 and len(kernels) == 1, (counted, kernels)
     assert torch.equal(bk, st.beta) and torch.equal(rk, st.r)
     assert float(mk) == 0.0
 
@@ -249,9 +353,7 @@ def test_check_kernels_are_one_launch_and_deterministic(dev, screen):
     """At the bench's 782 rows: a call of each phase is one device kernel
     and reads nothing to the host, and two calls give bitwise-equal
     outputs."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from coordinatedescent_jl_tpu_torch.utils import host
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
 
     a, c_new = _check_case(dev, nb=782)
 
@@ -261,16 +363,11 @@ def test_check_kernels_are_one_launch_and_deterministic(dev, screen):
                                    a[3], a[4], a[5], a[6], a[7])
         return (*outa, *outb)
 
-    first = both()
-    torch.cuda.synchronize()
-    reads = host.COUNTS["host_reads"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        second = both()
-        torch.cuda.synchronize()
-    assert host.COUNTS["host_reads"] == reads
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 2, kernels
+    out = []
+    reads, kernels, _, counted, _ = trace_one_call(lambda: out.append(both()))
+    first, second = out[0], out[-1]
+    assert reads == 0
+    assert counted == 2 and len(kernels) == 2, (counted, kernels)
     assert sum("check_a_kernel" in k for k in kernels) == 1, kernels
     assert sum("check_b_kernel" in k for k in kernels) == 1, kernels
     for x, y in zip(first, second):
@@ -286,10 +383,10 @@ def test_lasso_kernels_match_plain_path(dev):
     beta[rng.choice(p, 12, replace=False)] = 1.0 + rng.random(12)
     y = X @ torch.as_tensor(beta, dtype=torch.float32, device=dev)
     opts = CDOptions(opt_tol=1e-6, randomize=False, compact_size=256)
-    counts = (active_pass.LAUNCHES, gradient_sweep.LAUNCHES,
+    counts = (active_pass.LAUNCHES_KIND["ls"][0], gradient_sweep.LAUNCHES,
               check.LAUNCHES_A)
     sk = lasso(X, y, 0.1, options=opts)
-    assert active_pass.LAUNCHES > counts[0]
+    assert active_pass.LAUNCHES_KIND["ls"][0] > counts[0]
     assert check.LAUNCHES_A > counts[2]
     sp = lasso(X, y, 0.1, options=opts.replace(use_pallas=False))
     torch.testing.assert_close(sk.x, sp.x, atol=1e-4, rtol=0)
@@ -380,16 +477,38 @@ def test_batched_path_kernels_match_scan(dev):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
+def test_refit_lasso_path_runs_on_the_card(dev):
+    """The refits are solved on the card (one host read, for the supports)
+    and agree with numpy's least squares on the host."""
+    from coordinatedescent_jl_tpu_torch import refit_lasso_path
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    X, y, lam_max = _path_problem(dev, seed=8)
+    path = lasso_path(X, y, lam_max * np.array([0.5, 0.2, 0.1]),
+                      options=CDOptions(opt_tol=1e-6), standardize_X=False,
+                      path_batch=0)
+    reads = host.COUNTS["host_reads"]
+    out = refit_lasso_path(path, X, y)
+    assert host.COUNTS["host_reads"] == reads + 1
+    assert len(out) >= 2
+    Xn, yn = X.cpu().numpy().astype(np.float64), y.cpu().numpy()
+    for S, coef in out.items():
+        assert coef.is_cuda and coef.dtype == torch.float32
+        ref = np.linalg.lstsq(Xn[:, list(S)], yn, rcond=None)[0]
+        np.testing.assert_allclose(coef.cpu().numpy(), ref, atol=1e-4)
+
+
 def test_polish_kernels_reach_target_gap(dev):
     """lasso (kernels) then polish_lasso: K1 (f64 exact inner) and K5's f64
     instantiation launch, and the polished gap is <= 1e-7."""
     X, y, lam_max = _path_problem(dev, seed=6)
     lam = 0.05 * lam_max
     sol = lasso(X, y, lam, options=CDOptions(opt_tol=1e-6))
-    n1, n5 = active_pass.LAUNCHES_F64, gradient_sweep.LAUNCHES_F64
+    k1 = active_pass.LAUNCHES_KIND["ls"]
+    n1, n5 = k1[1], gradient_sweep.LAUNCHES_F64
     res = polish_lasso(X, y, sol.x, lam)
     assert res.converged and res.rel_gap <= 1e-7
-    assert active_pass.LAUNCHES_F64 > n1 and gradient_sweep.LAUNCHES_F64 > n5
+    assert k1[1] > n1 and gradient_sweep.LAUNCHES_F64 > n5
     gap, primal = lasso_duality_gap_compensated(X, y, res.beta, lam)
     assert gap / primal <= 1.1e-7
     gp, pp = lasso_duality_gap_compensated(X.cpu(), y.cpu(), res.beta.cpu(),

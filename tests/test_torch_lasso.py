@@ -188,19 +188,96 @@ def test_randomized_visit_orders_converge():
 
 
 def test_path_batch_and_other_losses_raise():
-    """Bad batched-path arguments and unported losses raise."""
+    """Bad path arguments raise; so do the group penalty (not ported) and a
+    loss that is none of the package's."""
     X, y = map(torch.as_tensor, _gen(30, 40, 3, 0))
     with pytest.raises(ValueError):
         tcd.lasso_path(X, y, [0.5, 0.1], path_batch=-1, device="cpu")
     with pytest.raises(ValueError):
         tcd.lasso_path(X, y, [0.5, 0.1], path_batch=8, coarse_stride=0,
                        device="cpu")
+    with pytest.raises(ValueError):
+        tcd.lasso_path(X, y, [0.5, 0.1], scan_chunk=0, device="cpu")
 
     class _Other:
         X = torch.zeros(3, 2)
 
     with pytest.raises(NotImplementedError):
         tcd.coordinate_descent(torch.zeros(2), _Other(), tcd.ProxL1(0.1))
+    with pytest.raises(NotImplementedError):
+        tcd.coordinate_descent(torch.zeros(40, dtype=torch.float64),
+                               tcd.LeastSquaresLoss(y, X),
+                               cd.ProxL1Group(jnp.asarray(0.1), 2),
+                               device="cpu")
+
+
+def _chunk_problem(n, p, s, seed, noise):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, p))
+    y = X[:, :s] @ rng.standard_normal(s) + noise * rng.standard_normal(n)
+    return X, y, np.abs(X.T @ y / n).max()
+
+
+@pytest.mark.parametrize("variant", ["plain", "randomized", "compact"])
+def test_lasso_path_scan_chunked_bitwise(variant):
+    """Twin of ``test_lasso.py::test_lasso_path_scan_chunked_bitwise``: the
+    scan in segments equals the single scan bit for bit, for chunk sizes
+    that split the grid, chunk = 1, the grid's length and beyond it."""
+    X, y, lam_max = _chunk_problem(60, 48, 6, 2, 0.3)
+    lam_path = lam_max * np.logspace(-0.2, -1.5, 9)
+    opts = {"plain": tcd.CDOptions(opt_tol=1e-10, block_size=16),
+            "randomized": tcd.CDOptions(opt_tol=1e-10, block_size=16,
+                                        randomize=True),
+            "compact": tcd.CDOptions(opt_tol=1e-10, block_size=8,
+                                     compact=True, compact_size=16)}[variant]
+    if variant != "randomized":
+        opts = opts.replace(randomize=False)
+    ref = tcd.lasso_path(X, y, lam_path, options=opts, path_batch=0,
+                         device="cpu")
+    assert int((ref.beta_path[-1] != 0).sum()) > 0
+    for ch in (1, 4, 9, 20):
+        chunked = tcd.lasso_path(X, y, lam_path, options=opts, path_batch=0,
+                                 scan_chunk=ch, device="cpu")
+        assert chunked.beta_path.shape == ref.beta_path.shape
+        assert torch.equal(chunked.beta_path, ref.beta_path), \
+            f"chunk={ch} diverged from the single scan"
+
+
+def test_lasso_path_scan_chunked_early_stop():
+    """Twin of ``test_lasso.py::test_lasso_path_scan_chunked_early_stop``:
+    the ``max_hat_s`` truncation is the same with ``scan_chunk``, whether
+    the stop would fall inside a segment or on its edge."""
+    X, y, lam_max = _chunk_problem(60, 30, 10, 3, 0.1)
+    lam_path = lam_max * np.logspace(0, -3, 20)
+    opts = tcd.CDOptions(opt_tol=1e-10, block_size=16, randomize=False)
+    kw = dict(options=opts, max_hat_s=6, standardize_X=False, path_batch=0,
+              device="cpu")
+    ref = tcd.lasso_path(X, y, lam_path, **kw)
+    k = ref.beta_path.shape[0]
+    assert 1 < k < 20
+    for ch in (3, 7, k):
+        chunked = tcd.lasso_path(X, y, lam_path, scan_chunk=ch, **kw)
+        assert torch.equal(chunked.beta_path, ref.beta_path)
+        assert torch.equal(chunked.lam_path, ref.lam_path)
+
+
+def test_refit_lasso_path_matches_jax():
+    X, y, lam_max = _chunk_problem(60, 30, 10, 3, 0.1)
+    lam_path = lam_max * np.logspace(0, -2, 8)
+    opts = cd.CDOptions(opt_tol=1e-11, block_size=16, randomize=False)
+    jp = cd.lasso_path(X, y, lam_path, options=opts, standardize_X=False)
+    tp = tcd.lasso_path(X, y, lam_path, options=options_from_jax(opts),
+                        standardize_X=False, device="cpu")
+    jr = cd.refit_lasso_path(jp, X, y)
+    tr = tcd.refit_lasso_path(tp, X, y, device="cpu")
+    assert set(tr) == set(jr) and len(tr) > 2
+    for S, coef in tr.items():
+        np.testing.assert_allclose(coef, jr[S], atol=1e-10)
+        if S:
+            ref = np.linalg.lstsq(X[:, list(S)], y, rcond=None)[0]
+            np.testing.assert_allclose(coef, ref, atol=1e-8)
+        else:
+            assert coef.shape == (0,)
 
 
 def test_entry_points_run_on_cuda_unless_cpu_is_asked(monkeypatch):

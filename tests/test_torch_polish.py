@@ -136,3 +136,156 @@ def test_polish_working_set_growth_and_cap():
     assert not rt2.converged and rt2.rounds == rj2.rounds == 0
     assert np.isfinite(rt2.gap) and np.isfinite(rt2.rel_gap)
     np.testing.assert_allclose(rt2.gap, rj2.gap, rtol=1e-9)
+
+
+# -- the sqrt certificate, loadings_f64 and the three other polishes ----------
+
+
+def _f32_start(estimator, X, y, lam, **kw):
+    """An f32-accuracy start: the JAX package's own f32 solve."""
+    sol = estimator(jnp.asarray(X), jnp.asarray(y), lam, **kw)
+    return np.asarray(sol.x)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sqrt_kkt_compensated_matches_jax(weighted):
+    """tests/test_diagnostics.py:332's certificate on a converged f32 sqrt
+    solve: the port reads the exact f64 gradient everywhere, the JAX
+    package where the certificate can read it; 1e-12 of the threshold
+    scale (kkt_rel is relative to it), ‖r‖ to rtol 1e-12."""
+    X, y = _gen(150, 400, 8, seed=9)
+    lam = 1.1 * float(np.sqrt(2 * np.log(400)))
+    w = ((np.abs(np.random.default_rng(5).standard_normal(400)) + 0.2)
+         if weighted else None)
+    beta = _f32_start(cd.sqrt_lasso, X, y, lam, standardize_X=False,
+                      weights=None if w is None else w.astype(np.float32),
+                      options=cd.CDOptions(opt_tol=1e-7, randomize=False))
+    assert np.count_nonzero(beta)
+    with jax.enable_x64(True):
+        kj, rj = cd.sqrt_lasso_kkt_compensated(X, y, beta, lam, weights=w)
+    kt, rt = tcd.sqrt_lasso_kkt_compensated(X, y, beta, lam, weights=w,
+                                            device="cpu")
+    np.testing.assert_allclose(rt, rj, rtol=1e-12)
+    np.testing.assert_allclose(kt, kj, rtol=1e-9, atol=1e-12)
+    assert 0.0 < kt < 1e-3
+
+
+def test_loadings_f64_matches_jax():
+    """Column-chunked f64 loadings over an f32 design, p = 700 across
+    chunks of 256 with a ragged tail: rtol 1e-12."""
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((80, 700)).astype(np.float32)
+    r = rng.standard_normal(80)
+    with jax.enable_x64(True):
+        ref = np.asarray(jcomp.loadings_f64(jnp.asarray(X), jnp.asarray(r),
+                                            col_chunk=256))
+    out = tcd.loadings_f64(torch.as_tensor(X), torch.as_tensor(r),
+                           col_chunk=256)
+    assert out.dtype == torch.float64 and out.shape == (700,)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12)
+    np.testing.assert_allclose(
+        out.numpy(), np.sqrt(np.mean((X.astype(np.float64)
+                                      * r[:, None]) ** 2, axis=0)),
+        rtol=1e-12)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_polish_sqrt_lasso_reaches_target(weighted):
+    """Twin of tests/test_diagnostics.py:436: from the f32 sqrt solve both
+    packages certify the compensated relative KKT ≤ 1e-7 in the same
+    rounds, and the polished β agree to 1e-9."""
+    X, y = _gen(200, 400, 8, seed=13)
+    lam = 1.1 * float(np.sqrt(2 * np.log(400)))
+    w = ((np.abs(np.random.default_rng(7).standard_normal(400)) + 0.5)
+         .astype(np.float32) if weighted else None)
+    x0 = _f32_start(cd.sqrt_lasso, X, y, lam, standardize_X=False,
+                    weights=None if w is None else jnp.asarray(w),
+                    options=cd.CDOptions(randomize=False))
+    with jax.enable_x64(True):
+        rj = cd.polish_sqrt_lasso(X, y, x0, lam, weights=w)
+    rt = tcd.polish_sqrt_lasso(X, y, x0, lam, weights=w, device="cpu")
+    assert rt.converged and rt.kkt_rel <= 1e-7
+    assert (rt.converged, rt.rounds, rt.support_size) == \
+        (rj.converged, rj.rounds, rj.support_size)
+    np.testing.assert_allclose(rt.beta.numpy(), np.asarray(rj.beta),
+                               atol=1e-9)
+    np.testing.assert_allclose(rt.norm_r, rj.norm_r, rtol=1e-12)
+    kkt_chk, rn = tcd.sqrt_lasso_kkt_compensated(X, y, rt.beta, lam,
+                                                 weights=w, device="cpu")
+    assert kkt_chk <= 1.1e-7 and abs(rn - rt.norm_r) / rn < 1e-12
+
+
+def test_polish_sqrt_lasso_cold_start_and_cap():
+    """Twin of tests/test_diagnostics.py:546 (from β = 0 the KKT
+    augmentation finds the support), and a support over ``support_cap``:
+    an honest certificate with ``converged=False``, as in JAX."""
+    X, y = _gen(200, 300, 8, seed=31)
+    lam = 1.1 * float(np.sqrt(2 * np.log(300)))
+    with jax.enable_x64(True):
+        rj = cd.polish_sqrt_lasso(X, y, np.zeros(300), lam)
+    rt = tcd.polish_sqrt_lasso(X, y, np.zeros(300), lam, device="cpu")
+    assert rt.converged and rt.kkt_rel <= 1e-7 and rt.rounds == rj.rounds
+    np.testing.assert_allclose(rt.beta.numpy(), np.asarray(rj.beta),
+                               atol=1e-9)
+    rng = np.random.default_rng(3)
+    big = np.zeros(300)
+    big[rng.choice(300, 200, replace=False)] = 0.05
+    with jax.enable_x64(True):
+        rj2 = cd.polish_sqrt_lasso(X, y, big, lam, support_cap=128)
+    rt2 = tcd.polish_sqrt_lasso(X, y, big, lam, support_cap=128,
+                                device="cpu")
+    assert not rt2.converged and rt2.rounds == rj2.rounds == 0
+    np.testing.assert_allclose(rt2.kkt_rel, rj2.kkt_rel, rtol=1e-9)
+
+
+def test_polish_scaled_lasso_fixed_point():
+    """Twin of tests/test_diagnostics.py:463: the f64 (β, σ) fixed point
+    from the f32 scaled-lasso solve, in both packages alike."""
+    X, y = _gen(200, 400, 8, seed=17)
+    lam = float(np.sqrt(2 * np.log(400) / 200))
+    io = cd.IterLassoOptions(options_cd=cd.CDOptions(randomize=False))
+    x0 = _f32_start(cd.scaled_lasso, X, y, lam, options=io)
+    with jax.enable_x64(True):
+        rj = cd.polish_scaled_lasso(X, y, x0, lam)
+    rt = tcd.polish_scaled_lasso(X, y, x0, lam, device="cpu")
+    assert rt.converged, (rt.rel_gap, rt.sigma_rel_change, rt.sigma_rounds)
+    assert rt.rel_gap <= 1e-7 and rt.sigma_rel_change <= 1e-7
+    assert (rt.sigma_rounds, rt.rounds) == (rj.sigma_rounds, rj.rounds)
+    np.testing.assert_allclose(rt.beta.numpy(), np.asarray(rj.beta),
+                               atol=1e-9)
+    np.testing.assert_allclose(rt.sigma, rj.sigma, rtol=1e-10)
+    beta = rt.beta.numpy()
+    r = y.astype(np.float64) - X.astype(np.float64) @ beta
+    assert abs(np.sqrt(r @ r / 200) - rt.sigma) / rt.sigma < 1e-9
+    gap, primal = tcd.lasso_duality_gap_compensated(
+        X, y, beta, lam * rt.sigma, device="cpu")
+    assert gap / primal <= 1.1e-7
+
+
+def test_polish_feasible_lasso_fixed_point():
+    """Twin of tests/test_diagnostics.py:485: the f64 (β, Γ) loading fixed
+    point from the f32 feasible-lasso solve, in both packages alike."""
+    X, y = _gen(200, 400, 8, seed=19)
+    lam0 = float(np.sqrt(2 * np.log(400) / 200))
+    io = cd.IterLassoOptions(options_cd=cd.CDOptions(randomize=False))
+    x0 = _f32_start(cd.feasible_lasso, X, y, lam0, options=io)
+    with jax.enable_x64(True):
+        rj = cd.polish_feasible_lasso(X, y, x0, lam0)
+    rt = tcd.polish_feasible_lasso(X, y, x0, lam0, device="cpu")
+    assert rt.converged, (rt.rel_gap, rt.loading_rel_change,
+                          rt.loading_rounds)
+    assert rt.rel_gap <= 1e-7 and rt.loading_rel_change <= 1e-7
+    assert (rt.loading_rounds, rt.rounds) == (rj.loading_rounds, rj.rounds)
+    np.testing.assert_allclose(rt.beta.numpy(), np.asarray(rj.beta),
+                               atol=1e-9)
+    np.testing.assert_allclose(rt.loadings.numpy(), np.asarray(rj.loadings),
+                               rtol=1e-10)
+    beta = rt.beta.numpy()
+    X64 = X.astype(np.float64)
+    r = y.astype(np.float64) - X64 @ beta
+    gam_chk = np.sqrt(np.mean((X64 * r[:, None]) ** 2, axis=0))
+    assert float(np.max(np.abs(gam_chk - rt.loadings.numpy()))
+                 / np.max(gam_chk)) < 1e-12
+    gap, primal = tcd.lasso_duality_gap_compensated(
+        X, y, beta, lam0, weights=rt.loadings, device="cpu")
+    assert gap / primal <= 1.1e-7
