@@ -52,6 +52,20 @@ Phases, each failing loudly (exit code 1, no result line):
       row weights in [0.5, 1.5] at 0.05·λmax of the weighted problem,
       kernels and plain: same support; the run that launches K1's wls form
       and K3/K4 with the screen off.
+   h. the group Lasso at bench.py's group shape (the bench design freed
+      first): n = 10,000, p = 100,000, G = 8, 12 planted groups
+      (``profile_paths.group_bench_problem``), ``group_lasso`` at
+      0.3·group-λmax with ``opt_tol=1e-6, randomize=False``, kernels and
+      plain: the same group support, no coordinate apart by more than
+      1e-4, K5 launched and no other kernel, the plain run launching
+      nothing; ``group_lasso_kkt_compensated`` of the solution;
+      ``polish_group_lasso`` to a compensated per-group relative KKT
+      <= 1e-7, converged, with K5's float64 form launched;
+   i. ``symmetric_coordinate_descent`` at p = 128 (q = 8,256 packed
+      coordinates): covariance thresholding through the packed
+      ``QuadraticLoss``, held to its closed form (diagonal kept,
+      soft(S, λ) off it) within 1e-5 in float32, exactly symmetric; the
+      quad kind launches no kernel.
    Every kernel must have launched in the runs that drive it.  (The plain
    runs repeat the kernels' arithmetic in eager PyTorch and are no
    yardstick of speed; 4a's plain scan is the longest of them.)
@@ -165,7 +179,8 @@ def main():
         from coordinatedescent_jl_tpu_torch.models import polish as pol
         from coordinatedescent_jl_tpu_torch.ops import block_cd
         from coordinatedescent_jl_tpu_torch.profile_paths import (
-            bench_problem, launch_counts, reset_launch_counts)
+            bench_problem, group_bench_problem, launch_counts,
+            reset_launch_counts)
         from coordinatedescent_jl_tpu_torch.utils import host
     except ImportError as e:
         fail(f"the port's package is not importable here: {e}")
@@ -465,7 +480,9 @@ def main():
     ok = ok and maxdiff(rk, rp) <= 1e-3
 
     # K2 with ~30% of the blocks needed; c sums n = 10K products in another
-    # order than the plain product: relative 1e-5 of max|c|
+    # order than the plain product: relative 1e-5 of max|c|.  Timed as the
+    # engine calls it, with the host's count of needed blocks (without it
+    # the wrapper reads the count from the card on every call)
     need = torch.rand(nb_full, generator=g, device=dev) < 0.3
     c_prev = torch.randn((nb_full, B), generator=g, device=dev)
     nn = int(need.sum())
@@ -474,7 +491,7 @@ def main():
     err = maxdiff(ck, cp)
     tol = 1e-5 * float(cp.abs().max())
     ms = cuda_ms(lambda: gs.restricted_gradient_sweep(
-        full.Xwb, st.r, need, c_prev), 10)
+        full.Xwb, st.r, need, c_prev, n_need=nn), 10)
     pms = cuda_ms(lambda: gs.restricted_gradient_sweep_plain(
         full.Xwb, st.r, need, c_prev), 10)
     report("K2", "K2 restricted_gradient_sweep", err, tol, ms, pms,
@@ -774,9 +791,9 @@ def main():
             fail(f"{name}: kernel and plain supports differ above "
                  f"{supp_tol:g} (or the solution is empty)")
 
-    def finite(name, x):
-        if tuple(x.shape) != (p,) or not bool(torch.isfinite(x).all()):
-            fail(f"{name}: not a finite vector of {p} coefficients")
+    def finite(name, x, length=p):
+        if tuple(x.shape) != (length,) or not bool(torch.isfinite(x).all()):
+            fail(f"{name}: not a finite vector of {length} coefficients")
 
     # 4d. sqrt_lasso (bench.py:358-366) and its 1e-7 polish
     tcd.sqrt_lasso(X, y, lam_sq, options=opts_sq, standardize_X=False)
@@ -913,6 +930,96 @@ def main():
         f"{lam_g:.6f}; launches {launches_g}; phase A calls {len(screens)}, "
         f"all with the screen off; host reads {reads_g['host_reads']} over "
         f"{reads_g['epochs']} epochs")
+
+    del loss_g, beta_g, beta_gp, w_g, beta0, X, y, support, beta_true
+    torch.cuda.empty_cache()
+
+    # 4h. the group Lasso (bench.py:613-672): warm solves at
+    # lam (1 + 1e-7 rep), the faster of two, then the plain run and the
+    # polish of the last solution
+    gp = group_bench_problem(dev)
+    Xg, yg, Gg = gp.X, gp.y, gp.G
+    tcd.group_lasso(Xg, yg, gp.lam, Gg, options=gp.opts)          # warm-up
+    t_h = math.inf
+    for rep in range(2):
+        lam_h = gp.lam * (1.0 + 1e-7 * (rep + 1))
+        reset_counts()
+        sol_h, t = wall(lambda: tcd.group_lasso(Xg, yg, lam_h, Gg,
+                                                options=gp.opts))
+        t_h = min(t_h, t)
+    launches_h, reads_h = counts(), dict(host.COUNTS)
+    require_launches("group_lasso", launches_h, ("K5",),
+                     never=[k for k in launches_h if k != "K5"])
+    add(launches_h)
+    finite("group_lasso", sol_h.x, Xg.shape[1])
+    reset_counts()
+    sol_hp, t_hp = wall(lambda: tcd.group_lasso(
+        Xg, yg, lam_h, Gg, options=gp.opts.replace(use_pallas=False)))
+    if any(counts().values()):
+        fail("use_pallas=False launched a kernel")
+    xg, xgp = sol_h.x.reshape(-1, Gg), sol_hp.x.reshape(-1, Gg)
+    grp = torch.nonzero(torch.any(xg != 0, dim=1)).flatten()
+    grp_p = torch.nonzero(torch.any(xgp != 0, dim=1)).flatten()
+    dh = maxdiff(sol_h.x, sol_hp.x)
+    planted = int(torch.isin(gp.groups, grp).sum())
+    kkt_h, _ = tcd.group_lasso_kkt_compensated(Xg, yg, sol_h.x, lam_h, Gg)
+    log(f"group_lasso (n={Xg.shape[0]}, p={Xg.shape[1]}, G={Gg}): kernels "
+        f"{t_h:.4f} s (min of 2), plain {t_hp:.4f} s at lam {lam_h:.6f}; "
+        f"groups {grp.numel()} vs {grp_p.numel()} (planted recovered "
+        f"{planted}/{gp.groups.numel()}), max |diff| {dh:.3e} (tol "
+        f"1.0e-04); compensated kkt_rel {kkt_h:.3e}; launches {launches_h}; "
+        f"host reads {reads_h['host_reads']} over {reads_h['epochs']} epochs")
+    if not (torch.equal(grp, grp_p) and grp.numel() and dh <= 1e-4):
+        fail("group_lasso: kernel and plain runs differ in group support or "
+             "by more than 1e-4")
+    if not kkt_h <= 1e-3:
+        fail(f"group_lasso: compensated relative KKT {kkt_h:.3e} above 1e-3")
+    del sol_hp
+    tcd.polish_group_lasso(Xg, yg, sol_h.x, gp.lam, Gg)          # warm-up
+    reset_counts()
+    res_h, t_hpol = wall(lambda: tcd.polish_group_lasso(Xg, yg, sol_h.x,
+                                                        lam_h, Gg))
+    launches = counts()
+    require_launches("group polish", launches, ("K5f64",))
+    add(launches)
+    log(f"group polish: {t_hpol:.4f} s; kkt_rel {res_h.kkt_rel:.3e}, "
+        f"converged {res_h.converged}, rounds {res_h.rounds}, support "
+        f"groups {res_h.support_groups}; launches {launches}; host reads "
+        f"{host.COUNTS['host_reads']}")
+    if not (res_h.converged and res_h.kkt_rel <= 1e-7):
+        fail(f"group polish did not reach kkt_rel 1e-7: {res_h.kkt_rel:.3e}")
+    del gp, Xg, yg, sol_h, res_h
+    torch.cuda.empty_cache()
+
+    # 4i. the symmetric solve: covariance thresholding at p = 128,
+    # min ½‖M − S‖_F² + λ‖M‖_{1,off} as the packed quadratic
+    # ½ v'Dv − (Ds)'v (D: 1 on the diagonal, 2 off it; off-diagonal
+    # penalty weight 2)
+    ps, lam_i = 128, 0.15
+    A = torch.randn((ps, 40), generator=g, device=dev)
+    S = A @ A.T / 40.0
+    ij = tcd.sym_indices(ps).to(dev)
+    off = (ij[:, 0] != ij[:, 1]).float()
+    dq = 1.0 + off
+    loss_i = tcd.QuadraticLoss(torch.diag(dq), -(dq * tcd.sym_pack(S)))
+    reset_counts()
+    (M, _), t_i = wall(lambda: tcd.symmetric_coordinate_descent(
+        torch.zeros((ps, ps), device=dev), loss_i,
+        tcd.ProxL1(lam_i, 2.0 * off), tcd.CDOptions(opt_tol=1e-7,
+                                                    randomize=False)))
+    if any(counts().values()):
+        fail("the symmetric solve (quad kind) launched a kernel")
+    want = torch.sign(S) * torch.clamp_min(S.abs() - lam_i, 0.0)
+    want.fill_diagonal_(0.0)
+    want += torch.diag(torch.diagonal(S))
+    err_i = maxdiff(M, want)
+    log(f"symmetric solve (p={ps}, q={ij.shape[0]}): {t_i:.4f} s; max "
+        f"|M - closed form| {err_i:.3e} (tol 1.0e-05); symmetric "
+        f"{bool(torch.equal(M, M.T))}; nonzero off-diagonal pairs "
+        f"{int((M != 0).sum() - ps) // 2}; host reads "
+        f"{host.COUNTS['host_reads']} over {host.COUNTS['epochs']} epochs")
+    if not (M.is_cuda and torch.equal(M, M.T) and err_i <= 1e-5):
+        fail("the symmetric solve missed its closed form")
 
     src = "coordinatedescent_jl_tpu_torch/csrc/"
     meta = {

@@ -1,39 +1,49 @@
 """coordinatedescent_jl_tpu_torch: the PyTorch + CUDA port of
 ``coordinatedescent_jl_tpu`` for one NVIDIA H100.
 
-The vector-iterate estimators — ``lasso``, ``lasso_path`` (scan, chunked
-scan and batched executions), ``sqrt_lasso``, ``scaled_lasso``,
-``feasible_lasso``, ``coordinate_descent`` with the least-squares,
-weighted, sqrt and quadratic losses, and the float64 polishes with their
-compensated certificates — run in PyTorch, with every TPU kernel of the
-JAX package (the fused active pass in its ls, wls and sqrt forms, the
-restricted and the dense gradient sweeps, the two phases of the fused KKT
-check) rewritten by hand for Hopper in CUDA C++ (``kernels/``,
-``csrc/``).  Group and symmetric iterates, the varying-coefficient suite
-and the multi-device tiers are not ported yet.  The entry points run on
-the GPU unless the caller passes ``device="cpu"``.  The kernels are built
-with ``nvcc`` at first use on the machine with the GPU; importing the
-package needs no GPU, no ``nvcc`` and no JAX.
+The vector-iterate estimators — ``lasso``, ``lasso_path`` (scan and
+batched executions), ``refit_lasso_path``, ``sqrt_lasso``,
+``scaled_lasso``, ``feasible_lasso``, ``coordinate_descent`` with the
+least-squares, weighted, sqrt and quadratic losses — the group iterate
+(``group_lasso``, ``group_coordinate_descent``, ``ProxL1Group`` through
+``coordinate_descent``), the symmetric iterate
+(``symmetric_coordinate_descent`` and the ``sym_*`` packing), and the
+float64 polishes with their compensated certificates run in PyTorch, with
+every TPU kernel of the JAX package (the fused active pass in its ls, wls
+and sqrt forms, the restricted and the dense gradient sweeps, the two
+phases of the fused KKT check) rewritten by hand for Hopper in CUDA C++
+(``kernels/``, ``csrc/``); the group engine's full sweeps run on the
+dense sweep kernel.  The varying-coefficient suite, profiling and
+checkpointing, and the multi-device tiers are not ported yet.  The entry
+points run on the GPU unless the caller passes ``device="cpu"``.  The
+kernels are built with ``nvcc`` at first use on the machine with the GPU;
+importing the package needs no GPU, no ``nvcc`` and no JAX.
 """
 
 from .utils.options import CDOptions, IterLassoOptions
 from .utils.helpers import (find_init_residuals, find_init_sigma,
                             find_largest_correlations, get_loadings,
                             get_sigma, sample_std, std_X)
-from .ops.prox import ProxL1, ProxZero, soft_threshold
+from .ops.prox import (ProxL1, ProxL1Group, ProxZero, group_soft_threshold,
+                       soft_threshold)
 from .ops.losses import (LeastSquaresLoss, QuadraticLoss, SqrtLassoLoss,
-                         WeightedLSLoss, num_coordinates)
+                         WeightedLSLoss, gradient, num_coordinates, value)
 from .ops.block_cd import coordinate_descent
-from .ops.compensated import (lasso_duality_gap_compensated, loadings_f64,
+from .ops.group_cd import group_coordinate_descent, group_lasso
+from .ops.symmetric import (sym_indices, sym_num_coordinates, sym_pack,
+                            sym_unpack, symmetric_coordinate_descent)
+from .ops.compensated import (group_lasso_kkt_compensated,
+                              lasso_duality_gap_compensated, loadings_f64,
                               sqrt_lasso_kkt_compensated)
 from .ops.diagnostics import (lasso_duality_gap, lasso_duality_gap_f64,
                               lasso_kkt_residual)
 from .models.lasso import (LassoSolution, feasible_lasso, lasso,
                            scaled_lasso, sqrt_lasso)
 from .models.lasso_path import LassoPath, lasso_path, refit_lasso_path
-from .models.polish import (FeasiblePolishResult, PolishResult,
-                            ScaledPolishResult, SqrtPolishResult,
-                            polish_feasible_lasso, polish_lasso,
+from .models.polish import (FeasiblePolishResult, GroupPolishResult,
+                            PolishResult, ScaledPolishResult,
+                            SqrtPolishResult, polish_feasible_lasso,
+                            polish_group_lasso, polish_lasso,
                             polish_scaled_lasso, polish_sqrt_lasso)
 
 __all__ = [
@@ -48,7 +58,11 @@ __all__ = [
     "LassoPath", "lasso_path", "refit_lasso_path", "PolishResult",
     "polish_lasso", "SqrtPolishResult", "polish_sqrt_lasso",
     "ScaledPolishResult", "polish_scaled_lasso", "FeasiblePolishResult",
-    "polish_feasible_lasso", "std_X", "sample_std",
+    "polish_feasible_lasso", "std_X", "sample_std", "gradient", "value",
+    "ProxL1Group", "group_soft_threshold", "group_coordinate_descent",
+    "group_lasso", "sym_num_coordinates", "sym_indices", "sym_pack",
+    "sym_unpack", "symmetric_coordinate_descent",
+    "group_lasso_kkt_compensated", "GroupPolishResult", "polish_group_lasso",
 ]
 
 __version__ = "0.1.0"

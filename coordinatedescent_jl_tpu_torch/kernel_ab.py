@@ -1,5 +1,5 @@
-"""Time K1 (every form), K3/K4 and K5 at the main paths' shapes, for an A/B
-of two trees.
+"""Time K1 (every form), K2, K3/K4 and K5 at the main paths' shapes, for an
+A/B of two trees.
 
     python -m coordinatedescent_jl_tpu_torch.kernel_ab
     PYTHONPATH=<other tree> python <this tree>/coordinatedescent_jl_tpu_torch/kernel_ab.py
@@ -17,14 +17,17 @@ K1 without a Gram over the full design's active blocks, K1 in float64
 (exact inner) on the polish's inner-solve block, and K5 on the working
 set, on the full blocked design and in its float64-accumulating form on
 the dense design, each beside ``torch.matmul``'s time where one call
-computes the same function; the check phases on the full design's
+computes the same function; K2 on the full design with ~30 % of the blocks
+needed (``K2_blocks`` of them, ``K2_bound_ms`` its byte bound); the check
+phases on the full design's
 mid-solve state (fresh ``c``, a drift on half of the blocks): ``K3``
 (phase A, screen on), ``K3_noscreen`` and ``K4`` (phase B with phase A's
 masks).  Per call: milliseconds between CUDA events
 around back-to-back calls, the host's time to issue a call, the device
-kernels' time and count from ``torch.profiler`` (events and host time
-are medians of five runs); one JSON line, after the
-card's name and power limit.  Needs a CUDA GPU.
+kernels' time and count from ``torch.profiler``, and ``cdt_ms`` the device
+time of the port's own kernels alone (a wrapper's allocations, copies and
+sorts are other kernels; events and host time are medians of five runs);
+one JSON line, after the card's name and power limit.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ def _ms(fn, reps: int, rounds: int = 5) -> dict:
             "host_ms": statistics.median(hs) * 1e3 / reps,
             "dev_ms": sum(e.time_range.elapsed_us() for e in kern)
             * 1e-3 / reps,
+            "cdt_ms": sum(e.time_range.elapsed_us() for e in kern
+                          if "cdt::" in e.name) * 1e-3 / reps,
             "kernels": len(kern) / reps}
 
 
@@ -173,6 +178,14 @@ def main():
         *args, inner="ista", iters=16, rsqr=st.rsqr), 5)
     out["K5"] = _ms(lambda: gs.fused_gradient_sweep(full.Xwb, st.r), 20)
     out["K5_matmul"] = _ms(lambda: torch.matmul(st.r, full.Xwb), 20)
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    need = torch.rand(nbf, generator=g2, device=dev) < 0.3
+    c_prev = torch.randn((nbf, B), generator=g2, device=dev)
+    nn = int(need.sum())
+    out["K2"] = _ms(lambda: gs.restricted_gradient_sweep(
+        full.Xwb, st.r, need, c_prev, n_need=nn), 20)
+    out["K2_blocks"] = nn
+    out["K2_bound_ms"] = 4 * (nn * n * B + n + 2 * nbf * B) / 3.35e9
     c_full = block_cd._full_gradient_c("ls", full, st.r, kernels=False)
     drift = torch.where(torch.rand(nbf, generator=g, device=dev) < 0.5,
                         torch.rand(nbf, generator=g, device=dev) * 1e-3,

@@ -2,8 +2,9 @@
 (counterpart of ``coordinatedescent_jl_tpu/models/polish.py``):
 ``polish_lasso`` (duality gap), ``polish_sqrt_lasso`` (compensated
 relative KKT, the exact three-branch inner solve), ``polish_scaled_lasso``
-(the (β, σ) fixed point) and ``polish_feasible_lasso`` (the (β, Γ) loading
-fixed point).  The group polish is not ported yet.
+(the (β, σ) fixed point), ``polish_feasible_lasso`` (the (β, Γ) loading
+fixed point) and ``polish_group_lasso`` (compensated per-group relative
+KKT, exact per-group subproblem solves on the host).
 
 ``polish_lasso``'s host loop is the JAX package's: the f32 solution's
 support plus 25 % slack, rounded up to a multiple of 128, becomes the working set; the
@@ -33,6 +34,11 @@ What differs on the H100:
   pass with ``kind="sqrt"`` (K1's sqrt form in float64, exact inner):
   ``‖r‖²`` is refreshed exactly at every sweep's start and carried
   through the three-branch updates within it.
+- The group polish's working-set Gram ``X_S'X_S`` and ``X_S'y`` are one
+  float64 product of the gathered columns each.  The JAX package builds
+  them column by column (``_gather_gram_f64``) because a TPU's emulated
+  float64 accumulates exactly only in matrix-vector products; the H100
+  multiplies float64 matrices natively.
 
 The returned β is float64: the certificate belongs to the f64 iterate.
 """
@@ -47,7 +53,8 @@ import torch
 
 from ..ops.block_cd import (BlockedProblem, CDState, _active_pass,
                             _blockify_cols, _block_grams)
-from ..ops.compensated import (_sqrt_kkt_rel_from_grad, _support_residual,
+from ..ops.compensated import (_group_kkt_pieces, _sqrt_kkt_rel_from_grad,
+                               _support_residual, check_col_chunk,
                                fenchel_gap_f64, grad_f64, host_f64,
                                loadings_f64, residual_f64)
 from ..utils import host
@@ -165,13 +172,16 @@ def _scatter(beta_s, idx_np, p: int):
 
 def polish_lasso(X, y, beta, lam0, weights=None, *,
                  target_rel_gap: float = 1e-7, max_rounds: int = 6,
-                 support_cap: int = 4096, device=None) -> PolishResult:
+                 support_cap: int = 4096, col_chunk: int = 4096,
+                 device=None) -> PolishResult:
     """Refine an (f32) Lasso solution ``beta`` at penalty ``lam0`` (per-
     coordinate ``weights``) to ``rel gap ≤ target_rel_gap``.  Runs on
     ``device`` (``None``: the GPU, raising when there is none; ``"cpu"``:
     the plain twins on the CPU).  If the support outgrows ``support_cap``
     the loop stops with ``converged=False`` and the gap of that iterate is
-    still reported."""
+    still reported.  ``col_chunk`` is checked and ignored (the certificate's
+    sweep is not chunked)."""
+    check_col_chunk(col_chunk)
     dev = target_device(device)
     X = on_device(X, dev).contiguous()
     y = on_device(y, dev)
@@ -273,14 +283,16 @@ def _sqrt_cert(X, r64, beta_np, lam0, w_np, sup):
 
 def polish_sqrt_lasso(X, y, beta, lam0, weights=None, *,
                       target_kkt_rel: float = 1e-7, max_rounds: int = 6,
-                      support_cap: int = 4096,
+                      support_cap: int = 4096, col_chunk: int = 4096,
                       device=None) -> SqrtPolishResult:
     """Refine an (f32) sqrt-lasso solution to a compensated relative KKT
     residual ≤ ``target_kkt_rel`` (the sqrt-lasso analogue of
     ``polish_lasso``): an active-set loop with the exact three-branch
     float64 inner solve, certified against the whole design every round.
-    Runs on ``device`` (``None``: the GPU, raising when there is none;
-    ``"cpu"``: the plain twins on the CPU)."""
+    ``col_chunk`` is checked and ignored (the certificate's sweep is not
+    chunked).  Runs on ``device`` (``None``: the GPU, raising when there is
+    none; ``"cpu"``: the plain twins on the CPU)."""
+    check_col_chunk(col_chunk)
     dev = target_device(device)
     X = on_device(X, dev).contiguous()
     y = on_device(y, dev)
@@ -544,3 +556,170 @@ def polish_feasible_lasso(X, y, beta, lam0, *, target_rel_gap: float = 1e-7,
         rel_gap=res.rel_gap, primal=res.primal, rounds=rounds,
         loading_rounds=lr + 1, loading_rel_change=rel_change,
         converged=converged)
+
+
+# ---------------------------------------------------------------------------
+# Group-lasso polish: float64 restricted block CD over the support groups
+# ---------------------------------------------------------------------------
+
+
+class GroupPolishResult(NamedTuple):
+    beta: torch.Tensor      # (p,) float64 polished coefficients
+    kkt_rel: float          # compensated per-group relative KKT
+    rounds: int
+    support_groups: int
+    converged: bool         # kkt_rel <= target
+
+
+def _gather_gram_f64(X, y, idx):
+    """The working set's float64 Gram ``X_S'X_S`` and ``X_S'y`` (slots with
+    ``idx == p`` are zero columns), one float64 product each, to the host
+    in one counted read."""
+    p = X.shape[1]
+    C = idx.shape[0]
+    valid = idx < p
+    Xs = torch.where(valid[None, :], X.index_select(
+        1, torch.clamp_max(idx, p - 1)).to(torch.float64), 0.0)
+    Kc = host_f64(torch.cat([Xs.T @ Xs, (y.to(torch.float64) @ Xs)[None]]))
+    return Kc[:C], Kc[C]
+
+
+def _group_subproblem(Kgg, ct, t, b0):
+    """Exact float64 solve of ``min ½ b'K b − c̃'b + t‖b‖₂`` (host NumPy).
+
+    Zero if ``‖c̃‖ ≤ t``; otherwise ``(K + (t/s) I) b = c̃`` with
+    ``s = ‖b‖``, i.e. in K's eigenbasis (``q = V'c̃``) the root of the
+    strictly decreasing ``ψ(s) = Σ q_i²/(λ_i s + t)² − 1``, found by a
+    safeguarded Newton iteration."""
+    cn = float(np.linalg.norm(ct))
+    if cn <= t:
+        return np.zeros_like(b0)
+    lam_e, V = np.linalg.eigh(Kgg)
+    lam_e = np.maximum(lam_e, 0.0)
+    q2 = (V.T @ ct) ** 2
+    # bracket: ψ decreasing; s_hi from the smallest eigenvalue bound
+    s = max(float(np.linalg.norm(b0)), (cn - t) / max(lam_e[-1], 1e-30))
+    lo, hi = 0.0, (cn - t) / max(lam_e[0], 1e-30) if lam_e[0] > 0 else None
+    if hi is None:
+        # K_gg singular: ψ(s) → (q_null/t)² > 0 for every s if c̃ has mass
+        # in the null space, so cap the bracket generously
+        hi = max(s, 1.0) * 1e6
+    s = min(max(s, 1e-12), hi)
+    for _ in range(100):
+        d = lam_e * s + t
+        psi = float(np.sum(q2 / (d * d))) - 1.0
+        if abs(psi) < 1e-15:
+            break
+        if psi > 0:
+            lo = s
+        else:
+            hi = s
+        dpsi = float(np.sum(-2.0 * lam_e * q2 / (d * d * d)))
+        step = s - psi / dpsi if dpsi != 0 else 0.5 * (lo + hi)
+        s = step if lo < step < hi else 0.5 * (lo + hi)
+    return V @ ((V.T @ ct) / (lam_e + t / s))
+
+
+def _group_bcd_host(K, c, t_sel, G, b0, tol, max_sweeps=400):
+    """Cyclic exact block CD on the gathered float64 Gram (host NumPy):
+    group g's subproblem gradient is ``c̃_g = c_g − (Kβ)_g + K_gg β_g``, and
+    each visit solves it exactly (:func:`_group_subproblem`).  ``t_sel`` is
+    the threshold of each selected group; groups are consecutive G-blocks
+    of the gathered set.  Sweeps until the largest step is below ``tol``."""
+    beta = b0.copy()
+    kb = K @ beta
+    for _ in range(max_sweeps):
+        mx = 0.0
+        for gi in range(t_sel.size):
+            sl = slice(gi * G, (gi + 1) * G)
+            Kgg = K[sl, sl]
+            ct = c[sl] - kb[sl] + Kgg @ beta[sl]
+            bnew = _group_subproblem(Kgg, ct, t_sel[gi], beta[sl])
+            d = bnew - beta[sl]
+            md = float(np.max(np.abs(d)))
+            if md > 0:
+                kb = kb + K[:, sl] @ d
+                beta[sl] = bnew
+                mx = max(mx, md)
+        if mx < tol:
+            break
+    return beta
+
+
+def polish_group_lasso(X, y, beta, lam0, group_size: int, weights=None, *,
+                       target_kkt_rel: float = 1e-7, max_rounds: int = 6,
+                       group_cap: int = 512, col_chunk: int = 4096,
+                       device=None) -> GroupPolishResult:
+    """Refine an (f32) group-lasso solution to a compensated per-group
+    relative KKT residual ≤ ``target_kkt_rel`` (objective
+    ``‖y−Xβ‖²/(2n) + λ Σ_g ω_g ‖β_g‖₂``).  An active-set loop over groups:
+    the selected groups' columns are gathered and their float64 Gram built
+    on the device (:func:`_gather_gram_f64`); the restricted block CD runs
+    in host NumPy float64 with exact per-group subproblem solves; every
+    round is certified against the whole design
+    (``ops.compensated._group_kkt_pieces``: K5 f64 on the card), and the
+    most violating groups, at most 64 a round and ``group_cap`` in all,
+    join the set.  A round that adds no group divides the inner tolerance
+    by 10.  ``col_chunk`` is checked and ignored.  Runs on ``device``
+    (``None``: the GPU, raising when there is none; ``"cpu"``: the plain
+    twins on the CPU)."""
+    check_col_chunk(col_chunk)
+    dev = target_device(device)
+    X = on_device(X, dev).contiguous()
+    y = on_device(y, dev)
+    n, p = X.shape
+    G = int(group_size)
+    ng = -(-p // G)
+    lam0 = float(lam0)
+    w_np = (np.ones((ng,), np.float64) if weights is None
+            else host_f64(weights))
+    t = np.maximum(n * lam0 * w_np, 1e-300)
+    beta_np = host_f64(beta)
+    gidx = np.arange(p) // G
+
+    selg = np.unique(gidx[beta_np != 0])
+    rounds = 0
+    converged = False
+    kkt = float("nan")
+    tol_inner = 1e-11 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
+    while True:
+        if selg.size > group_cap:
+            kkt, _, _ = _group_kkt_pieces(X, y, beta_np, t, G)
+            break
+        if selg.size:
+            # the selected groups' columns, a whole number of groups so the
+            # host block slices stay aligned; the ragged tail group's
+            # missing columns are zero slots
+            cols = (selg[:, None] * G + np.arange(G)[None, :]).reshape(-1)
+            idx_np = np.where(cols < p, cols, p).astype(np.int64)
+            K_np, c_np = _gather_gram_f64(X, y,
+                                          torch.as_tensor(idx_np, device=dev))
+            ok = idx_np < p
+            b0 = np.where(ok, beta_np[np.minimum(idx_np, p - 1)], 0.0)
+            beta_sel = _group_bcd_host(K_np, c_np, t[selg], G, b0, tol_inner)
+            beta_np = np.zeros((p,), np.float64)
+            beta_np[idx_np[ok]] = beta_sel[ok]
+        # an empty set (cold start, or λ ≥ λmax) certifies β = 0 directly:
+        # the roll-up seeds the first working set
+        kkt, off_excess, _ = _group_kkt_pieces(X, y, beta_np, t, G)
+        rounds += 1
+        if kkt <= target_kkt_rel:
+            converged = True
+            break
+        if rounds >= max_rounds:
+            break
+        viol = off_excess.copy()
+        viol[selg] = 0.0
+        extra = np.nonzero(viol > 0)[0]
+        room = max(0, group_cap - selg.size)
+        extra = extra[np.argsort(-viol[extra])][: min(room, 64)]
+        sel_now = np.unique(gidx[beta_np != 0])
+        new_selg = np.union1d(np.union1d(sel_now, selg), extra)
+        if new_selg.size == selg.size and np.array_equal(new_selg, selg):
+            tol_inner = tol_inner / 10.0
+        selg = new_selg
+
+    return GroupPolishResult(beta=torch.as_tensor(beta_np, device=dev),
+                             kkt_rel=float(kkt), rounds=rounds,
+                             support_groups=int(selg.size),
+                             converged=converged)

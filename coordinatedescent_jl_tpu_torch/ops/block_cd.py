@@ -38,7 +38,7 @@ import torch
 
 from .losses import (LeastSquaresLoss, QuadraticLoss, SqrtLassoLoss,
                      WeightedLSLoss, num_coordinates)
-from .prox import ProxL1, ProxZero, as_l1, soft_threshold
+from .prox import ProxL1, ProxL1Group, ProxZero, as_l1, soft_threshold
 from .prox import sqrt_candidate as _sqrt_candidate
 from ..utils import host
 from ..utils.helpers import on_device, target_device
@@ -901,19 +901,25 @@ def coordinate_descent(beta0, loss, penalty, options: CDOptions = CDOptions(),
                        *, seed: int = 0, key=None, device=None):
     """Minimize ``f(β) + Σ_j λ0 λw_j |β_j|``; returns ``(beta, residuals)``,
     ``residuals`` being ``y − Xβ`` for the regression losses and ``Aβ`` for
-    ``QuadraticLoss``.  ``penalty`` is a ``ProxL1`` (optionally weighted)
-    or ``ProxZero``; group penalties are not ported.  ``key`` is an
-    optional ``torch.Generator`` for the randomized visit orders (default:
-    one seeded with ``seed``).  Runs on ``device`` (``None``: the GPU;
-    ``"cpu"`` for the plain path on the CPU), where the inputs are moved."""
+    ``QuadraticLoss``.  ``penalty`` is a ``ProxL1`` (optionally weighted),
+    ``ProxZero``, or a ``ProxL1Group`` (routed to the group engine,
+    ``ops/group_cd.py``).  ``key`` is an optional ``torch.Generator`` for
+    the randomized visit orders (default: one seeded with ``seed``).  Runs
+    on ``device`` (``None``: the GPU; ``"cpu"`` for the plain path on the
+    CPU), where the inputs are moved."""
     if not isinstance(loss, (LeastSquaresLoss, WeightedLSLoss, SqrtLassoLoss,
                              QuadraticLoss)):
         raise NotImplementedError(
             f"{type(loss).__name__} is not a loss of this package")
+    if isinstance(penalty, ProxL1Group):
+        from .group_cd import group_coordinate_descent
+
+        return group_coordinate_descent(beta0, loss, penalty, options,
+                                        seed=seed, key=key, device=device)
     if not isinstance(penalty, (ProxL1, ProxZero)):
         raise NotImplementedError(
-            f"{type(penalty).__name__} is not ported yet (ProxL1 and "
-            "ProxZero only)")
+            f"{type(penalty).__name__} is not a penalty of this package "
+            "(ProxL1, ProxZero and ProxL1Group)")
     p = beta0.shape[0]
     if num_coordinates(loss) != p:
         raise ValueError("dimension mismatch between beta0 and loss")

@@ -12,6 +12,8 @@ and the compensated certificates need).
   from the three.
 - ``sqrt_lasso_kkt_compensated`` — the sqrt-lasso's measurement-grade
   relative KKT residual (``_sqrt_kkt_rel_from_grad`` its roll-up).
+- ``group_lasso_kkt_compensated`` — the group Lasso's measurement-grade
+  per-group relative KKT residual (``_group_kkt_pieces`` its roll-up).
 - ``loadings_f64`` — the feasible Lasso's loadings with float64
   accumulation, column-chunked (plain PyTorch: an einsum outside any
   kernel in the JAX package too).
@@ -22,12 +24,16 @@ What is not ported, and why: the JAX package's hybrid sweep
 full f64 sweep costs ~6× an f32 one; it computes exact values only where
 the certificate can read them.  The H100 has native float64, and the full
 f64-accumulating sweep is one read of the float32 design, so the port
-uses ``grad_f64`` wherever the JAX package calls the hybrid: the sqrt
-certificate then reads the exact f64 gradient at every coordinate, which
-is stricter than the hybrid's "exact where it matters".  The gradient
+uses ``grad_f64`` wherever the JAX package calls the hybrid: the sqrt and
+group certificates then read the exact f64 gradient at every coordinate,
+which is stricter than the hybrid's "exact where it matters" (the group
+roll-up's ``n_exact`` is every group, and its ``cap`` on the exact
+recompute goes with the hybrid).  The gradient
 sweeps' ``col_chunk`` arguments bounded the TPU emulation's temporaries
-and are dropped with it; ``loadings_f64`` keeps its own (a whole-design
-float64 ``X∘X`` would be 8 GB at n = 10K, p = 100K).
+and are dropped with it: the certificates and the polishes still take the
+keyword, check it (:func:`check_col_chunk`) and ignore it.
+``loadings_f64`` keeps its own (a whole-design float64 ``X∘X`` would be
+8 GB at n = 10K, p = 100K).
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from ..utils.helpers import on_device, target_device
 
 __all__ = ["grad_f64", "residual_f64", "fenchel_gap_f64",
            "lasso_duality_gap_compensated", "sqrt_lasso_kkt_compensated",
-           "loadings_f64"]
+           "group_lasso_kkt_compensated", "loadings_f64"]
 
 
 def host_f64(x) -> np.ndarray:
@@ -50,6 +56,16 @@ def host_f64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return host.numpy(x.to(torch.float64))
     return np.asarray(x, np.float64)
+
+
+def check_col_chunk(col_chunk, name: str = "col_chunk") -> None:
+    """Check the JAX package's ``col_chunk=`` keyword (or another bound of
+    its chunked sweeps, ``name``), which the port takes and ignores (its
+    f64 sweep reads the design once, unchunked): a positive int, else
+    ``ValueError``."""
+    if (isinstance(col_chunk, bool)
+            or not isinstance(col_chunk, (int, np.integer)) or col_chunk < 1):
+        raise ValueError(f"{name} must be a positive int, got {col_chunk!r}")
 
 
 def residual_f64(X, y, idx, beta_s64):
@@ -96,12 +112,14 @@ def fenchel_gap_f64(r_np, g_np, beta_np, lam0, w, n, yn, y2=None):
 
 
 def lasso_duality_gap_compensated(X, y, beta, lam0, weights=None, *,
-                                  device=None):
+                                  col_chunk: int = 4096, device=None):
     """Measurement-grade ``(gap, primal)``, every accumulation float64: the
     exact residual through the gathered support, the full f64-accumulating
-    gradient sweep, the scalar finish in host float64.  Runs on ``device``
+    gradient sweep, the scalar finish in host float64.  ``col_chunk`` is
+    checked and ignored (the sweep is not chunked).  Runs on ``device``
     (``None``: the GPU, raising when there is none; ``"cpu"``: the plain
     twins on the CPU)."""
+    check_col_chunk(col_chunk)
     dev = target_device(device)
     X = on_device(X, dev).contiguous()
     y = on_device(y, dev)
@@ -127,14 +145,16 @@ def _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np):
 
 
 def sqrt_lasso_kkt_compensated(X, y, beta, lam0, weights=None, *,
-                               device=None):
+                               col_chunk: int = 4096, device=None):
     """Measurement-grade sqrt-lasso KKT residual, relative to the
     threshold scale ``t_j = λ‖r‖w_j`` of the zero rule: 0 at an exact
     solution, each violation measured against its own coordinate's
     threshold.  The exact float64 residual through the gathered support,
     the full f64-accumulating gradient sweep, every scalar float64.
-    Returns ``(kkt_rel, norm_r)``.  Runs on ``device`` (``None``: the GPU,
+    Returns ``(kkt_rel, norm_r)``.  ``col_chunk`` is checked and ignored
+    (the sweep is not chunked).  Runs on ``device`` (``None``: the GPU,
     raising when there is none; ``"cpu"``: the plain twins on the CPU)."""
+    check_col_chunk(col_chunk)
     dev = target_device(device)
     X = on_device(X, dev).contiguous()
     y = on_device(y, dev)
@@ -147,6 +167,55 @@ def sqrt_lasso_kkt_compensated(X, y, beta, lam0, weights=None, *,
     t = np.maximum(float(lam0) * rn * w, 1e-300)
     g_np = host_f64(grad_f64(X, r64))
     return _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np), rn
+
+
+def _group_kkt_pieces(X, y, beta_np, t, G: int):
+    """Group-KKT roll-up shared by ``group_lasso_kkt_compensated`` and
+    ``models.polish.polish_group_lasso``: the exact float64 residual through
+    the support, the full f64-accumulating sweep ``g = X'r``, then in host
+    float64 the per-group off-support excess ``max(‖g_g‖ − t_g, 0)/t_g`` and,
+    on the active groups, the stationarity deviation ``‖g_g −
+    t_g·β_g/‖β_g‖‖/t_g``.  Returns ``(kkt_rel, off_excess (ng,),
+    n_exact)``, ``n_exact`` being every group (the sweep is exact
+    everywhere)."""
+    p = X.shape[1]
+    ng = -(-p // G)
+    r64, _ = _support_residual(X, y, beta_np)
+    g_np = host_f64(grad_f64(X, r64))
+    pad = ng * G - p
+    gg = np.pad(g_np, (0, pad)).reshape(ng, G)
+    bg = np.pad(beta_np, (0, pad)).reshape(ng, G)
+    off_excess = np.maximum(np.linalg.norm(gg, axis=1) - t, 0.0) / t
+    bn = np.linalg.norm(bg, axis=1)
+    act = np.nonzero(bn > 0)[0]
+    on_rel = (float(np.max(np.linalg.norm(
+        gg[act] - t[act, None] * bg[act] / bn[act, None], axis=1) / t[act]))
+        if act.size else 0.0)
+    return max(float(np.max(off_excess)), on_rel), off_excess, ng
+
+
+def group_lasso_kkt_compensated(X, y, beta, lam0, group_size: int,
+                                weights=None, *, col_chunk: int = 4096,
+                                cap: int = 8192, device=None):
+    """Measurement-grade group-lasso KKT residual relative to the threshold
+    scale ``t_g = n·λ0·ω_g``: zero groups need ``‖X_g'r‖₂ ≤ t_g``, active
+    groups ``X_g'r = t_g·β_g/‖β_g‖``.  Every accumulation float64 (see
+    :func:`_group_kkt_pieces`).  Returns ``(kkt_rel, n_exact_groups)``.
+    ``col_chunk`` and ``cap`` (the JAX package's bounds on its hybrid
+    sweep) are checked and ignored.  Runs on ``device`` (``None``: the GPU,
+    raising when there is none; ``"cpu"``: the plain twins on the CPU)."""
+    check_col_chunk(col_chunk)
+    check_col_chunk(cap, "cap")
+    dev = target_device(device)
+    X = on_device(X, dev).contiguous()
+    y = on_device(y, dev)
+    n, p = X.shape
+    G = int(group_size)
+    ng = -(-p // G)
+    w = np.ones((ng,), np.float64) if weights is None else host_f64(weights)
+    t = np.maximum(n * float(lam0) * w, 1e-300)
+    kkt_rel, _, n_exact = _group_kkt_pieces(X, y, host_f64(beta), t, G)
+    return kkt_rel, n_exact
 
 
 def loadings_f64(X, r64, col_chunk: int = 2048):

@@ -4,6 +4,8 @@
 - ``ProxL1(lam0, weights)`` — weighted L1, per-coordinate level
   ``lam0 * weights[j]``.
 - ``ProxZero()`` — no penalty (λ = 0 in the block engine).
+- ``ProxL1Group(lam0, group_size, weights)`` — group L1 over consecutive
+  equal-size groups (the group engine, ``ops/group_cd.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,26 @@ class ProxL1(NamedTuple):
                 f"penalty weight vector has shape {tuple(w.shape)}, "
                 f"expected ({p},)")
         return w
+
+
+def group_soft_threshold(v, t, axis=-1, keepdims=True):
+    """Group (block) soft-thresholding ``v · max(0, 1 − t/‖v‖₂)``, the prox
+    of ``t·‖·‖₂`` over ``axis`` (``keepdims`` keeps the reduced axis of
+    the norm, so that ``t`` broadcasts against it)."""
+    nrm = torch.sqrt(torch.sum(v * v, dim=axis, keepdim=keepdims))
+    scale = torch.clamp_min(1.0 - t / torch.clamp_min(nrm, 1e-30), 0.0)
+    return v * scale
+
+
+class ProxL1Group(NamedTuple):
+    """Group-L1 penalty ``Σ_g lam0 · weights_g · ‖x_g‖₂`` over consecutive
+    equal-size groups of ``group_size`` coordinates (the last group is
+    ragged when ``group_size`` does not divide p); ``weights`` are per
+    group, ``ceil(p / group_size)`` long."""
+
+    lam0: float
+    group_size: int = 1
+    weights: Optional[torch.Tensor] = None
 
 
 class ProxZero(NamedTuple):

@@ -21,7 +21,11 @@ wall time and counters, then once under ``torch.profiler`` (CPU + CUDA):
   working-set solve reaches the tolerance or runs to ``max_iter``, and
   these two levels, 1e-7 apart, differ in that;
 - ``wls``: one ``coordinate_descent(WeightedLSLoss, ProxL1)`` solve with
-  random row weights in [0.5, 1.5] at 0.05·λmax of the weighted problem.
+  random row weights in [0.5, 1.5] at 0.05·λmax of the weighted problem;
+- ``group``, ``group_polish``: after the bench design is freed, the group
+  bench problem (:func:`group_bench_problem`, bench.py's group section):
+  ``group_lasso`` at 0.3·group-λmax·(1 + 1e-7) with ``opt_tol=1e-6,
+  randomize=False``, then ``polish_group_lasso`` of its solution.
 
 For each it prints one JSON line: the wall time, the device time (the
 sum of the kernels' durations in the trace), the device's idle share,
@@ -84,6 +88,33 @@ def bench_problem(dev, n: int = 10_000, p: int = 100_000, s: int = 100,
     opts = CDOptions(opt_tol=1e-6, max_iter=300, block_size=128,
                      randomize=False, block_iters=16)
     return BenchProblem(X, y, support, beta_true, lammax, lams, opts)
+
+
+class GroupBenchProblem(NamedTuple):
+    X: torch.Tensor          # (n, p) float32, dense Gaussian
+    y: torch.Tensor          # X β + 0.3·N(0, 1)
+    groups: torch.Tensor     # the planted groups (β = 1 on each)
+    G: int
+    lam: float               # 0.3·group-λmax
+    opts: CDOptions
+
+
+def group_bench_problem(dev, n: int = 10_000, p: int = 100_000, G: int = 8,
+                        n_act: int = 12, seed: int = 11) -> GroupBenchProblem:
+    """The group Lasso bench problem (bench.py's group section, made on
+    ``dev`` from ``seed``): dense Gaussian X, ``n_act`` planted groups of
+    ``G`` coordinates set to 1.0, noise 0.3, λ = 0.3·max_g ‖X_g'y‖/n, and
+    the bench's options (``opt_tol=1e-6, randomize=False``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((n, p), generator=g, device=dev)
+    groups = torch.randperm(p // G, generator=g, device=dev)[:n_act]
+    beta = torch.zeros((p // G, G), device=dev)
+    beta[groups] = 1.0
+    y = X @ beta.reshape(-1) + 0.3 * torch.randn((n,), generator=g,
+                                                 device=dev)
+    gn = torch.linalg.vector_norm((y @ X).reshape(-1, G), dim=1) / n
+    return GroupBenchProblem(X, y, groups, G, 0.3 * float(torch.max(gn)),
+                             CDOptions(opt_tol=1e-6, randomize=False))
 
 
 def launch_counts() -> dict:
@@ -312,14 +343,7 @@ def main():
                                tcd.WeightedLSLoss(y, X, w),
                                tcd.ProxL1(lam_w), opts)
 
-    for name, fn in (("scan", scan), ("batched", batched),
-                     ("polish", polish), ("sqrt", sqrt),
-                     ("sqrt_polish", sqrt_polish), ("scaled", scaled),
-                     ("scaled_polish", scaled_polish),
-                     ("feasible", feasible),
-                     ("feasible_polish", feasible_polish),
-                     ("scaled_lam", scaled_lam),
-                     ("feasible_lam", feasible_lam), ("wls", wls)):
+    def run(name, fn):
         fn()                                          # warm-up
         reset_launch_counts()
         host.reset()
@@ -333,8 +357,39 @@ def main():
             rec["converged"] = out["polish"].converged
         if name in ("polish", "sqrt_polish"):
             rec["support"] = out["polish"].support_size
+        if name == "group_polish":
+            rec["support_groups"] = out["polish"].support_groups
+            rec["kkt_rel"] = out["polish"].kkt_rel
         rec.update(_trace(fn))
         print(json.dumps(rec), flush=True)
+
+    for name, fn in (("scan", scan), ("batched", batched),
+                     ("polish", polish), ("sqrt", sqrt),
+                     ("sqrt_polish", sqrt_polish), ("scaled", scaled),
+                     ("scaled_polish", scaled_polish),
+                     ("feasible", feasible),
+                     ("feasible_polish", feasible_polish),
+                     ("scaled_lam", scaled_lam),
+                     ("feasible_lam", feasible_lam), ("wls", wls)):
+        run(name, fn)
+
+    # the group runs on their own design, the bench design freed first
+    del X, y, bp, w, sols
+    torch.cuda.empty_cache()
+    gp = group_bench_problem(torch.device("cuda", 0))
+    lam_g = gp.lam * (1.0 + 1e-7)
+
+    def group():
+        sols["group"] = tcd.group_lasso(gp.X, gp.y, lam_g, gp.G,
+                                        options=gp.opts).x
+
+    def group_polish():
+        out["polish"] = tcd.polish_group_lasso(gp.X, gp.y, sols["group"],
+                                               lam_g, gp.G)
+
+    sols = {}
+    run("group", group)
+    run("group_polish", group_polish)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 The parity tests feed identical state to both packages: these functions
 take the JAX package's records (``CDOptions``, ``IterLassoOptions``,
-``BlockedProblem``, ``CDState``, ``WsCache``) and build the port's, on a
+``BlockedProblem``, ``CDState``, ``WsCache``, ``GroupProblem``,
+``GroupState``) and build the port's, on a
 given device and dtype.  They read the JAX arrays through ``numpy.asarray`` only, so this
 module imports no JAX.
 """
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.block_cd import BlockedProblem, CDState, WsCache
+from ..ops.group_cd import GroupProblem, GroupState
 from .options import CDOptions, IterLassoOptions
 
 
@@ -82,3 +84,29 @@ def ws_cache_from_jax(cache, device="cpu", dtype=torch.float64) -> WsCache:
                    Xb=_t(cache.Xb, device, dtype),
                    Xwb=_t(cache.Xwb, device, dtype),
                    ok=bool(np.asarray(cache.ok)), Kb=_t(cache.Kb, device, dtype))
+
+
+def group_problem_from_jax(prob, device="cpu",
+                           dtype=torch.float64) -> GroupProblem:
+    """A JAX ``GroupProblem`` as the port's: ``Xwb`` stays one tensor with
+    ``Xb`` where the JAX record holds one array for both (ls, sqrt)."""
+    Xb = _t(prob.Xb, device, dtype)
+    Xwb = Xb if prob.Xwb is prob.Xb else _t(prob.Xwb, device, dtype)
+    return GroupProblem(
+        Xb=Xb, Xwb=Xwb, Kb=_t(prob.Kb, device, dtype),
+        y=_t(prob.y, device, dtype), Lb=_t(prob.Lb, device, dtype),
+        lamw=_t(prob.lamw, device, dtype), valid=_t(prob.valid, device,
+                                                    dtype),
+        xwnorm=_t(prob.xwnorm, device, dtype))
+
+
+def group_state_from_jax(st, device="cpu", dtype=torch.float64,
+                         key=None) -> GroupState:
+    """A JAX ``GroupState`` as the port's; ``key`` is the port's generator
+    (JAX PRNG keys do not carry over)."""
+    return GroupState(beta=_t(st.beta, device, dtype),
+                      r=_t(st.r, device, dtype),
+                      active=_t(st.active, device, dtype), key=key,
+                      it=int(np.asarray(st.it)),
+                      conv=bool(np.asarray(st.conv)),
+                      done=bool(np.asarray(st.done)))

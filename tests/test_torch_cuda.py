@@ -514,3 +514,147 @@ def test_polish_kernels_reach_target_gap(dev):
     gp, pp = lasso_duality_gap_compensated(X.cpu(), y.cpu(), res.beta.cpu(),
                                            lam, device="cpu")
     assert abs(gap - gp) <= 1e-9 * abs(gp) + 1e-15 * pp
+
+
+def _group_data(dev, n, p, G, n_act, seed=0):
+    """bench.py's group problem at a small size: ``n_act`` groups of G set
+    to 1.0, noise 0.3, λ = 0.3·group-λmax; float32 on the card."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.standard_normal((n, p)), dtype=torch.float32,
+                        device=dev)
+    ng = -(-p // G)
+    beta = np.zeros(ng * G)
+    for g in rng.choice(p // G, n_act, replace=False):
+        beta[g * G:(g + 1) * G] = 1.0
+    y = X @ torch.as_tensor(beta[:p], dtype=torch.float32, device=dev)
+    y = y + 0.3 * torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                                  device=dev)
+    c = torch.nn.functional.pad(y @ X, (0, ng * G - p)).reshape(ng, G)
+    lam = 0.3 * float(torch.max(torch.linalg.vector_norm(c, dim=1)) / n)
+    return X, y, lam
+
+
+def _launches():
+    from coordinatedescent_jl_tpu_torch.profile_paths import launch_counts
+
+    return launch_counts()
+
+
+@pytest.mark.parametrize("G", [5, 8, 130])
+def test_group_engine_kernels_match_plain(dev, G):
+    """The group engine on the card: its full sweeps launch K5 at block
+    width B = 125, 128 and 130 (K5 held against its twin at that width
+    too), never K1-K4; the plain run (``use_pallas=False``) launches
+    nothing and reaches the same group support; p = 3127 leaves a ragged
+    tail group."""
+    from coordinatedescent_jl_tpu_torch import group_lasso
+    from coordinatedescent_jl_tpu_torch.ops import group_cd
+
+    X, y, lam = _group_data(dev, 2000, 3127, G, 6, seed=G)
+    opts = CDOptions(opt_tol=1e-6, randomize=False)
+    B = group_cd._block_width(G)
+    assert B == {5: 125, 8: 128, 130: 130}[G]
+    prob = group_cd._build_group_problem(X, y, torch.ones(-(-3127 // G),
+                                                          device=dev), G)
+    assert prob.Xwb is prob.Xb and prob.Xb.shape[2] == B
+    r = y - 0.01 * y.flip(0)
+    ck = gradient_sweep.fused_gradient_sweep(prob.Xwb, r)
+    cp = gradient_sweep.fused_gradient_sweep_plain(prob.Xwb, r)
+    torch.testing.assert_close(ck, cp, rtol=0,
+                               atol=1e-5 * float(cp.abs().max()))
+    del prob
+    before = _launches()
+    sol = group_lasso(X, y, lam, G, options=opts)
+    mid = _launches()
+    sol_p = group_lasso(X, y, lam, G, options=opts.replace(use_pallas=False))
+    after = _launches()
+    ran = {k: mid[k] - before[k] for k in mid}
+    assert ran["K5"] > 0, ran
+    assert all(v == 0 for k, v in ran.items() if k != "K5"), ran
+    assert after == mid
+    a, b = sol.x, sol_p.x
+    assert a.is_cuda and a.dtype == torch.float32
+    big = torch.maximum(a.abs(), b.abs()) > 1e-4
+    assert int((((a != 0) != (b != 0)) & big).sum()) == 0
+    assert int((a != 0).sum()) >= G
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_polish_group_lasso_on_the_card(dev):
+    """The group polish on the card: K5 f64 certifies, kkt_rel <= 1e-7, the
+    certificate recomputed on the card and on the CPU agree, and the CPU
+    polish from the same start reaches the same β."""
+    from coordinatedescent_jl_tpu_torch import (group_lasso,
+                                                group_lasso_kkt_compensated,
+                                                polish_group_lasso)
+
+    X, y, lam = _group_data(dev, 1500, 4000, 8, 8, seed=3)
+    sol = group_lasso(X, y, lam, 8, options=CDOptions(opt_tol=1e-6,
+                                                      randomize=False))
+    n5 = gradient_sweep.LAUNCHES_F64
+    res = polish_group_lasso(X, y, sol.x, lam, 8)
+    assert gradient_sweep.LAUNCHES_F64 > n5
+    assert res.converged and res.kkt_rel <= 1e-7, (res.kkt_rel, res.rounds)
+    assert res.beta.is_cuda and res.beta.dtype == torch.float64
+    kg, n_exact = group_lasso_kkt_compensated(X, y, res.beta, lam, 8)
+    kc, _ = group_lasso_kkt_compensated(X.cpu(), y.cpu(), res.beta.cpu(),
+                                        lam, 8, device="cpu")
+    assert kg <= 1.1e-7 and n_exact == 500
+    assert abs(kg - kc) <= 1e-9 * kc + 1e-15
+    rc = polish_group_lasso(X.cpu(), y.cpu(), sol.x.cpu(), lam, 8,
+                            device="cpu")
+    torch.testing.assert_close(res.beta.cpu(), rc.beta, atol=1e-7, rtol=0)
+
+
+def test_refit_lasso_path_min_norm_on_the_card(dev):
+    """A rank-deficient support on the card (column 1 copied into column
+    2, both in the support): the minimum-norm solution, as numpy gives it."""
+    from coordinatedescent_jl_tpu_torch import LassoPath, refit_lasso_path
+
+    rng = np.random.default_rng(12)
+    Xn = rng.standard_normal((400, 12))
+    Xn[:, 2] = Xn[:, 1]
+    yn = (Xn[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0])
+          + 0.1 * rng.standard_normal(400))
+    beta = np.zeros((1, 12))
+    beta[0, [0, 1, 2, 3, 7]] = 1.0
+    X = torch.as_tensor(Xn, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(yn, dtype=torch.float32, device=dev)
+    out = refit_lasso_path(LassoPath(torch.tensor([0.1]),
+                                     torch.as_tensor(beta)), X, y)
+    coef = out[(0, 1, 2, 3, 7)]
+    assert coef.is_cuda
+    X32 = Xn.astype(np.float32).astype(np.float64)
+    ref = np.linalg.lstsq(X32[:, [0, 1, 2, 3, 7]],
+                          yn.astype(np.float32).astype(np.float64),
+                          rcond=None)[0]
+    np.testing.assert_allclose(coef.cpu().numpy(), ref, atol=1e-4)
+    assert abs(float(coef[1] - coef[2])) < 1e-4
+
+
+def test_symmetric_solve_on_the_card(dev):
+    """Covariance thresholding through the packed quadratic loss on the
+    card: the closed form (diagonal kept, soft(S, λ) off it) within 1e-5 in
+    float32, and an exactly symmetric result."""
+    from coordinatedescent_jl_tpu_torch import (ProxL1, QuadraticLoss,
+                                                sym_indices, sym_pack,
+                                                symmetric_coordinate_descent)
+
+    p, lam = 24, 0.15
+    A = np.random.default_rng(1).standard_normal((p, 40))
+    S = A @ A.T / 40.0
+    ij = sym_indices(p).numpy()
+    off = (ij[:, 0] != ij[:, 1]).astype(np.float64)
+    d = 1.0 + off
+    s = sym_pack(torch.as_tensor(S)).numpy()
+    f32 = dict(dtype=torch.float32, device=dev)
+    M, _ = symmetric_coordinate_descent(
+        torch.zeros((p, p), **f32),
+        QuadraticLoss(torch.as_tensor(np.diag(d), **f32),
+                      torch.as_tensor(-(d * s), **f32)),
+        ProxL1(lam, torch.as_tensor(2.0 * off, **f32)),
+        CDOptions(opt_tol=1e-7, randomize=False))
+    assert M.is_cuda and torch.equal(M, M.T)
+    want = np.sign(S) * np.maximum(np.abs(S) - lam, 0.0)
+    np.fill_diagonal(want, np.diag(S))
+    np.testing.assert_allclose(M.cpu().numpy(), want, atol=1e-5)

@@ -494,3 +494,13 @@ def test_loss_value_and_gradient_match_jax(kind):
                                np.asarray(jl.gradient(jloss,
                                                       jnp.asarray(beta))),
                                atol=1e-12)
+
+
+def test_package_exports_gradient_and_value():
+    """``gradient`` and ``value`` are in the package's exports, as in the
+    JAX package's."""
+    from coordinatedescent_jl_tpu_torch import gradient, value
+    from coordinatedescent_jl_tpu_torch.ops import losses as tl
+
+    assert gradient is tl.gradient and value is tl.value
+    assert {"gradient", "value"} <= set(tcd.__all__)

@@ -188,8 +188,9 @@ def test_randomized_visit_orders_converge():
 
 
 def test_path_batch_and_other_losses_raise():
-    """Bad path arguments raise; so do the group penalty (not ported) and a
-    loss that is none of the package's."""
+    """Bad path arguments raise; so do a penalty and a loss that are none of
+    the package's (the JAX package's ``ProxL1Group`` is foreign here),
+    while the port's ``ProxL1Group`` routes to the group engine."""
     X, y = map(torch.as_tensor, _gen(30, 40, 3, 0))
     with pytest.raises(ValueError):
         tcd.lasso_path(X, y, [0.5, 0.1], path_batch=-1, device="cpu")
@@ -209,6 +210,18 @@ def test_path_batch_and_other_losses_raise():
                                tcd.LeastSquaresLoss(y, X),
                                cd.ProxL1Group(jnp.asarray(0.1), 2),
                                device="cpu")
+    opts = tcd.CDOptions(opt_tol=1e-9, randomize=False)
+    routed = tcd.coordinate_descent(torch.zeros(40, dtype=torch.float64),
+                                    tcd.LeastSquaresLoss(y, X),
+                                    tcd.ProxL1Group(0.1, 2), opts,
+                                    device="cpu")
+    direct = tcd.group_coordinate_descent(torch.zeros(40, dtype=torch.float64),
+                                          tcd.LeastSquaresLoss(y, X),
+                                          tcd.ProxL1Group(0.1, 2), opts,
+                                          device="cpu")
+    assert torch.equal(routed[0], direct[0]) and torch.equal(routed[1],
+                                                            direct[1])
+    assert int((routed[0] != 0).sum())
 
 
 def _chunk_problem(n, p, s, seed, noise):
@@ -278,6 +291,22 @@ def test_refit_lasso_path_matches_jax():
             np.testing.assert_allclose(coef, ref, atol=1e-8)
         else:
             assert coef.shape == (0,)
+
+
+def test_refit_lasso_path_min_norm_when_rank_deficient():
+    """Column 1 copied into column 2, both in the support: the refit is the
+    minimum-norm least-squares solution, as numpy's ``lstsq(rcond=None)``
+    gives it (the two copies share the coefficient equally)."""
+    X, y = _gen(50, 8, 3, 4)
+    X[:, 2] = X[:, 1]
+    beta = np.zeros((1, 8))
+    beta[0, [0, 1, 2, 5]] = 1.0
+    path = tcd.LassoPath(torch.tensor([0.1]), torch.as_tensor(beta))
+    out = tcd.refit_lasso_path(path, X, y, device="cpu")
+    coef = out[(0, 1, 2, 5)].numpy()
+    ref = np.linalg.lstsq(X[:, [0, 1, 2, 5]], y, rcond=None)[0]
+    np.testing.assert_allclose(coef, ref, atol=1e-10)
+    assert abs(coef[1] - coef[2]) < 1e-10
 
 
 def test_entry_points_run_on_cuda_unless_cpu_is_asked(monkeypatch):

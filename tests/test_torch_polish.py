@@ -289,3 +289,40 @@ def test_polish_feasible_lasso_fixed_point():
     gap, primal = tcd.lasso_duality_gap_compensated(
         X, y, beta, lam0, weights=rt.loadings, device="cpu")
     assert gap / primal <= 1.1e-7
+
+
+def test_col_chunk_is_taken_and_ignored():
+    """The JAX package's ``col_chunk=`` keyword: the certificates and the
+    polishes take it (tests/test_diagnostics.py:198-199's call), check that
+    it is a positive int and return what they return without it; through
+    ``polish_scaled_lasso(**polish_kw)`` too."""
+    X, y = _gen(200, 300, 8, seed=3)
+    rng = np.random.default_rng(4)
+    beta = np.zeros(300, np.float32)
+    beta[rng.choice(300, 12, replace=False)] = rng.standard_normal(
+        12).astype(np.float32)
+    w = np.abs(rng.standard_normal(300)).astype(np.float32) + 0.5
+    gap, _ = tcd.lasso_duality_gap_compensated(X, y, beta, 0.2, w,
+                                               device="cpu")
+    gap2, _ = tcd.lasso_duality_gap_compensated(X, y, beta, 0.2, w,
+                                                col_chunk=128, device="cpu")
+    assert gap2 == gap
+    lam_sq = 1.1 * float(np.sqrt(2 * np.log(300)))
+    assert (tcd.sqrt_lasso_kkt_compensated(X, y, beta, lam_sq, col_chunk=128,
+                                           device="cpu")
+            == tcd.sqrt_lasso_kkt_compensated(X, y, beta, lam_sq,
+                                              device="cpu"))
+    for fn, lam, kw in ((tcd.polish_lasso, 0.2, {}),
+                        (tcd.polish_sqrt_lasso, lam_sq, {}),
+                        (tcd.polish_scaled_lasso, 0.1,
+                         {"max_sigma_rounds": 1})):
+        a = fn(X, y, beta, lam, device="cpu", **kw)
+        b = fn(X, y, beta, lam, col_chunk=128, device="cpu", **kw)
+        assert torch.equal(a.beta, b.beta)
+    for bad in (0, -4, 2.5, True):
+        with pytest.raises(ValueError):
+            tcd.lasso_duality_gap_compensated(X, y, beta, 0.2,
+                                              col_chunk=bad, device="cpu")
+        with pytest.raises(ValueError):
+            tcd.polish_sqrt_lasso(X, y, beta, lam_sq, col_chunk=bad,
+                                  device="cpu")
