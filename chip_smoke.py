@@ -22,7 +22,12 @@ Phases, each failing loudly (exit code 1, no result line):
    against the twins; K5 on the working set's 8 blocks
    and on the full design; then the K2/K5 crossover of the gradient
    refresh; K3 (screen on and off) and K4 on a mid-solve state, with
-   exact masks, one device kernel and no host read per call;
+   exact masks, one device kernel and no host read per call; then, at the
+   varying-coefficient scan's shape (one grid point's wls problem of 4j:
+   n = 500, one block of 128 columns, the JAX package's resident pass
+   K1′), K1's wls form (FISTA and exact, cached Gram), K3 with the screen
+   off, K4 and K5, each with the device time of one call, and the device
+   time of the library call beside K5 on the working set;
 4. the main paths on the bench problem (dense Gaussian X, n = 10,000,
    p = 100,000, scattered s = 100 support, f32), each run with the launch
    counts set to 0 just before it and read just after:
@@ -66,6 +71,17 @@ Phases, each failing loudly (exit code 1, no result line):
       ``QuadraticLoss``, held to its closed form (diagonal kept,
       soft(S, λ) off it) within 1e-5 in float32, exactly symmetric; the
       quad kind launches no kernel.
+   j. the varying-coefficient suite at bench.py's configuration
+      (``profile_paths.vc_bench_problem``: n = 500, p = 50, degree 1,
+      ``GaussianKernel(0.1)``, λ0 = 0.05, a 1000-point grid, the default
+      options): ``locpolyl1`` as the scan (first call, then the faster of
+      2), which must launch K1's wls form, K3, K4 and K5 and never K2,
+      with a plain run on the first 100 points in the same support; the
+      batched grid (``grid_batch=128``), certified, in the scan's support,
+      with finite refits; ``locpoly`` (the faster of 2) held at three
+      points to a float64 normal-equation solve within 1e-4 relative;
+      ``lvocv_locpolyl1`` batched over four bandwidths (the faster of 2)
+      and sequential at h = 0.2, the two scores within 5e-2 relative.
    Every kernel must have launched in the runs that drive it.  (The plain
    runs repeat the kernels' arithmetic in eager PyTorch and are no
    yardstick of speed; 4a's plain scan is the longest of them.)
@@ -142,6 +158,17 @@ def one_call(fn):
     return reads, names, dms
 
 
+def library_device_ms(fn) -> str:
+    """The device ms of one call of a library function (no launch counter
+    to retake a short trace by): the least of three traces that show a
+    kernel, or "not measured"."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    got = [dms for _, names, dms, _, _ in (trace_one_call(fn)
+                                           for _ in range(3)) if names]
+    return f"{min(got):.4f}" if got else "not measured"
+
+
 def maxdiff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -165,6 +192,7 @@ def support_mismatch(a, b, tol):
 
 def main():
     try:
+        import numpy as np
         import torch
     except ImportError as e:
         fail(f"missing dependency: {e}")
@@ -180,7 +208,7 @@ def main():
         from coordinatedescent_jl_tpu_torch.ops import block_cd
         from coordinatedescent_jl_tpu_torch.profile_paths import (
             bench_problem, group_bench_problem, launch_counts,
-            reset_launch_counts)
+            reset_launch_counts, vc_bench_problem)
         from coordinatedescent_jl_tpu_torch.utils import host
     except ImportError as e:
         fail(f"the port's package is not importable here: {e}")
@@ -225,7 +253,7 @@ def main():
     ok = True
 
     def report(key, name, err, tol, ms, plain_ms, what, nbytes, flops,
-               peak="f32", library_ms=None):
+               peak="f32", library_ms=None, device_ms=None):
         nonlocal ok
         good = err <= tol
         ok = ok and good
@@ -235,8 +263,10 @@ def main():
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
             f"{bms:.4f} ms ({by}) {'ok' if good else 'MISMATCH'}")
         if key:
+            # device_ms: one traced call's device time, where measured
             rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by, library_ms=library_ms)
+                            bound_ms=bms, bound_by=by, library_ms=library_ms,
+                            device_ms=device_ms)
 
     B = 128
     f4 = 4
@@ -307,9 +337,13 @@ def main():
     ms = cuda_ms(lambda: gs.fused_gradient_sweep(ws.Xwb, st.r), 50)
     pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(ws.Xwb, st.r), 50)
     lms = cuda_ms(lambda: torch.matmul(st.r, ws.Xwb), 50)
+    _, names, dms = one_call(lambda: gs.fused_gradient_sweep(ws.Xwb, st.r))
+    ldms = library_device_ms(lambda: torch.matmul(st.r, ws.Xwb))
     report(None, "K5 fused_gradient_sweep", maxdiff(ck, cp),
            1e-5 * float(cp.abs().max()), ms, pms,
-           f"8-block working set, split {plan.split} x {plan.rows} rows",
+           f"8-block working set, split {plan.split} x {plan.rows} rows; "
+           f"one call: device {dms:.4f} ms, {len(names)} kernel(s); "
+           f"library device {ldms} ms",
            f4 * (8 * n * B + n + 8 * B), 2 * 8 * n * B, library_ms=lms)
 
     # K1's wls and sqrt forms on the same 8-block working set.  Tolerances
@@ -338,7 +372,8 @@ def main():
                f"{what}; r err {errr:.2e} (tol 1.0e-03); rsqr "
                f"{float(sk):.6e} rel err {errs:.2e} (tol 1.0e-05); nnz "
                f"{int((bk != 0).sum())}; one call: device {dms:.4f} ms, "
-               f"{len(names)} kernel(s), {reads} host reads", nbytes, flops)
+               f"{len(names)} kernel(s), {reads} host reads", nbytes, flops,
+               device_ms=dms)
         ok = ok and errr <= 1e-3 and errs <= 1e-5
         if kind == "sqrt" and float(sk) == float(kw["rsqr"]):
             fail("the sqrt pass returned its input rsqr")
@@ -448,7 +483,8 @@ def main():
            f"1.0e-11); one call: device {dms:.4f} ms, {len(names)} "
            f"kernel(s), {reads} host reads",
            8 * (nb64 * n * B + nb64 * B * B + 4 * nb64 * B + 2 * n + 1),
-           nb64 * (4 * n * B + 2 * B * B + 40 * B), peak="f64")
+           nb64 * (4 * n * B + 2 * B * B + 40 * B), peak="f64",
+           device_ms=dms)
     ok = ok and errr <= 1e-11 * float(rp.abs().max()) and errs <= 1e-11
     if reads or len(names) != 1:
         fail("fused_active_pass (sqrt, float64) must launch one kernel and "
@@ -564,7 +600,8 @@ def main():
                pms, f"screen={screen}; mask mismatches {masks}; "
                f"need {int(outp[0].sum())}; one call: device {dms:.4f} ms, "
                f"{len(names)} kernel(s), {reads} host reads",
-               f4 * (7 * nb_full * B + 5 * nb_full + 5), 40 * nb_full * B)
+               f4 * (7 * nb_full * B + 5 * nb_full + 5), 40 * nb_full * B,
+               device_ms=dms)
         ok = ok and masks == 0
         if reads or len(names) != 1:
             fail("check_phase_a must launch one kernel and read nothing to "
@@ -583,7 +620,8 @@ def main():
     report("K4", "K4 check_phase_b", err, 1e-5 * max(1.0, float(outp[0])),
            ms, pms, f"mask mismatches {masks}; one call: device {dms:.4f} "
            f"ms, {len(names)} kernel(s), {reads} host reads",
-           f4 * (7 * nb_full * B + 3 * nb_full + 5), 20 * nb_full * B)
+           f4 * (7 * nb_full * B + 3 * nb_full + 5), 20 * nb_full * B,
+           device_ms=dms)
     ok = ok and masks == 0
     if reads or len(names) != 1:
         fail("check_phase_b must launch one kernel and read nothing to the "
@@ -606,6 +644,128 @@ def main():
            f4 * n * p + 8 * n + 8 * p, 2 * n * p, peak="f64")
     del gk, gp, r64
     torch.cuda.empty_cache()
+
+    # The varying-coefficient scan's problem (4j): one grid point of
+    # bench.py's configuration at z0 = 0.5, built as the scan builds it
+    # (n = 500, 100 expanded columns in one block of 128, f32, the default
+    # options: a cached Gram, no compaction), from 0.9 of the point's
+    # solution.  K1 runs its small-n plan there (the JAX package's resident
+    # pass K1′: 16 CTAs of 32 rows), K5 one column tile split in rows,
+    # K3/K4 one CTA.  The bytes are below one launch's latency (~0.2 us):
+    # the device time of one call is the yardstick.  Tolerances as above.
+    vp = vc_bench_problem(dev)
+    kern_v = tcd.GaussianKernel(vp.h)
+    nv = vp.X.shape[0]
+    w_v = tcd.evaluate(kern_v, vp.z, 0.5)
+    eX_v = tcd.expand_X(vp.X, vp.z, 0.5, vp.degree)
+    opts_v = tcd.CDOptions()
+    lamw_v = tcd.std_X(eX_v, w_v)
+    prob_v = block_cd.build_blocked("wls", opts_v, lamw_v, X=eX_v, y=vp.y,
+                                    w=w_v)
+    if prob_v.Kb is None or tuple(prob_v.lamw.shape) != (1, B):
+        fail("the varying-coefficient point must be one block with a Gram")
+    b_v, _ = tcd.coordinate_descent(
+        torch.zeros(eX_v.shape[1], device=dev),
+        tcd.WeightedLSLoss(vp.y, eX_v, w_v), tcd.ProxL1(vp.lam0, lamw_v),
+        opts_v)
+    st_v = block_cd._init_state("wls", prob_v, block_cd._to_blocked_beta(
+        0.9 * b_v, B).contiguous(), None)
+    plan_v = active_pass.plan_active_pass(nv, B, 4, _build.sm_count(dev))
+    one = torch.arange(1, device=dev)
+    act_v = torch.ones(1, dtype=torch.bool, device=dev)
+    for inner in ("ista", "exact"):
+        args = (prob_v, st_v.beta, st_v.r, act_v, vp.lam0, float(nv), one,
+                corder)
+        # as the engine calls it, with the state's rsqr (without it the
+        # wrapper makes a zero on the card: a second kernel)
+        kw = dict(kind="wls", inner=inner, iters=16, rsqr=st_v.rsqr)
+        bk, rk, mk, _ = active_pass.fused_active_pass(*args, **kw)
+        bp_, rp, mp, _ = active_pass.fused_active_pass_plain(*args, **kw)
+        err = max(maxdiff(bk, bp_), maxdiff(mk, mp))
+        errr = maxdiff(rk, rp)
+        ms = cuda_ms(lambda: active_pass.fused_active_pass(*args, **kw), 50)
+        pms = cuda_ms(lambda: active_pass.fused_active_pass_plain(
+            *args, **kw), 3 if inner == "exact" else 10)
+        reads, names, dms = one_call(
+            lambda: active_pass.fused_active_pass(*args, **kw))
+        # bytes: both designs' block, the Gram, lamw, beta in and out, r in
+        # and out; flops: c and the residual update, then 16 FISTA steps
+        # (or the exact scan's Gram recursion)
+        report("K1wls_vc" if inner == "ista" else None,
+               "K1 fused_active_pass (wls)", err, 1e-4, ms, pms,
+               f"one block at n = {nv} ({plan_v.grid} CTAs of "
+               f"{plan_v.rows} rows), Gram cached, {inner}; r err "
+               f"{errr:.2e} (tol 1.0e-03); nnz {int((bk != 0).sum())}; one "
+               f"call: device {dms:.4f} ms, {len(names)} kernel(s), {reads} "
+               "host reads",
+               f4 * (2 * nv * B + B * B + 3 * B + 2 * nv),
+               4 * nv * B + (16 * 2 * B * B if inner == "ista"
+                             else 2 * B * B + 40 * B), device_ms=dms)
+        ok = ok and errr <= 1e-3
+        if reads or len(names) != 1:
+            fail("fused_active_pass (wls, n = 500) must launch one kernel "
+                 "and read nothing to the host")
+    ck = gs.fused_gradient_sweep(prob_v.Xwb, st_v.r)
+    cp = gs.fused_gradient_sweep_plain(prob_v.Xwb, st_v.r)
+    plan5 = gs.plan_dense_sweep(1, nv, B, _build.sm_count(dev))
+    ms = cuda_ms(lambda: gs.fused_gradient_sweep(prob_v.Xwb, st_v.r), 50)
+    pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(prob_v.Xwb, st_v.r),
+                  50)
+    lms = cuda_ms(lambda: torch.matmul(st_v.r, prob_v.Xwb), 50)
+    reads, names, dms = one_call(
+        lambda: gs.fused_gradient_sweep(prob_v.Xwb, st_v.r))
+    ldms = library_device_ms(lambda: torch.matmul(st_v.r, prob_v.Xwb))
+    report("K5_vc", "K5 fused_gradient_sweep", maxdiff(ck, cp),
+           1e-5 * float(cp.abs().max()), ms, pms,
+           f"one block (1, {nv}, {B}), split {plan5.split} x {plan5.rows} "
+           f"rows; one call: device {dms:.4f} ms, {len(names)} kernel(s), "
+           f"library device {ldms} ms", f4 * (nv * B + nv + B), 2 * nv * B,
+           library_ms=lms, device_ms=dms)
+    c_v = block_cd._full_gradient_c("wls", prob_v, st_v.r, kernels=False)
+    drift_v = torch.full((1,), 1e-3, device=dev)
+    scal_v = block_cd._check_scalars(vp.lam0, float(nv),
+                                     torch.dot(st_v.r, st_v.r),
+                                     torch.zeros((), device=dev), 1e-7)
+    valid_v = prob_v.valid.float()
+    a_args = (c_v, st_v.beta, drift_v, prob_v.adiag, prob_v.lamw, valid_v,
+              prob_v.xwnorm, scal_v)
+    outk = check.check_phase_a(*a_args, screen=False)
+    outp = check.check_phase_a_plain(*a_args, screen=False)
+    masks = sum(int((outk[i] != outp[i]).sum()) for i in (0, 1, 2, 5))
+    err = max(maxdiff(outk[3], outp[3]), maxdiff(outk[4], outp[4]))
+    ms = cuda_ms(lambda: check.check_phase_a(*a_args, screen=False), 50)
+    pms = cuda_ms(lambda: check.check_phase_a_plain(*a_args, screen=False),
+                  20)
+    reads, names, dms = one_call(
+        lambda: check.check_phase_a(*a_args, screen=False))
+    report("K3_vc", "K3 check_phase_a", err,
+           1e-5 * max(1.0, float(outp[3].abs().max())), ms, pms,
+           f"one block, screen=False; mask mismatches {masks}; need "
+           f"{int(outp[0].sum())}; one call: device {dms:.4f} ms, "
+           f"{len(names)} kernel(s), {reads} host reads",
+           f4 * (7 * B + 5 + 5), 40 * B, device_ms=dms)
+    ok = ok and masks == 0
+    if reads or len(names) != 1:
+        fail("check_phase_a (one block) must launch one kernel and read "
+             "nothing to the host")
+    b_args = (c_v, st_v.beta, outp[3], outp[1], outp[2], prob_v.adiag,
+              prob_v.lamw, valid_v, prob_v.xwnorm, scal_v)
+    outk = check.check_phase_b(*b_args)
+    outp = check.check_phase_b_plain(*b_args)
+    masks = int((outk[1] != outp[1]).sum())
+    ms = cuda_ms(lambda: check.check_phase_b(*b_args), 50)
+    pms = cuda_ms(lambda: check.check_phase_b_plain(*b_args), 20)
+    reads, names, dms = one_call(lambda: check.check_phase_b(*b_args))
+    report("K4_vc", "K4 check_phase_b", maxdiff(outk[0], outp[0]),
+           1e-5 * max(1.0, float(outp[0])), ms, pms,
+           f"one block; mask mismatches {masks}; one call: device "
+           f"{dms:.4f} ms, {len(names)} kernel(s), {reads} host reads",
+           f4 * (7 * B + 3 + 5), 20 * B, device_ms=dms)
+    ok = ok and masks == 0
+    if reads or len(names) != 1:
+        fail("check_phase_b (one block) must launch one kernel and read "
+             "nothing to the host")
+    del prob_v, st_v, eX_v, a_args, b_args
     log(f"one-call traces: {len(RETAKEN)}, retaken {sum(RETAKEN)} (the "
         "tracer dropped a launch the wrapper counted)")
     if not ok:
@@ -1021,6 +1181,155 @@ def main():
     if not (M.is_cuda and torch.equal(M, M.T) and err_i <= 1e-5):
         fail("the symmetric solve missed its closed form")
 
+    # 4j. the varying-coefficient suite at bench.py's configuration
+    # (bench.py:480-611): the scan (first call, then the faster of two at
+    # lam0 (1 + 1e-7 rep)), a plain run on its first 100 points, the
+    # batched grid, locpoly, and the LOO-CV batched and sequential
+    del M, S, A, loss_i
+    torch.cuda.empty_cache()
+    Xv, zv, yv, zgv = vp.X, vp.z, vp.y, vp.zgrid
+    Lv, ep_v = len(zgv), Xv.shape[1] * (vp.degree + 1)
+
+    def vc_l1(lam, zgrid=zgv, **kw):
+        return tcd.locpolyl1(Xv, zv, yv, zgrid, vp.degree, kern_v, lam, **kw)
+
+    def vc_finite(name, a, shape):
+        if tuple(a.shape) != shape or not bool(torch.isfinite(a).all()):
+            fail(f"{name}: not a finite {shape} result")
+
+    reset_counts()
+    (o_s, r_s), t_sf = wall(lambda: vc_l1(vp.lam0, grid_batch=0))
+    reads_sf = dict(host.COUNTS)
+    t_s = math.inf
+    for rep in range(2):
+        reset_counts()
+        _, t = wall(lambda: vc_l1(vp.lam0 * (1.0 + 1e-7 * (rep + 1)),
+                                  grid_batch=0))
+        t_s = min(t_s, t)
+    launches_j, reads_j = counts(), dict(host.COUNTS)
+    require_launches("varying-coefficient scan", launches_j,
+                     ("K1wls", "K3", "K4", "K5"),
+                     never=("K2", "K1", "K1sqrt", "K1f64", "K5f64"))
+    add(launches_j)
+    vc_finite("locpolyl1 scan", o_s, (ep_v, Lv))
+    vc_finite("locpolyl1 scan refits", r_s, (ep_v, Lv))
+    log(f"locpolyl1 scan (n={nv}, p={Xv.shape[1]}, degree {vp.degree}, "
+        f"{Lv} points): first {t_sf:.4f} s, warm {t_s:.4f} s (min of 2); "
+        f"launches {launches_j}; host reads {reads_j['host_reads']} over "
+        f"{reads_j['epochs']} epochs ({reads_sf['epochs']} in the first "
+        f"call); nnz per point {float((o_s != 0).sum()) / Lv:.2f}")
+    plain_v = tcd.CDOptions(use_pallas=False)
+    reset_counts()
+    (o_p, _), t_p = wall(lambda: vc_l1(vp.lam0, zgrid=zgv[:100],
+                                       options=plain_v, grid_batch=0))
+    if any(counts().values()):
+        fail("use_pallas=False launched a kernel")
+    bad = support_mismatch(o_s[:, :100], o_p, supp_tol)
+    log(f"locpolyl1 scan, first 100 points: plain {t_p:.4f} s; kernels vs "
+        f"plain support differing above {supp_tol:g}: {bad}, in all "
+        f"{int(((o_s[:, :100] != 0) != (o_p != 0)).sum())}, max |diff| "
+        f"{maxdiff(o_s[:, :100], o_p):.3e}")
+    if bad:
+        fail("locpolyl1: kernel and plain scans differ in support")
+
+    def vc_batched(lam):
+        st = {}
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            out = vc_l1(lam, grid_batch=128, stats=st)
+        fell = [str(w.message) for w in wl
+                if issubclass(w.category, RuntimeWarning)]
+        if fell or not (st["used_batched"] and st["batched_certified"]):
+            fail(f"the batched grid fell back to the scan: {st} {fell}")
+        return out, st
+
+    ((o_b, r_b), st_vb), t_bf = wall(lambda: vc_batched(vp.lam0))
+    t_b = math.inf
+    for rep in range(2):
+        reset_counts()
+        _, t = wall(lambda: vc_batched(vp.lam0 * (1.0 + 1e-7 * (rep + 1))))
+        t_b = min(t_b, t)
+    launches_b, reads_b = counts(), dict(host.COUNTS)
+    add(launches_b)
+    vc_finite("locpolyl1 batched", o_b, (ep_v, Lv))
+    vc_finite("locpolyl1 batched refits", r_b, (ep_v, Lv))
+    bad = support_mismatch(o_b, o_s, supp_tol)
+    log(f"locpolyl1 batched (grid_batch=128): first {t_bf:.4f} s, warm "
+        f"{t_b:.4f} s (min of 2); stats {st_vb}; launches {launches_b}; host "
+        f"reads {reads_b['host_reads']} over {reads_b['epochs']} epochs; vs "
+        f"scan: max |dbeta| {maxdiff(o_b, o_s):.3e}, support differing above "
+        f"{supp_tol:g}: {bad}, in all {int(((o_b != 0) != (o_s != 0)).sum())}"
+        f"; max |drefit| {maxdiff(r_b, r_s):.3e}")
+    if bad:
+        fail("locpolyl1: the batched grid and the scan differ in support")
+
+    lp, t_lpf = wall(lambda: tcd.locpoly(Xv, zv, yv, zgv, vp.degree, kern_v))
+    t_lp = math.inf
+    for rep in range(2):
+        _, t = wall(lambda: tcd.locpoly(
+            Xv, zv, yv, zgv, vp.degree,
+            tcd.GaussianKernel(vp.h + 1e-7 * (rep + 1))))
+        t_lp = min(t_lp, t)
+    vc_finite("locpoly", lp, (ep_v, Lv))
+    Xn, zn, yn = (a.double().cpu().numpy() for a in (Xv, zv, yv))
+    hn = float(np.float32(vp.h))
+    worst = 0.0
+    for i in (0, Lv // 2, Lv - 1):
+        z0 = float(np.float32(zgv[i]))
+        wn = np.exp(-((zn - z0) ** 2) / hn) / hn
+        eXn = (Xn[:, :, None] * ((zn - z0)[:, None, None]
+                                 ** np.arange(vp.degree + 1))).reshape(nv, -1)
+        ref = np.linalg.solve(eXn.T @ (wn[:, None] * eXn), eXn.T @ (wn * yn))
+        worst = max(worst, float(np.abs(lp[:, i].double().cpu().numpy() - ref)
+                                 .max() / np.abs(ref).max()))
+    log(f"locpoly ({Lv} points): first {t_lpf:.4f} s, warm {t_lp:.4f} s "
+        f"(min of 2); three points vs a float64 normal-equation solve: max "
+        f"relative error {worst:.3e} (tol 1.0e-04)")
+    if not worst <= 1e-4:
+        fail("locpoly disagrees with the float64 normal equations")
+
+    def vc_lvocv(hs, **kw):
+        st = {}
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            mse = tcd.lvocv_locpolyl1(Xv, zv, yv, vp.degree, hs,
+                                      tcd.GaussianKernel, vp.lam0, stats=st,
+                                      **kw)
+        fell = [str(w.message) for w in wl
+                if issubclass(w.category, RuntimeWarning)]
+        return mse, st, fell
+
+    reset_counts()
+    (mse_b, st_cv, fell), t_cvf = wall(lambda: vc_lvocv(list(vp.h_arr),
+                                                        cv_batch=128))
+    launches_cv = counts()
+    add(launches_cv)
+    t_cv = math.inf
+    for rep in range(2):
+        (_, st_r, fell_r), t = wall(lambda: vc_lvocv(
+            [h * (1.0 + 1e-7 * (rep + 1)) for h in vp.h_arr], cv_batch=128))
+        t_cv = min(t_cv, t)
+        fell += fell_r
+    reset_counts()
+    (mse_s, _, _), t_seq = wall(lambda: vc_lvocv([0.2], cv_batch=0))
+    launches_seq, reads_seq = counts(), dict(host.COUNTS)
+    add(launches_seq)
+    vc_finite("lvocv_locpolyl1 batched", mse_b, (len(vp.h_arr),))
+    vc_finite("lvocv_locpolyl1 sequential", mse_s, (1,))
+    rel_cv = abs(float(mse_b[2]) - float(mse_s[0])) / float(mse_s[0])
+    log(f"lvocv_locpolyl1 (n={nv}, h {list(vp.h_arr)}): batched first "
+        f"{t_cvf:.4f} s, warm {t_cv:.4f} s (min of 2), stats {st_cv}, "
+        f"fallbacks {len(fell)}, launches {launches_cv}; sequential at h = "
+        f"0.2: {t_seq:.4f} s, launches {launches_seq}, host reads "
+        f"{reads_seq['host_reads']} over {reads_seq['epochs']} epochs; MSE "
+        f"{[round(float(m), 6) for m in mse_b]}; at h = 0.2 batched "
+        f"{float(mse_b[2]):.6f} vs sequential {float(mse_s[0]):.6f}: "
+        f"relative difference {rel_cv:.3e} (tol 5.0e-02)")
+    if not rel_cv <= 5e-2:
+        fail("lvocv_locpolyl1: batched and sequential scores disagree")
+    vc_launches = {"K1wls_vc": launches_j["K1wls"], "K3_vc": launches_j["K3"],
+                   "K4_vc": launches_j["K4"], "K5_vc": launches_j["K5"]}
+
     src = "coordinatedescent_jl_tpu_torch/csrc/"
     meta = {
         "K1": ("fused_active_pass", "active_pass.cu",
@@ -1044,10 +1353,22 @@ def main():
                "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
         "K5f64": ("grad_f64", "dense_sweep.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
+        "K1wls_vc": ("fused_active_pass (wls, n = 500: the small-n regime)",
+                     "active_pass.cu",
+                     "coordinatedescent_jl_tpu/ops/pallas_block.py:339"),
+        "K3_vc": ("check_phase_a (screen off, one block)", "check.cu",
+                  "coordinatedescent_jl_tpu/ops/pallas_check.py:108"),
+        "K4_vc": ("check_phase_b (one block)", "check.cu",
+                  "coordinatedescent_jl_tpu/ops/pallas_check.py:149"),
+        "K5_vc": ("fused_gradient_sweep (one block, n = 500)",
+                  "dense_sweep.cu",
+                  "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
     }
-    log(f"launches over the main-path runs: {total}")
+    log(f"launches over the main-path runs: {total}; the 4j scan's: "
+        f"{vc_launches}")
+    launched = {**total, **vc_launches}
     kernels = [{"name": meta[k][0], "route": "cuda", "source": src + meta[k][1],
-                "replaces": meta[k][2], "launches": total[k], **rec[k]}
+                "replaces": meta[k][2], "launches": launched[k], **rec[k]}
                for k in meta]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,12 @@ every TPU kernel of the JAX package (the fused active pass in its ls, wls
 and sqrt forms, the restricted and the dense gradient sweeps, the two
 phases of the fused KKT check) rewritten by hand for Hopper in CUDA C++
 (``kernels/``, ``csrc/``); the group engine's full sweeps run on the
-dense sweep kernel.  The varying-coefficient suite, profiling and
-checkpointing, and the multi-device tiers are not ported yet.  The entry
+dense sweep kernel.  The varying-coefficient suite (``locpoly``,
+``locpolyl1`` in its scan and batched executions, the LOO-CV and split
+bandwidth scores, the interpolation utilities and the sandwich standard
+errors) runs the wls kind of the block engine, so its scan drives K1's
+wls form, K3/K4 and K5.  Profiling and checkpointing and the
+multi-device tiers are not ported yet.  The entry
 points run on the GPU unless the caller passes ``device="cpu"``.  The
 kernels are built with ``nvcc`` at first use on the machine with the GPU;
 importing the package needs no GPU, no ``nvcc`` and no JAX.
@@ -40,6 +44,12 @@ from .ops.diagnostics import (lasso_duality_gap, lasso_duality_gap_f64,
 from .models.lasso import (LassoSolution, feasible_lasso, lasso,
                            scaled_lasso, sqrt_lasso)
 from .models.lasso_path import LassoPath, lasso_path, refit_lasso_path
+from .models.varying_coefficient import (
+    EpanechnikovKernel, GaussianKernel, SmoothingKernel, create_kernel,
+    evaluate, expand_X, expand_wX, expand_Xt_w_X, expand_Xt_w_Y, get_beta,
+    get_nonzero_coordinates, get_residuals, get_standard_error,
+    get_standard_error_hew, locpoly, locpolyl1, lvocv_locpoly,
+    lvocv_locpolyl1, refit_locpolyl1, sparse_coefficients, split_locpoly)
 from .models.polish import (FeasiblePolishResult, GroupPolishResult,
                             PolishResult, ScaledPolishResult,
                             SqrtPolishResult, polish_feasible_lasso,
@@ -63,6 +73,12 @@ __all__ = [
     "group_lasso", "sym_num_coordinates", "sym_indices", "sym_pack",
     "sym_unpack", "symmetric_coordinate_descent",
     "group_lasso_kkt_compensated", "GroupPolishResult", "polish_group_lasso",
+    "GaussianKernel", "EpanechnikovKernel", "SmoothingKernel",
+    "create_kernel", "evaluate", "expand_X", "expand_wX", "expand_Xt_w_X",
+    "expand_Xt_w_Y", "locpoly", "locpolyl1", "refit_locpolyl1",
+    "lvocv_locpolyl1", "lvocv_locpoly", "split_locpoly", "get_beta",
+    "get_nonzero_coordinates", "sparse_coefficients", "get_residuals",
+    "get_standard_error", "get_standard_error_hew",
 ]
 
 __version__ = "0.1.0"

@@ -19,7 +19,8 @@ from ..ops.block_cd import (_compact_mode, _empty_ws_cache,
                             _solve_at_lambda_ws, _to_blocked_beta,
                             build_blocked, full_f32_matmuls, solve_blocked)
 from ..utils import host
-from ..utils.helpers import on_device, std_X, target_device
+from ..utils.helpers import (min_norm_lstsq, on_device, std_X,
+                             target_device)
 from ..utils.options import CDOptions, auto_batch_lanes, resolve_extrapolate
 
 
@@ -291,27 +292,15 @@ def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
     return LassoPath(lam_t[:k].to(dev), betas[:k])
 
 
-def _min_norm_lstsq(A, b):
-    """The minimum-norm least-squares solution of ``A x ≈ b`` through the
-    thin SVD, with ``numpy.linalg.lstsq(rcond=None)``'s rank cut: singular
-    values ≤ ``eps·max(m, k)`` times the largest count as zero.  The same
-    routine on every device (on the card ``torch.linalg.lstsq`` has only
-    QR, which assumes full column rank)."""
-    U, s, Vh = torch.linalg.svd(A, full_matrices=False)
-    cut = torch.finfo(A.dtype).eps * max(A.shape) * s[:1]
-    inv = torch.where(s > cut, 1.0 / s, torch.zeros_like(s))
-    return Vh.T @ (inv * (U.T @ b))
-
-
 def refit_lasso_path(path: LassoPath, X, y, *, device=None) -> dict:
     """Least-squares refit on each distinct support along the path: a dict
     from the support (a tuple of 0-based indices) to the OLS coefficients
     ``X[:, S] \\ y``, tensors on ``device`` (``None``: the GPU, raising
     when there is none; ``"cpu"`` for the CPU).  The supports come to the
     host in one counted read; each refit gathers ``X[:, S]`` and solves on
-    the device for the minimum-norm solution (:func:`_min_norm_lstsq`), as
-    ``numpy.linalg.lstsq`` gives in the JAX package, also when ``X[:, S]``
-    is rank-deficient."""
+    the device for the minimum-norm solution
+    (``utils.helpers.min_norm_lstsq``), as ``numpy.linalg.lstsq`` gives in
+    the JAX package, also when ``X[:, S]`` is rank-deficient."""
     dev = target_device(device)
     X = on_device(X, dev)
     y = on_device(y, dev, X.dtype)
@@ -326,5 +315,5 @@ def refit_lasso_path(path: LassoPath, X, y, *, device=None) -> dict:
             out[S] = torch.zeros((0,), dtype=X.dtype, device=dev)
         else:
             idx = torch.as_tensor(S, dtype=torch.int64, device=dev)
-            out[S] = _min_norm_lstsq(X.index_select(1, idx), y)
+            out[S] = min_norm_lstsq(X.index_select(1, idx), y)
     return out

@@ -27,6 +27,25 @@ wall time and counters, then once under ``torch.profiler`` (CPU + CUDA):
   ``group_lasso`` at 0.3·group-λmax·(1 + 1e-7) with ``opt_tol=1e-6,
   randomize=False``, then ``polish_group_lasso`` of its solution.
 
+    python -m coordinatedescent_jl_tpu_torch.profile_paths --vc
+
+profiles instead the varying-coefficient suite on its bench configuration
+(:func:`vc_bench_problem`, which ``chip_smoke.py`` 4j drives too):
+
+- ``vc_scan``: ``locpolyl1`` over the 1000-point grid, ``grid_batch=0``;
+- ``vc_scan_exact``: the same with ``CDOptions(inner="exact")``;
+- ``vc_batched``: the same grid with ``grid_batch=128``;
+- ``vc_locpoly``: ``locpoly`` on the same grid;
+- ``vc_lvocv``: ``lvocv_locpolyl1`` over the four bandwidths,
+  ``cv_batch=128``;
+- ``vc_lvocv_seq``: the sequential LOO-CV (``cv_batch=0``) at h = 0.2.
+
+The scans and the sequential LOO-CV launch about a million kernels, and
+reading a trace that long takes the profiler many minutes: their traces
+cover the first 100 grid points, or the first 50 held-out rows, and the
+record says so (``traced``); wall, reads, epochs and launches are the
+whole run's.
+
 For each it prints one JSON line: the wall time, the device time (the
 sum of the kernels' durations in the trace), the device's idle share,
 the number of device kernels, the top kernels by time, the device time
@@ -138,6 +157,38 @@ def reset_launch_counts():
         by_dtype[0] = by_dtype[1] = 0
     gs.LAUNCHES = gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
     check.LAUNCHES_A = check.LAUNCHES_B = 0
+
+
+class VcBenchProblem(NamedTuple):
+    X: torch.Tensor          # (n, p) float32, dense Gaussian
+    z: torch.Tensor          # (n,) U(0, 1)
+    y: torch.Tensor          # sin(2πz)·X[:, 0] + 0.3·N(0, 1)
+    zgrid: np.ndarray        # the evaluation grid
+    degree: int
+    h: float                 # the Gaussian kernel's bandwidth
+    lam0: float
+    h_arr: tuple             # the LOO-CV's bandwidths
+
+
+def vc_bench_problem(dev, n: int = 500, p: int = 50, g: int = 1000,
+                     seed: int = 7) -> VcBenchProblem:
+    """The varying-coefficient bench configuration (bench.py:480-611, the
+    shapes of the reference's ``benchmark/locpoly_bench.jl``), made from a
+    numpy ``seed`` and moved to ``dev`` in float32: dense Gaussian X,
+    z ~ U(0, 1), y = sin(2πz)·X[:, 0] + 0.3·N(0, 1), degree 1,
+    ``GaussianKernel(0.1)``, λ0 = 0.05 and a ``g``-point grid
+    ``linspace(0.05, 0.95, g)``; the LOO-CV's bandwidths."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(0.0, 1.0, n)
+    X = rng.standard_normal((n, p))
+    y = np.sin(2 * np.pi * z) * X[:, 0] + 0.3 * rng.standard_normal(n)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return VcBenchProblem(f32(X), f32(z), f32(y),
+                          np.linspace(0.05, 0.95, g), 1, 0.1, 0.05,
+                          (0.08, 0.12, 0.2, 0.3))
 
 
 def trace_one_call(fn, retakes: int = 10):
@@ -268,12 +319,80 @@ def _trace(fn, top: int = 8):
                                           for e in spans) * 1e-6}}
 
 
+def _run(name, fn, extra=dict, traced=None):
+    """Warm up ``fn``, run it once for its wall time, host reads and launch
+    counts, then once under the profiler (or ``traced``, a shorter part of
+    it); print the record (``extra()`` adds fields read after the timed
+    run)."""
+    from .utils import host
+
+    fn()                                          # warm-up
+    reset_launch_counts()
+    host.reset()
+    _, wall = _timed(fn)
+    rec = {"path": name, "wall_s": wall, **dict(host.COUNTS),
+           "launches": launch_counts(), **extra()}
+    rec.update(_trace(traced or fn))
+    print(json.dumps(rec), flush=True)
+
+
+def vc_main():
+    """The ``--vc`` runs (see the module docstring)."""
+    import coordinatedescent_jl_tpu_torch as tcd
+
+    vp = vc_bench_problem(torch.device("cuda", 0))
+    kern = tcd.GaussianKernel(vp.h)
+    stats = {}
+
+    def scan(grid=vp.zgrid, **kw):
+        tcd.locpolyl1(vp.X, vp.z, vp.y, grid, vp.degree, kern, vp.lam0,
+                      grid_batch=0, **kw)
+
+    exact = CDOptions(inner="exact")
+
+    def batched():
+        tcd.locpolyl1(vp.X, vp.z, vp.y, vp.zgrid, vp.degree, kern, vp.lam0,
+                      grid_batch=128, stats=stats)
+
+    def locpoly():
+        tcd.locpoly(vp.X, vp.z, vp.y, vp.zgrid, vp.degree, kern)
+
+    def lvocv():
+        tcd.lvocv_locpolyl1(vp.X, vp.z, vp.y, vp.degree, vp.h_arr,
+                            tcd.GaussianKernel, vp.lam0, cv_batch=128,
+                            stats=stats)
+
+    def lvocv_seq():
+        tcd.lvocv_locpolyl1(vp.X, vp.z, vp.y, vp.degree, [0.2],
+                            tcd.GaussianKernel, vp.lam0, cv_batch=0)
+
+    def lvocv_seq_50():
+        from .models.varying_coefficient import _lvocv_locpolyl1_one_h
+
+        _lvocv_locpolyl1_one_h(vp.X, vp.z, vp.y, vp.z.tolist(), 0.2,
+                               vp.lam0, 0, vp.degree, tcd.GaussianKernel,
+                               CDOptions(), points=list(range(50)))
+
+    grid100 = vp.zgrid[:100]
+    for name, fn, traced, what in (
+            ("vc_scan", scan, lambda: scan(grid100), "the first 100 points"),
+            ("vc_scan_exact", lambda: scan(options=exact),
+             lambda: scan(grid100, options=exact), "the first 100 points"),
+            ("vc_batched", batched, None, "all"),
+            ("vc_locpoly", locpoly, None, "all"),
+            ("vc_lvocv", lvocv, None, "all"),
+            ("vc_lvocv_seq", lvocv_seq, lvocv_seq_50,
+             "the first 50 held-out rows")):
+        stats.clear()
+        _run(name, fn, lambda: {"stats": dict(stats), "traced": what},
+             traced)
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_paths: needs a CUDA GPU", file=sys.stderr)
         sys.exit(1)
     import coordinatedescent_jl_tpu_torch as tcd
-    from .utils import host
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -282,6 +401,8 @@ def main():
     if sys.argv[1:2] == ["--trace-probe"]:
         return trace_probe(int(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:2] == ["--vc"]:
+        return vc_main()
     bp = bench_problem(torch.device("cuda", 0))
     X, y, lams, opts = bp.X, bp.y, bp.lams, bp.opts
     lam_end = float(lams[-1])
@@ -343,13 +464,8 @@ def main():
                                tcd.WeightedLSLoss(y, X, w),
                                tcd.ProxL1(lam_w), opts)
 
-    def run(name, fn):
-        fn()                                          # warm-up
-        reset_launch_counts()
-        host.reset()
-        _, wall = _timed(fn)
-        rec = {"path": name, "wall_s": wall, **dict(host.COUNTS),
-               "launches": launch_counts()}
+    def fields(name):
+        rec = {}
         if name == "batched":
             rec["refine_rounds"] = out["stats"]["refine_rounds"]
         if name.endswith("polish"):
@@ -360,8 +476,10 @@ def main():
         if name == "group_polish":
             rec["support_groups"] = out["polish"].support_groups
             rec["kkt_rel"] = out["polish"].kkt_rel
-        rec.update(_trace(fn))
-        print(json.dumps(rec), flush=True)
+        return rec
+
+    def run(name, fn):
+        _run(name, fn, lambda: fields(name))
 
     for name, fn in (("scan", scan), ("batched", batched),
                      ("polish", polish), ("sqrt", sqrt),

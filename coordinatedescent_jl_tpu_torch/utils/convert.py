@@ -3,7 +3,7 @@
 The parity tests feed identical state to both packages: these functions
 take the JAX package's records (``CDOptions``, ``IterLassoOptions``,
 ``BlockedProblem``, ``CDState``, ``WsCache``, ``GroupProblem``,
-``GroupState``) and build the port's, on a
+``GroupState``, the smoothing kernels) and build the port's, on a
 given device and dtype.  They read the JAX arrays through ``numpy.asarray`` only, so this
 module imports no JAX.
 """
@@ -17,6 +17,7 @@ import torch
 
 from ..ops.block_cd import BlockedProblem, CDState, WsCache
 from ..ops.group_cd import GroupProblem, GroupState
+from ..models.varying_coefficient import EpanechnikovKernel, GaussianKernel
 from .options import CDOptions, IterLassoOptions
 
 
@@ -110,3 +111,14 @@ def group_state_from_jax(st, device="cpu", dtype=torch.float64,
                       it=int(np.asarray(st.it)),
                       conv=bool(np.asarray(st.conv)),
                       done=bool(np.asarray(st.done)))
+
+
+def kernel_from_jax(kernel):
+    """A JAX ``GaussianKernel`` or ``EpanechnikovKernel`` record as the
+    port's (the bandwidth as a host float): the suite's only state."""
+    kinds = {"GaussianKernel": GaussianKernel,
+             "EpanechnikovKernel": EpanechnikovKernel}
+    name = type(kernel).__name__
+    if name not in kinds:
+        raise TypeError(f"unsupported kernel: {type(kernel)!r}")
+    return kinds[name](float(np.asarray(kernel.h)))

@@ -63,6 +63,20 @@ def get_loadings_blocked(Xb, e, p: int):
     return torch.sqrt(s.reshape(-1)[:p] / n)
 
 
+def min_norm_lstsq(A, b):
+    """The minimum-norm least-squares solutions of ``A x ≈ b`` for a batch
+    (``A (..., m, k)``, ``b (..., m)``; returns ``(..., k)``) through the
+    thin SVD, with ``numpy.linalg.lstsq(rcond=None)``'s rank cut per
+    matrix: singular values ≤ ``eps·max(m, k)`` times that matrix's
+    largest count as zero.  The same routine on every device (on the card
+    ``torch.linalg.lstsq`` has only QR, which assumes full column rank)."""
+    U, s, Vh = torch.linalg.svd(A, full_matrices=False)
+    cut = torch.finfo(A.dtype).eps * max(A.shape[-2:]) * s[..., :1]
+    inv = torch.where(s > cut, 1.0 / s, torch.zeros_like(s))
+    Utb = (U.mT @ b[..., None])[..., 0]
+    return (Vh.mT @ (inv * Utb)[..., None])[..., 0]
+
+
 def get_sigma(w, r):
     """Weighted residual scale ``sqrt(Σ w_i r_i^2 / Σ w_i)``."""
     return torch.sqrt(torch.sum(r * r * w) / torch.sum(w))

@@ -658,3 +658,132 @@ def test_symmetric_solve_on_the_card(dev):
     want = np.sign(S) * np.maximum(np.abs(S) - lam, 0.0)
     np.fill_diagonal(want, np.diag(S))
     np.testing.assert_allclose(M.cpu().numpy(), want, atol=1e-5)
+
+
+def _vc_point(dev, n=500, p=50, z0=0.5):
+    """One grid point of the varying-coefficient scan at bench.py's shape
+    (degree 1, 100 expanded columns in one block of 128, f32, the default
+    options), built as the scan builds it, and a state at 0.9 of the
+    point's solution."""
+    from coordinatedescent_jl_tpu_torch import (
+        GaussianKernel, ProxL1, WeightedLSLoss, coordinate_descent, evaluate,
+        expand_X, std_X)
+    from coordinatedescent_jl_tpu_torch.profile_paths import vc_bench_problem
+
+    vp = vc_bench_problem(dev, n=n, p=p, g=10)
+    w = evaluate(GaussianKernel(vp.h), vp.z, z0)
+    eX = expand_X(vp.X, vp.z, z0, 1)
+    lamw = std_X(eX, w)
+    opts = CDOptions()
+    prob = block_cd.build_blocked("wls", opts, lamw, X=eX, y=vp.y, w=w)
+    beta, _ = coordinate_descent(torch.zeros(2 * p, device=dev),
+                                 WeightedLSLoss(vp.y, eX, w),
+                                 ProxL1(vp.lam0, lamw), opts)
+    st = block_cd._init_state("wls", prob, block_cd._to_blocked_beta(
+        0.9 * beta, 128).contiguous(), None)
+    return prob, st, vp.lam0
+
+
+def test_vc_point_kernels_match_twins(dev):
+    """K1's wls form (both inners), K5, K3 with the screen off and K4 at the
+    varying-coefficient scan's one-block shape: n = 500 gives K1 its
+    16-CTA plan of 32 rows, K5 3 row slices of one column tile, K3/K4 one
+    CTA.  Masks exact, values to the f32 tolerance."""
+    prob, st, lam0 = _vc_point(dev)
+    assert prob.Kb is not None and tuple(prob.lamw.shape) == (1, 128)
+    assert _k1_plan(dev, 500, 128, torch.float32).grid == 16
+    one = torch.arange(1, device=dev)
+    act = torch.ones(1, dtype=torch.bool, device=dev)
+    for inner in ("ista", "exact"):
+        args = (prob, st.beta, st.r, act, lam0, 500.0, one,
+                torch.arange(128, device=dev))
+        k0 = active_pass.LAUNCHES_KIND["wls"][0]
+        bk, rk, mk, _ = active_pass.fused_active_pass(
+            *args, kind="wls", inner=inner)
+        assert active_pass.LAUNCHES_KIND["wls"][0] == k0 + 1
+        bp, rp, mp, _ = active_pass.fused_active_pass_plain(
+            *args, kind="wls", inner=inner)
+        torch.testing.assert_close(bk, bp, atol=1e-4, rtol=0)
+        torch.testing.assert_close(mk, mp, atol=1e-4, rtol=0)
+        torch.testing.assert_close(rk, rp, atol=1e-3, rtol=0)
+    ck = gradient_sweep.fused_gradient_sweep(prob.Xwb, st.r)
+    cp = gradient_sweep.fused_gradient_sweep_plain(prob.Xwb, st.r)
+    torch.testing.assert_close(ck, cp, atol=1e-5 * float(cp.abs().max()),
+                               rtol=0)
+    scal = block_cd._check_scalars(lam0, 500.0, torch.dot(st.r, st.r),
+                                   torch.zeros((), device=dev), 1e-7)
+    validf = prob.valid.float()
+    for drift in (0.0, 1e-3):
+        a_args = (cp, st.beta, torch.full((1,), drift, device=dev),
+                  prob.adiag, prob.lamw, validf, prob.xwnorm, scal)
+        outk = check.check_phase_a(*a_args, screen=False)
+        outp = check.check_phase_a_plain(*a_args, screen=False)
+        for i in (0, 1, 2, 5):
+            assert torch.equal(outk[i], outp[i]), i
+        for i in (3, 4):
+            torch.testing.assert_close(outk[i], outp[i], rtol=1e-5,
+                                       atol=1e-7)
+        b_args = (cp, st.beta, outp[3], outp[1], outp[2], prob.adiag,
+                  prob.lamw, validf, prob.xwnorm, scal)
+        outk = check.check_phase_b(*b_args)
+        outp = check.check_phase_b_plain(*b_args)
+        assert torch.equal(outk[1], outp[1])
+        torch.testing.assert_close(outk[0], outp[0], rtol=1e-5, atol=1e-7)
+
+
+def test_locpoly_fallback_on_the_card(dev):
+    """``locpoly``'s fallback on the card: a zero-mass point (singular
+    normal equations: ``solve_ex`` gives non-finite numbers, no exception)
+    is the minimum-norm solution, all zeros; float64 agrees with the CPU
+    at 1e-10; a forced ill-conditioned point is the SVD solve's."""
+    from coordinatedescent_jl_tpu_torch import EpanechnikovKernel, locpoly
+
+    rng = np.random.default_rng(3)
+    n, p = 120, 4
+    z = rng.uniform(0, 1, n)
+    X = rng.standard_normal((n, p))
+    y = X[:, 0] * np.sin(2 * np.pi * z) + 0.1 * rng.standard_normal(n)
+    zg = np.array([0.5, 50.0])
+    kern = EpanechnikovKernel(0.1)
+    out = locpoly(X, z, y, zg, 1, kern)
+    assert out.is_cuda and bool(torch.isfinite(out).all())
+    assert bool(torch.all(out[:, 1] == 0))
+    torch.testing.assert_close(out.cpu(), locpoly(X, z, y, zg, 1, kern,
+                                                  device="cpu"),
+                               atol=1e-10, rtol=0)
+    out32 = locpoly(X.astype(np.float32), z, y, zg, 1, kern)
+    assert bool(torch.isfinite(out32).all())
+    assert bool(torch.all(out32[:, 1] == 0))
+    torch.testing.assert_close(out32[:, 0].double().cpu(), out[:, 0].cpu(),
+                               atol=1e-4, rtol=0)
+
+
+def test_locpolyl1_on_the_card(dev):
+    """The scan with the kernels (K1 wls, K3, K4, K5; never K2) against the
+    plain scan, and the batched grid certified, at a small f32 shape:
+    no coordinate above 1e-4 in one support and not the other."""
+    from coordinatedescent_jl_tpu_torch import GaussianKernel, locpolyl1
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        launch_counts, reset_launch_counts, vc_bench_problem)
+
+    vp = vc_bench_problem(dev, n=200, p=20, g=40)
+    kern = GaussianKernel(vp.h)
+    reset_launch_counts()
+    ok_, rk = locpolyl1(vp.X, vp.z, vp.y, vp.zgrid, 1, kern, vp.lam0,
+                        grid_batch=0)
+    c = launch_counts()
+    assert min(c["K1wls"], c["K3"], c["K4"], c["K5"]) > 0 and c["K2"] == 0
+    op, rp = locpolyl1(vp.X, vp.z, vp.y, vp.zgrid, 1, kern, vp.lam0,
+                       options=CDOptions(use_pallas=False), grid_batch=0)
+
+    def mismatch(a, b):
+        differ = (a != 0) != (b != 0)
+        return int((differ & (torch.maximum(a.abs(), b.abs()) > 1e-4)).sum())
+
+    assert mismatch(ok_, op) == 0
+    st = {}
+    ob, rb = locpolyl1(vp.X, vp.z, vp.y, vp.zgrid, 1, kern, vp.lam0,
+                       grid_batch=128, stats=st)
+    assert st["used_batched"] and st["batched_certified"]
+    assert mismatch(ob, ok_) == 0
+    assert bool(torch.isfinite(rb).all()) and ob.is_cuda

@@ -96,3 +96,23 @@ def test_check_plan(nb, B, resident, grid, rows, keep):
     assert max(len(rs) for rs in owned) == plan.rows
     # no CTA is left without rows
     assert all(owned[8 * g] for g in range(plan.grid))
+
+
+def test_plans_at_the_varying_coefficient_shape():
+    """The varying-coefficient scan's one-block problem (bench.py's grid:
+    n = 500, p = 50 at degree 1, so 100 expanded columns padded to one
+    block of B = 128, float32).  K1: 500 rows at 32 or more a CTA give 16
+    CTAs of 32 rows (the last 20), each keeping its rows of r and of both
+    designs' block in shared memory: 94,864 bytes of header, sums, Gram,
+    vectors and slots, plus 32 rows of r and 32 × 128 of X_b (16,512).
+    K5: one column tile, split over 3 slices of 167 rows (fewer than
+    4 CTAs an SM would need slices under 128 rows).  K3/K4: one CTA, the
+    row kept in registers, whatever the residency."""
+    k1 = active_pass.plan_active_pass(500, 128, 4, SMS, OPTIN)
+    assert k1 == active_pass.ActivePlan(16, 32, True, True, 111_376)
+    assert k1.grid * k1.rows - 500 == 12
+    k5 = gradient_sweep.plan_dense_sweep(1, 500, 128, SMS)
+    assert k5 == gradient_sweep.SweepPlan(1, 3, 167, 3)
+    for resident in (2, 3, 4):
+        assert check.plan_check(1, 128, SMS, resident) == check.CheckPlan(
+            1, 1, True)
