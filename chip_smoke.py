@@ -82,6 +82,25 @@ Phases, each failing loudly (exit code 1, no result line):
       points to a float64 normal-equation solve within 1e-4 relative;
       ``lvocv_locpolyl1`` batched over four bandwidths (the faster of 2)
       and sequential at h = 0.2, the two scores within 5e-2 relative.
+   k. observability and persistence at full width, on the bench problem
+      (before the design is freed for h): ``lasso_path_resumable`` over
+      the 100 points with ``checkpoint_every=1`` (files under
+      ``build/smoke_checkpoints``, removed afterwards), in 4a's supports,
+      launching K1-K5, its time in ``save_checkpoint`` printed; an
+      interrupted randomized run (50 points, ``checkpoint_every=10``)
+      resumed to 100, bit for bit the uninterrupted run, final checkpoint
+      fields included; ``solve_x_traffic`` at 4c's level (its nnz 4c's,
+      at least one design read, below 1.05 x the measured peak) and one
+      solve with and without ``count_x`` (the same β and launches, at most
+      one more host read); ``solve_with_trace`` at the same level (4c's
+      support; K1 its only kernel); ``measured_peak_hbm`` within 0.5-1.05
+      of the data sheet; ``pass_roofline_multi`` at n = 10K, p = 100K,
+      iters 16 and 1 (at most 1.05 of the measured peak);
+      ``scaled_lasso_with_trace`` at 4e's level (σ within 1e-6 relative of
+      4e's); inside h, ``group_solve_with_trace`` on h's problem (h's
+      group support, K5 launched); ``debug_nans`` at n = 2,000, p = 4,096
+      (a NaN in r raises out of K5 and out of K1, a clean ``lasso``
+      passes, the mode is off afterwards).
    Every kernel must have launched in the runs that drive it.  (The plain
    runs repeat the kernels' arithmetic in eager PyTorch and are no
    yardstick of speed; 4a's plain scan is the longest of them.)
@@ -94,14 +113,16 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
 import warnings
 
-# the H100 SXM's published rates (NVIDIA's data sheet, dense, 700 W):
-# device memory, and the non-tensor-core float32 / float64 peaks
-HBM_BYTES_PER_S = 3.35e12
+# the H100 SXM's published non-tensor-core float32 / float64 peaks (NVIDIA's
+# data sheet, dense, 700 W); its device-memory rate is the port's
+# utils/profiling.py::H100_HBM_BYTES_PER_S
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 
 
@@ -176,7 +197,10 @@ def maxdiff(a, b) -> float:
 def bound_ms(nbytes: float, flops: float, peak: str):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak rate of their type."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    from coordinatedescent_jl_tpu_torch.utils.profiling import (
+        H100_HBM_BYTES_PER_S)
+
+    tb = nbytes / H100_HBM_BYTES_PER_S * 1e3
     to = flops / PEAK_FLOPS[peak] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -209,7 +233,10 @@ def main():
         from coordinatedescent_jl_tpu_torch.profile_paths import (
             bench_problem, group_bench_problem, launch_counts,
             reset_launch_counts, vc_bench_problem)
+        from coordinatedescent_jl_tpu_torch.utils import checkpoint as ckpt
         from coordinatedescent_jl_tpu_torch.utils import host
+        from coordinatedescent_jl_tpu_torch.utils import profiling as prof
+        from torch.utils._python_dispatch import _get_current_dispatch_mode
     except ImportError as e:
         fail(f"the port's package is not importable here: {e}")
     gs = gradient_sweep
@@ -907,6 +934,7 @@ def main():
         f"{maxdiff(pb.beta_path, pbp.beta_path):.3e}")
     if bad:
         fail("the batched path's kernel and plain runs differ in support")
+    scan_betas = path.beta_path          # held against the resumable path (4k)
     del pb, pbp, path
     torch.cuda.empty_cache()
 
@@ -938,6 +966,7 @@ def main():
         f"{gap_c / primal_c:.3e}")
     if not gap_c / primal_c <= 1.1e-7:
         fail("the recomputed compensated gap is above 1.1e-7")
+    x_c = sol_t.x                        # held against 4k's solves
     del sol_t, res
     torch.cuda.empty_cache()
 
@@ -1025,6 +1054,7 @@ def main():
     if not (res_e.converged and res_e.rel_gap <= 1e-7
             and res_e.sigma_rel_change <= 1e-7):
         fail("scaled polish did not reach its 1e-7 fixed point")
+    sigma_e = float(sol_e.sigma)          # held against 4k's σ-round trace
     del sol_e, res_e
 
     # 4f. feasible_lasso at the same level and its polish
@@ -1091,6 +1121,219 @@ def main():
         f"all with the screen off; host reads {reads_g['host_reads']} over "
         f"{reads_g['epochs']} epochs")
 
+    # 4k. observability and persistence at full width, on the bench problem
+    # (utils/checkpoint.py, utils/profiling.py, the engine's count_x)
+    t_4k = time.perf_counter()
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_checkpoints")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    os.makedirs(ck_dir)
+
+    def ck_file(name):
+        return os.path.join(ck_dir, name)
+
+    save_s = [0.0, 0]
+    save_real = ckpt.save_checkpoint
+
+    def save_timed(path, ck):
+        t = time.perf_counter()
+        save_real(path, ck)
+        save_s[0] += time.perf_counter() - t
+        save_s[1] += 1
+
+    # the resumable path at checkpoint_every=1: the scan's trajectory
+    ckpt.save_checkpoint = save_timed
+    reset_counts()
+    pr, t_res = wall(lambda: tcd.lasso_path_resumable(
+        X, y, lams, ck_file("every1.npz"), options=opts, standardize_X=False,
+        checkpoint_every=1))
+    ckpt.save_checkpoint = save_real
+    launches_k, reads_k = counts(), dict(host.COUNTS)
+    require_launches("resumable path", launches_k,
+                     ("K1", "K2", "K3", "K4", "K5"))
+    add(launches_k)
+    bad = support_mismatch(pr.beta_path, scan_betas, 0.0)
+    dmax = (maxdiff(pr.beta_path, scan_betas)
+            if tuple(pr.beta_path.shape) == (L, p) else math.inf)
+    log(f"lasso_path_resumable ({L} points, checkpoint_every=1): "
+        f"{t_res:.3f} s, of it {save_s[0]:.3f} s in {save_s[1]} "
+        f"save_checkpoint calls; launches {launches_k}; host reads "
+        f"{reads_k['host_reads']} over {reads_k['epochs']} epochs (2 a "
+        f"save); vs the scan of 4a: supports differing {bad}, max |dbeta| "
+        f"{dmax:.3e} (expected 0)")
+    if bad or dmax != 0:
+        fail("the resumable path is not bit for bit the scan of 4a")
+    del pr
+
+    # an interrupted randomized run (50 points), resumed to 100, against the
+    # uninterrupted run: bit for bit, the final checkpoints too
+    opts_r = opts.replace(randomize=True)
+
+    def resumable(lam_grid, name):
+        return tcd.lasso_path_resumable(X, y, lam_grid, ck_file(name),
+                                        options=opts_r, standardize_X=False,
+                                        checkpoint_every=10)
+
+    full, t_full = wall(lambda: resumable(lams, "full.npz"))
+    resumable(lams[:50], "interrupted.npz")
+    ck = tcd.load_checkpoint(ck_file("interrupted.npz"))
+    if ck is None or ck.next_index != 50:
+        fail("the interrupted run left no checkpoint at point 50")
+    tcd.save_checkpoint(ck_file("interrupted.npz"), ck._replace(
+        lam_path=np.asarray(lams, ck.lam_path.dtype)))
+    resumed, t_resumed = wall(lambda: resumable(lams, "interrupted.npz"))
+    ck_a = tcd.load_checkpoint(ck_file("full.npz"))
+    ck_b = tcd.load_checkpoint(ck_file("interrupted.npz"))
+    differ = [f for f in ("beta_path", "beta_warm", "residuals", "key", "c",
+                          "drift", "active", "ws_idx", "ws_ok", "beta_prev",
+                          "lam_k", "lam_km1", "next_index")
+              if not np.array_equal(getattr(ck_a, f), getattr(ck_b, f))]
+    same = bool(torch.equal(full.beta_path, resumed.beta_path))
+    log(f"resume (randomize=True, checkpoint_every=10): uninterrupted "
+        f"{t_full:.3f} s, resumed half {t_resumed:.3f} s; beta paths bitwise "
+        f"equal {same}, max |dbeta| "
+        f"{maxdiff(full.beta_path, resumed.beta_path):.3e}; checkpoint fields "
+        f"differing {differ}; ws_idx {ck_b.ws_idx.shape}")
+    if not same or differ:
+        fail("the resumed run is not bit for bit the uninterrupted one")
+    del full, resumed, ck, ck_a, ck_b
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    # the X-traffic report at 4c's level and options, and count_x on / off
+    reset_counts()
+    rep_x, t_x = wall(lambda: tcd.solve_x_traffic(X, y, lam_t))
+    launches_x = counts()
+    require_launches("solve_x_traffic", launches_x, ("K1", "K3", "K4", "K5"))
+    add(launches_x)
+    peak = prof.measured_peak_hbm()
+    nnz_c = int((x_c != 0).sum())
+    log(f"solve_x_traffic (0.05 lammax, default options): x_bytes "
+        f"{rep_x.x_bytes}, dense_equiv_bytes {rep_x.dense_equiv_bytes}, "
+        f"epochs {rep_x.epochs}, seconds {rep_x.seconds:.4f} (call "
+        f"{t_x:.3f} s), achieved {rep_x.achieved_gbps:.1f} GB/s against the "
+        f"measured peak {peak / 1e9:.1f} GB/s; nnz {rep_x.nnz} (lasso of 4c: "
+        f"{nnz_c}); launches of its three solves {launches_x}")
+    if rep_x.nnz != nnz_c:
+        fail("solve_x_traffic and the lasso of 4c differ in support size")
+    if rep_x.x_bytes < n * p * 4:
+        fail(f"solve_x_traffic counted {rep_x.x_bytes} B, less than one read "
+             f"of the design ({n * p * 4} B)")
+    if rep_x.achieved_gbps * 1e9 > 1.05 * peak:
+        fail("solve_x_traffic claims more than 1.05 x the measured peak")
+    dflt = tcd.CDOptions()
+
+    def solve_blk(count):
+        prob_x = block_cd.build_blocked("ls", dflt, torch.ones(p, device=dev),
+                                        X=X, y=y)
+        return block_cd.solve_blocked(
+            "ls", dflt, prob_x, lam_t, torch.zeros_like(prob_x.lamw),
+            torch.Generator().manual_seed(0), count_x=count)
+
+    seen = []
+    for count in (False, True):
+        reset_counts()
+        out = solve_blk(count)
+        seen.append((out[0] if count else out, counts(),
+                     host.COUNTS["host_reads"], out[1] if count else None))
+    (st0, l0, r0, _), (st1, l1, r1, xe) = seen
+    log(f"count_x off / on: beta bitwise equal "
+        f"{bool(torch.equal(st0.beta, st1.beta))}; launches equal {l0 == l1} "
+        f"({l1}); host reads {r0} / {r1}; count {xe * 4} B (report "
+        f"{rep_x.x_bytes})")
+    if not (torch.equal(st0.beta, st1.beta) and l0 == l1
+            and 0 <= r1 - r0 <= 1 and xe * 4 == rep_x.x_bytes):
+        fail("count_x changed the solve, its launches or its count, or added "
+             "more than one host read")
+    del st0, st1, seen
+    torch.cuda.empty_cache()
+
+    # the per-epoch trace at the same level: its full epochs run the plain
+    # check (no options, as in the JAX package), its active epochs K1
+    reset_counts()
+    (b_tr, tr), t_tr = wall(lambda: tcd.solve_with_trace(X, y, lam_t))
+    launches_tr = counts()
+    add(launches_tr)
+    bad = support_mismatch(b_tr, x_c, supp_tol)
+    log(f"solve_with_trace: {t_tr:.3f} s, {len(tr.max_h)} epochs, last max_h "
+        f"{tr.max_h[-1]:.3e}, last certificate (gap) {tr.certificate[-1]:.3e}"
+        f", nnz {tr.nnz[-1]}; launches {launches_tr}; vs the lasso of 4c: "
+        f"support differing above {supp_tol:g} {bad}, max |diff| "
+        f"{maxdiff(b_tr, x_c):.3e}")
+    if bad or not launches_tr["K1"]:
+        fail("solve_with_trace: another support than lasso's, or K1 idle")
+
+    # the card's streaming peak and K1's roofline at the bench shape
+    sheet = prof.H100_HBM_BYTES_PER_S
+    in_range = 0.5 * sheet <= peak <= 1.05 * sheet
+    log(f"measured_peak_hbm: {peak / 1e9:.1f} GB/s = "
+        f"{peak / sheet:.3f} of the data sheet's {sheet / 1e9:.0f} GB/s "
+        f"({card})")
+    if not in_range:
+        fail("the measured peak is outside 0.5-1.05 x the data sheet's rate")
+    for rf, it in zip(tcd.pass_roofline_multi(n, p, iters_list=(16, 1)),
+                      (16, 1)):
+        log(f"pass_roofline (n={n}, p={p}, iters {it}): "
+            f"{rf.seconds_per_pass * 1e3:.4f} ms a pass (slope "
+            f"{rf.slope_seconds_per_pass * 1e3:.4f} ms), "
+            f"{rf.bytes_per_pass} B, {rf.achieved_gbps:.1f} GB/s, "
+            f"{rf.fraction_of_roofline:.3f} of the data sheet, "
+            f"{rf.fraction_of_measured_peak:.3f} of the measured peak "
+            f"({rf.measured_peak_gbps:.1f} GB/s), {rf.device_kind}")
+        if not rf.fraction_of_measured_peak <= 1.05:
+            fail("pass_roofline: above 1.05 of the measured peak")
+    torch.cuda.empty_cache()
+
+    # the per-σ-round trace at 4e's level
+    reset_counts()
+    (sol_k, str_k), t_sk = wall(lambda: tcd.scaled_lasso_with_trace(
+        X, y, lam_sc * (1.0 + 1e-7)))
+    launches_sk = counts()
+    add(launches_sk)
+    rel_sig = abs(float(sol_k.sigma) - sigma_e) / sigma_e
+    log(f"scaled_lasso_with_trace: {t_sk:.3f} s, {len(str_k.sigma)} rounds, "
+        f"sigma {[round(v, 6) for v in str_k.sigma.tolist()]}, rel change "
+        f"{str_k.rel_change[-1]:.2e}; sigma {float(sol_k.sigma):.6f} vs "
+        f"scaled_lasso's {sigma_e:.6f}: relative {rel_sig:.2e} (tol 1e-06); "
+        f"launches {launches_sk}")
+    if not rel_sig <= 1e-6:
+        fail("scaled_lasso_with_trace: sigma apart from scaled_lasso's")
+    del sol_k, b_tr, x_c
+
+    # debug_nans at a small shape: a NaN in r raises out of K5 and out of K1;
+    # a clean lasso passes; the mode is off afterwards
+    gs_ = torch.Generator(device=dev).manual_seed(3)
+    Xs = torch.randn((2000, 4096), generator=gs_, device=dev)
+    ys = Xs[:, :8].sum(dim=1) + torch.randn(2000, generator=gs_, device=dev)
+    prob_s = block_cd.build_blocked("ls", opts, torch.ones(4096, device=dev),
+                                    X=Xs, y=ys)
+    nbs = prob_s.lamw.shape[0]
+    r_nan = ys.clone()
+    r_nan[7] = float("nan")
+    caught = []
+    for name, fn in (
+            ("K5", lambda: gs.fused_gradient_sweep(prob_s.Xwb, r_nan)),
+            ("K1", lambda: active_pass.fused_active_pass(
+                prob_s, torch.zeros_like(prob_s.lamw), r_nan,
+                torch.ones(nbs, dtype=torch.bool, device=dev), 0.1, 2000.0,
+                torch.arange(nbs, device=dev), torch.arange(128, device=dev),
+                inner="ista"))):
+        try:
+            with tcd.debug_nans():
+                fn()
+        except FloatingPointError:
+            caught.append(name)
+    with tcd.debug_nans():
+        sol_s = tcd.lasso(Xs, ys, 0.1)
+    off = not _build.NAN_CHECK and _get_current_dispatch_mode() is None
+    log(f"debug_nans: FloatingPointError out of {caught}; a clean lasso "
+        f"inside the mode: nnz {int((sol_s.x != 0).sum())}; the mode off "
+        f"afterwards {off}")
+    if caught != ["K5", "K1"] or not off:
+        fail("debug_nans missed a NaN or stayed on")
+    del Xs, ys, prob_s, r_nan, sol_s
+    log(f"phase 4k (h's group trace apart): "
+        f"{time.perf_counter() - t_4k:.1f} s")
+
     del loss_g, beta_g, beta_gp, w_g, beta0, X, y, support, beta_true
     torch.cuda.empty_cache()
 
@@ -1135,6 +1378,24 @@ def main():
     if not kkt_h <= 1e-3:
         fail(f"group_lasso: compensated relative KKT {kkt_h:.3e} above 1e-3")
     del sol_hp
+    # 4k, inside 4h: the per-epoch group trace on 4h's problem (K5 its full
+    # sweeps and certificates)
+    reset_counts()
+    (b_gt, tr_g), t_gt = wall(lambda: tcd.group_solve_with_trace(
+        Xg, yg, lam_h, Gg, options=gp.opts))
+    launches_gt = counts()
+    require_launches("group_solve_with_trace", launches_gt, ("K5",))
+    add(launches_gt)
+    grp_t = torch.nonzero(torch.any(b_gt.reshape(-1, Gg) != 0,
+                                    dim=1)).flatten()
+    log(f"group_solve_with_trace: {t_gt:.3f} s, {len(tr_g.max_h)} epochs, "
+        f"last max_h {tr_g.max_h[-1]:.3e}, last certificate "
+        f"{tr_g.certificate[-1]:.3e}; groups {grp_t.numel()} vs group_lasso's "
+        f"{grp.numel()}; launches {launches_gt}")
+    if not torch.equal(grp_t, grp):
+        fail("group_solve_with_trace: another group support than "
+             "group_lasso's")
+    del b_gt
     tcd.polish_group_lasso(Xg, yg, sol_h.x, gp.lam, Gg)          # warm-up
     reset_counts()
     res_h, t_hpol = wall(lambda: tcd.polish_group_lasso(Xg, yg, sol_h.x,

@@ -17,7 +17,11 @@ dense sweep kernel.  The varying-coefficient suite (``locpoly``,
 ``locpolyl1`` in its scan and batched executions, the LOO-CV and split
 bandwidth scores, the interpolation utilities and the sandwich standard
 errors) runs the wls kind of the block engine, so its scan drives K1's
-wls form, K3/K4 and K5.  Profiling and checkpointing and the
+wls form, K3/K4 and K5.  Profiling (``utils/profiling.py``: timing,
+per-epoch and per-σ-round traces, the X-traffic report, K1's roofline
+against the card's measured peak, NaN debugging) and checkpointing
+(``utils/checkpoint.py``: the resumable λ path, whose resume is bit for
+bit the uninterrupted run) are ported in their single-device halves; the
 multi-device tiers are not ported yet.  The entry
 points run on the GPU unless the caller passes ``device="cpu"``.  The
 kernels are built with ``nvcc`` at first use on the machine with the GPU;
@@ -50,6 +54,14 @@ from .models.varying_coefficient import (
     get_nonzero_coordinates, get_residuals, get_standard_error,
     get_standard_error_hew, locpoly, locpolyl1, lvocv_locpoly,
     lvocv_locpolyl1, refit_locpolyl1, sparse_coefficients, split_locpoly)
+from .utils.checkpoint import (PathCheckpoint, lasso_path_resumable,
+                               load_checkpoint, save_checkpoint)
+from .utils.profiling import (EpochTrace, RooflineReport, SigmaRoundTrace,
+                              XTrafficReport, debug_nans,
+                              group_solve_with_trace, pass_roofline,
+                              pass_roofline_multi, scaled_lasso_with_trace,
+                              simple_timeit, solve_with_trace,
+                              solve_x_traffic)
 from .models.polish import (FeasiblePolishResult, GroupPolishResult,
                             PolishResult, ScaledPolishResult,
                             SqrtPolishResult, polish_feasible_lasso,
@@ -79,6 +91,11 @@ __all__ = [
     "lvocv_locpolyl1", "lvocv_locpoly", "split_locpoly", "get_beta",
     "get_nonzero_coordinates", "sparse_coefficients", "get_residuals",
     "get_standard_error", "get_standard_error_hew",
+    "PathCheckpoint", "save_checkpoint", "load_checkpoint",
+    "lasso_path_resumable", "EpochTrace", "SigmaRoundTrace",
+    "RooflineReport", "XTrafficReport", "simple_timeit", "solve_with_trace",
+    "scaled_lasso_with_trace", "group_solve_with_trace", "pass_roofline",
+    "pass_roofline_multi", "solve_x_traffic", "debug_nans",
 ]
 
 __version__ = "0.1.0"

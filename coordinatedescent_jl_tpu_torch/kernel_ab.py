@@ -22,7 +22,13 @@ needed (``K2_blocks`` of them, ``K2_bound_ms`` its byte bound); the check
 phases on the full design's
 mid-solve state (fresh ``c``, a drift on half of the blocks): ``K3``
 (phase A, screen on), ``K3_noscreen`` and ``K4`` (phase B with phase A's
-masks).  Per call: milliseconds between CUDA events
+masks); ``K1p`` (the JAX package's resident pass K1′: K1's small-n plan,
+wls, FISTA, one block of 128 with a cached Gram at n = 500, from 0.9 of
+the solution at z0 = 0.5 of the varying-coefficient bench problem, where
+the tree under test has it); ``lasso_counts``, the host reads and the
+launches of ``chip_smoke.py`` 4c's warm ``lasso`` at 0.05·λmax·(1 + 2e-7)
+(after a warm-up), which tell a tree's host-side changes apart from its
+kernels'.  Per call: milliseconds between CUDA events
 around back-to-back calls, the host's time to issue a call, the device
 kernels' time and count from ``torch.profiler``, and ``cdt_ms`` the device
 time of the port's own kernels alone (a wrapper's allocations, copies and
@@ -205,7 +211,49 @@ def main():
 
     r64 = y.double() - X[:, support].double() @ beta_true[support].double()
     out["K5f64"] = _ms(lambda: gs.grad_f64(X, r64), 20)
+    del r64
+
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        launch_counts, reset_launch_counts)
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    lam_t = float(bp.lams[-1]) * (1.0 + 2e-7)
+    tcd.lasso(X, y, lam_t)
+    reset_launch_counts()
+    host.reset()
+    tcd.lasso(X, y, lam_t)
+    out["lasso_counts"] = {"host_reads": host.COUNTS["host_reads"],
+                           "epochs": host.COUNTS["epochs"],
+                           **{k: v for k, v in launch_counts().items() if v}}
+    del X, y, bp
+    torch.cuda.empty_cache()
+    if hasattr(tcd, "GaussianKernel"):
+        out["K1p"] = _k1_resident(tcd, ap, block_cd, dev)
     print(json.dumps(out), flush=True)
+
+
+def _k1_resident(tcd, ap, block_cd, dev) -> dict:
+    """K1's small-n plan (K1′) on one varying-coefficient grid point, as
+    ``chip_smoke.py`` builds it."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import vc_bench_problem
+
+    vp = vc_bench_problem(dev)
+    B, nv = 128, vp.X.shape[0]
+    w = tcd.evaluate(tcd.GaussianKernel(vp.h), vp.z, 0.5)
+    eX = tcd.expand_X(vp.X, vp.z, 0.5, vp.degree)
+    opts = tcd.CDOptions()
+    lamw = tcd.std_X(eX, w)
+    prob = block_cd.build_blocked("wls", opts, lamw, X=eX, y=vp.y, w=w)
+    b, _ = tcd.coordinate_descent(torch.zeros(eX.shape[1], device=dev),
+                                  tcd.WeightedLSLoss(vp.y, eX, w),
+                                  tcd.ProxL1(vp.lam0, lamw), opts)
+    st = block_cd._init_state("wls", prob, block_cd._to_blocked_beta(
+        0.9 * b, B).contiguous(), None)
+    args = (prob, st.beta, st.r, torch.ones(1, dtype=torch.bool, device=dev),
+            vp.lam0, float(nv), torch.arange(1, device=dev),
+            torch.arange(B, device=dev))
+    return _ms(lambda: ap.fused_active_pass(
+        *args, kind="wls", inner="ista", iters=16, rsqr=st.rsqr), 50)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import host
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -65,6 +67,10 @@ _SIGNATURES = {
 _lib = None
 build_seconds = 0.0
 build_log = ""
+# set by utils/profiling.py::debug_nans: the launches are ctypes calls that
+# PyTorch's dispatcher never sees, so while it is on every wrapper checks
+# its own outputs (check_nans); off, a launch pays one test of this flag
+NAN_CHECK = False
 
 
 def _nvcc() -> str:
@@ -140,6 +146,15 @@ def check(err: int, name: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
+
+
+def check_nans(name: str, *outs):
+    """Raise ``FloatingPointError`` when an output of kernel ``name`` holds
+    a NaN (one counted host read); the wrappers call it while
+    ``NAN_CHECK`` is on."""
+    if host.item(torch.stack([torch.isnan(t).any() for t in outs]).any()):
+        raise FloatingPointError(
+            f"invalid value (nan) encountered in CUDA kernel {name}")
 
 
 def ptr(t) -> int | None:

@@ -189,6 +189,9 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
              _build.stream(dev))
     _build.check(err, "active_pass")
     LAUNCHES_KIND[kind][dt == torch.float64] += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("active_pass",
+                          out[:nb * B + n + 1 + (kind == "sqrt")])
     # three view ops for the four outputs (each costs the host as much as
     # the C call); only the sqrt kind moves ||r||^2, and only its kernel
     # writes it

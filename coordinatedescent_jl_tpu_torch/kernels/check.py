@@ -130,6 +130,8 @@ def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
         int(bool(screen)), grid, _build.stream(dev))
     _build.check(err, "check_a")
     LAUNCHES_A += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("check_a", out[:nbB + 4 * nb + 1])
     # the six outputs' views from one call (every view op costs host time)
     bound, need, ub, cand, active, tail = out.split_with_sizes(
         (nbB, nb, nb, nb, nb, 1 + _CK_PART * grid))
@@ -164,6 +166,8 @@ def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
         o, o + 4 * (nb + 1), nb, B, grid, _build.stream(dev))
     _build.check(err, "check_b")
     LAUNCHES_B += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("check_b", out[:nb + 1])
     return out[nb], out[:nb]
 
 

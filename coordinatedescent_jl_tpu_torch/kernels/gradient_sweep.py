@@ -96,6 +96,8 @@ def restricted_gradient_sweep(Xwb, r, need, c_prev, *, n_need=None):
              _ROW_CHUNK, _build.stream())
     _build.check(err, "rsweep")
     LAUNCHES += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("rsweep", out)
     return out
 
 
@@ -169,6 +171,8 @@ def fused_gradient_sweep(Xwb, r):
           else lib.cdt_dense_sweep_f64)
     _dense_sweep(fn, Xwb, r, out, nb, n, B, "dense_sweep")
     LAUNCHES_DENSE += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("dense_sweep", out)
     return out
 
 
@@ -196,6 +200,8 @@ def grad_f64(X, r64):
         lib.cdt_grad64_f64
     _dense_sweep(fn, X, r64, out, 1, n, p, "grad64")
     LAUNCHES_F64 += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("grad64", out)
     return out
 
 

@@ -16,8 +16,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.block_cd import (_blocks_matvec, _compact_mode, _empty_ws_cache,
-                            _extrapolate_path_start, _init_state, _np_dtype,
-                            _pad_to_blocks, _solve_at_lambda_ws,
+                            _init_state, _np_dtype, _pad_to_blocks,
+                            _path_point, _solve_at_lambda_ws,
                             _to_blocked_beta, _unblock, build_blocked,
                             coordinate_descent, full_f32_matmuls,
                             solve_blocked)
@@ -115,27 +115,17 @@ def _scaled_lasso_core(X, y, lam: float, lamw, beta0, key,
     st = _init_state("ls", prob, beta_b, key)
     nc = _compact_mode("ls", cd, prob, dtype)
     cache = _empty_ws_cache("ls", prob, nc, cd) if nc else None
-    extrap = nc and resolve_extrapolate(cd, True)
+    # the σ rounds move the penalty along the λ·σ abscissa: the λ path's
+    # secant start (an oscillating σ gives α < 0, which the clip skips)
+    extrap = bool(nc) and resolve_extrapolate(cd, True)
     sig_used = sig
-    beta_prev = st.beta
-    lam_k = lam_km1 = float(npdt(lam) * npdt(sig))
+    lam_new = float(npdt(lam) * npdt(sig))
+    secant = (st.beta, lam_new, lam_new)
     it, done = 0, False
     while not done and it < opts.max_iter:
-        beta_k = st.beta
         lam_new = float(npdt(lam) * npdt(sig))
-        if cd.warm_start:
-            if extrap:
-                # the σ rounds move the penalty along the λ·σ abscissa: the
-                # λ path's secant start (an oscillating σ gives α < 0,
-                # which the clip skips)
-                st = _extrapolate_path_start(st, cache, beta_prev, lam_k,
-                                             lam_km1, lam_new)
-            st, cache = _solve_at_lambda_ws("ls", cd, prob, lam_new, st,
-                                            n_scale, cache)
-        else:
-            # warm_start=False: zero β and the λ-continuation every round
-            st = solve_blocked("ls", cd, prob, lam_new,
-                               torch.zeros_like(st.beta), key)
+        st, cache, secant = _path_point("ls", cd, prob, st, cache, lam_new,
+                                        n_scale, secant, extrap)
         signew = host.item(torch.sqrt(torch.sum(st.r * st.r) / n))
         done = bool(abs(npdt(signew) - npdt(sig)) / npdt(sig)
                     < npdt(opts.opt_tol))
@@ -143,7 +133,6 @@ def _scaled_lasso_core(X, y, lam: float, lamw, beta0, key,
         if not done:
             sig = signew
         it += 1
-        beta_prev, lam_km1, lam_k = beta_k, lam_k, lam_new
     return _unblock(st.beta, beta0.shape[0]), st.r, sig_used
 
 

@@ -14,10 +14,9 @@ import torch
 
 from ..ops.batched_certify import (kkt_violation_lanes, stall_escape_update,
                                    union_block_fista, union_priority)
-from ..ops.block_cd import (_compact_mode, _empty_ws_cache,
-                            _extrapolate_path_start, _init_state,
-                            _solve_at_lambda_ws, _to_blocked_beta,
-                            build_blocked, full_f32_matmuls, solve_blocked)
+from ..ops.block_cd import (_compact_mode, _empty_ws_cache, _init_state,
+                            _path_point, _to_blocked_beta, build_blocked,
+                            full_f32_matmuls)
 from ..utils import host
 from ..utils.helpers import (min_norm_lstsq, on_device, std_X,
                              target_device)
@@ -45,29 +44,19 @@ def _lasso_path_core(X, y, lam_path, lamw, key, max_hat_s,
         torch.zeros((p,), dtype=X.dtype, device=X.device),
         opts.block_size), key)
     cache = _empty_ws_cache("ls", prob, nc, opts) if nc else None
-    beta_prev = st.beta
-    lam_k = lam_km1 = lam_path[0]
+    extrap = bool(nc) and resolve_extrapolate(opts, False)
+    secant = (st.beta, lam_path[0], lam_path[0])
     stopped = False
     betas, valids = [], []
     for lam in lam_path:
-        beta_k = st.beta
         if not stopped:
-            if opts.warm_start:
-                if nc and resolve_extrapolate(opts, False):
-                    st = _extrapolate_path_start(st, cache, beta_prev, lam_k,
-                                                 lam_km1, lam)
-                st, cache = _solve_at_lambda_ws("ls", opts, prob, lam, st,
-                                                n_scale, cache)
-            else:
-                # warm_start=False: zero β and rerun the λ-continuation
-                st = solve_blocked("ls", opts, prob, lam,
-                                   torch.zeros_like(st.beta), key)
+            st, cache, secant = _path_point("ls", opts, prob, st, cache, lam,
+                                            n_scale, secant, extrap)
         valids.append(not stopped)
         # the point that first exceeds max_hat_s is still recorded
         if math.isfinite(max_hat_s) and not stopped:
             stopped = host.item(torch.sum(st.beta != 0)) > max_hat_s
         betas.append(st.beta.reshape(-1)[:p])
-        beta_prev, lam_km1, lam_k = beta_k, lam_k, lam
     return torch.stack(betas), valids
 
 

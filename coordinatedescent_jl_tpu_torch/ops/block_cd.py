@@ -25,6 +25,8 @@ What differs from the JAX engine:
   ``it``, ``conv``, ``done``, ``WsCache.ok``) are Python values.
 - Visit orders for ``randomize=True`` come from a ``torch.Generator`` and
   cannot reproduce ``jax.random``.
+- The design-read accounting (``count_x``, :class:`XCount`) counts in exact
+  integers where the JAX engine accumulates in float32.
 """
 
 from __future__ import annotations
@@ -500,13 +502,14 @@ def _check_scalars(lam0, n_scale, rn2, ry, opt_tol):
 
 
 def _fused_full_check(kind, prob: BlockedProblem, st: CDState, lam0,
-                      n_scale, opt_tol, rsqr, screen):
+                      n_scale, opt_tol, rsqr, screen, xc=None):
     """Fused execution of the ls/wls full check (f32): check
     phase A evaluates the whole no-refresh check and the ``need`` mask;
     when some block needs a refresh, the gradient is refreshed
     (``_refresh_c``) and phase B re-evaluates the steps with it.  The
     phase wrappers (``kernels/check.py``) launch the kernels for CUDA
-    tensors and run their plain twins for CPU tensors."""
+    tensors and run their plain twins for CPU tensors.  ``xc`` (an
+    :class:`XCount` or ``None``) counts the refreshed blocks' reads."""
     from ..kernels.check import check_phase_a, check_phase_b
 
     dt = st.beta.dtype
@@ -519,6 +522,8 @@ def _fused_full_check(kind, prob: BlockedProblem, st: CDState, lam0,
         prob.xwnorm, scal, screen=screen)
     need = needf > 0
     n_need = host.item(torch.sum(need))
+    if xc is not None:
+        xc.add(n_need * prob.y.shape[0] * prob.lamw.shape[1])
     c = st.c
     if n_need:
         c = _refresh_c(kind, prob, st, need, n_need, True)
@@ -531,9 +536,13 @@ def _fused_full_check(kind, prob: BlockedProblem, st: CDState, lam0,
 
 
 def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
-                opt_tol, opts: Optional[CDOptions] = None):
+                opt_tol, opts: Optional[CDOptions] = None, *, xc=None):
     """Vectorized full pass: KKT sweep + (re)activation of violating blocks,
-    reading X only for stale, uncertified, unscreened blocks."""
+    reading X only for stale, uncertified, unscreened blocks.  ``xc`` (an
+    :class:`XCount` or ``None``) counts what the check reads of the design:
+    ``n·B`` elements for each refreshed block, none for the cached-exact,
+    drift-certified and screened ones, none for quad (JAX block_cd.py
+    :775-778, :870-879)."""
     # sqrt: refresh the exact ‖r‖² (the zero threshold λ·√rsqr inherits
     # its accuracy)
     rsqr = torch.dot(st.r, st.r) if kind == "sqrt" else st.rsqr
@@ -556,7 +565,7 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
                 and opts.fuse_check is not False
                 and st.beta.dtype == torch.float32):
             return _fused_full_check(kind, prob, st, lam0, n_scale, opt_tol,
-                                     rsqr, screen)
+                                     rsqr, screen, xc)
 
         if screen:
             rn2 = torch.dot(st.r, st.r)
@@ -569,6 +578,8 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
         need = cand & stale & ~certified
         use_bound = stale & certified
         n_need = host.item(torch.sum(need))
+        if xc is not None:
+            xc.add(n_need * prob.y.shape[0] * B)
         c = (_refresh_c(kind, prob, st, need, n_need, kernels) if n_need
              else st.c)
         drift_new = torch.where(need, torch.zeros_like(st.drift), st.drift)
@@ -699,13 +710,17 @@ def _ws_cache_from_idx(kind, prob: BlockedProblem, nc: int,
 
 
 def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
-                  opts: CDOptions, nc: int, cache: WsCache):
+                  opts: CDOptions, nc: int, cache: WsCache, *, xc=None):
     """One working-set round: solve the dense ``(n, C)`` subproblem over the
     top-``C`` priority coordinates (support first, then the largest
     stale-KKT steps) and scatter the result back; falls back to the
     ordinary active pass when the working set cannot hold the support.
     Returns ``(state, maxh, cache)``; ``maxh`` is 0.0 for a compact round
-    so the next pass is the confirming full check."""
+    so the next pass is the confirming full check.  ``xc`` (an
+    :class:`XCount` or ``None``) counts the design reads: ``C·n`` for a
+    gather that is not a reuse plus the inner solve's own reads of the
+    gathered copy, or ``Σactive·n·B`` for the dense fallback (JAX
+    block_cd.py:1138-1163)."""
     nb, B = prob.lamw.shape
     C = nc * B
     dt = st.beta.dtype
@@ -719,11 +734,15 @@ def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     reuse = cache.ok and covered
     use = (reuse or room) and st.it < 2 * opts.compact_rounds
     if not use:
+        if xc is not None:
+            xc.add_blocks(st.active, prob.y.shape[0] * B)
         st2, maxh = _active_pass(kind, prob, st, lam0, n_scale,
                                  opts.randomize, opts)
         return st2, maxh, cache
 
     if not reuse:
+        if xc is not None:
+            xc.add(C * prob.y.shape[0])
         big = torch.finfo(dt).max / 8
         pri = torch.where(st.beta != 0, torch.full_like(habs, big), habs)
         pri = torch.where(prob.valid, pri, torch.full_like(habs, -math.inf))
@@ -749,8 +768,8 @@ def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
         active=torch.any(beta_ws != 0, dim=1), key=st.key, it=0, conv=True,
         done=False, c=st.c[bi, li].reshape(nc, B),
         drift=torch.amax(st.drift[bi].reshape(nc, B), dim=1))
-    sub = _solve_at_lambda(kind, opts.replace(compact=False), sub_prob, lam0,
-                           sub_st, n_scale)
+    sub, _ = _solve_at_lambda_ws(kind, opts.replace(compact=False), sub_prob,
+                                 lam0, sub_st, n_scale, None, xc=xc)
     beta2 = st.beta.clone()
     beta2[bi, li] = sub.beta.reshape(-1)
     dnorm = torch.sqrt(torch.sum((sub.r - st.r) ** 2))
@@ -764,14 +783,49 @@ def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
 # ---------------------------------------------------------------------------
 
 
+class XCount:
+    """The design elements a solve reads (``count_x``; the production
+    X-traffic accounting of ``utils/profiling.py::solve_x_traffic``),
+    counted by the JAX engine's rules: a full check reads ``n·B`` for each
+    refreshed block, a dense active pass ``Σactive·n·B``, a compaction
+    round ``C·n`` on a gather that is not a reuse plus its inner solve's
+    own reads, and the quad kind is not counted.
+
+    The counts are exact integers: a host ``int`` for what the host holds
+    already (a check's ``n_need``, a round's reuse decision) and an int64
+    device accumulator for the dense passes' ``Σactive``, read once by
+    :meth:`total`, so counting adds no host read per epoch.  The JAX engine
+    accumulates in float32 (block_cd.py:778, :879, :1261), exact only below
+    2^24 elements: at small shapes the two agree exactly; at the bench
+    shape (``n·B`` = 1.28M elements a block) a difference is the
+    reference's rounding."""
+
+    def __init__(self):
+        self.host = 0
+        self.dev = None
+
+    def add(self, elements: int):
+        self.host += elements
+
+    def add_blocks(self, active, elements_per_block: int):
+        """Add ``Σactive·elements_per_block`` on the device."""
+        s = torch.sum(active) * elements_per_block
+        self.dev = s if self.dev is None else self.dev + s
+
+    def total(self) -> int:
+        """The count so far (one host read when a dense pass ran)."""
+        return self.host + (0 if self.dev is None else host.item(self.dev))
+
+
 def _solve_at_lambda_ws(kind, opts: CDOptions, prob: BlockedProblem, lam0,
-                        st: CDState, n_scale, cache):
+                        st: CDState, n_scale, cache, *, xc=None):
     """Alternate full checks and active (or compaction) passes until two
     consecutive converged passes, the confirming one full; a stall
     detector (sub-f64 dtypes only) stops a solve whose certified maxH has
     not improved for ``stall_patience`` full checks.  ``cache`` is the
     working-set cache carried across warm-started solves; returns
-    ``(state, cache)``."""
+    ``(state, cache)``.  ``xc`` (an :class:`XCount` or ``None``) counts the
+    design elements the solve reads."""
     dtype = st.beta.dtype
     # maxh and tol compare in the working dtype, as in the JAX engine
     tol = float(_np_dtype(dtype).type(opts.opt_tol))
@@ -790,11 +844,14 @@ def _solve_at_lambda_ws(kind, opts: CDOptions, prob: BlockedProblem, lam0,
         was_full = st.conv
         if was_full:
             s2, maxh = _full_check(kind, prob, st, lam0, n_scale,
-                                   opts.opt_tol, opts)
+                                   opts.opt_tol, opts, xc=xc)
         elif nc:
             s2, maxh, cache = _compact_pass(kind, prob, st, lam0, n_scale,
-                                            opts, nc, cache)
+                                            opts, nc, cache, xc=xc)
         else:
+            if xc is not None:
+                xc.add_blocks(st.active,
+                              prob.y.shape[0] * prob.lamw.shape[1])
             s2, maxh = _active_pass(kind, prob, st, lam0, n_scale,
                                     opts.randomize, opts)
         if isinstance(maxh, torch.Tensor):
@@ -806,12 +863,6 @@ def _solve_at_lambda_ws(kind, opts: CDOptions, prob: BlockedProblem, lam0,
         done = (was_full and conv) or stall >= patience
         st = s2._replace(it=st.it + 1, conv=conv, done=done)
     return st, cache
-
-
-def _solve_at_lambda(kind, opts: CDOptions, prob: BlockedProblem, lam0,
-                     st: CDState, n_scale) -> CDState:
-    """Single solve (no working-set cache carried across calls)."""
-    return _solve_at_lambda_ws(kind, opts, prob, lam0, st, n_scale, None)[0]
 
 
 def _init_state(kind, prob: BlockedProblem, beta_b, key) -> CDState:
@@ -848,14 +899,22 @@ def _lambda_max(kind, prob: BlockedProblem, st: CDState, n_scale,
 
 
 def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
-                  beta0_b, key) -> CDState:
+                  beta0_b, key, count_x: bool = False):
     """Warm start from ``beta0`` or zero-start with log-spaced
-    λ-continuation from λmax to ``lam0``."""
+    λ-continuation from λmax to ``lam0``.  Returns the final state, or
+    with ``count_x=True`` ``(state, design elements read)``: the
+    continuation's solves summed (not ``λmax``'s sweep, as in the JAX
+    engine), one host read at the end of the solve (:class:`XCount`)."""
     dtype = beta0_b.dtype
     n_scale = 1.0 if kind == "quad" else float(prob.y.shape[0])
+    if count_x and kind == "quad":
+        raise ValueError("count_x unsupported for the quad kind")
+    xc = XCount() if count_x else None
     if opts.warm_start:
         st = _init_state(kind, prob, beta0_b, key)
-        return _solve_at_lambda(kind, opts, prob, lam0, st, n_scale)
+        st, _ = _solve_at_lambda_ws(kind, opts, prob, lam0, st, n_scale,
+                                    None, xc=xc)
+        return (st, xc.total()) if count_x else st
 
     st = _init_state(kind, prob, torch.zeros_like(beta0_b), key)
     npdt = _np_dtype(dtype)
@@ -878,9 +937,30 @@ def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
             st = _extrapolate_path_start(st, cache, beta_prev, lam_k,
                                          lam_km1, lam)
         st, cache = _solve_at_lambda_ws(kind, opts, prob, lam, st, n_scale,
-                                        cache)
+                                        cache, xc=xc)
         beta_prev, lam_km1, lam_k = beta_k, lam_k, lam
-    return st
+    return (st, xc.total()) if count_x else st
+
+
+def _path_point(kind, opts: CDOptions, prob: BlockedProblem, st: CDState,
+                cache, lam, n_scale, secant, extrap: bool):
+    """One point of a warm-started path along the penalty level (the λ
+    scan of ``lasso_path``, its resumable form, the scaled Lasso's σ
+    rounds): the secant start from ``secant = (beta_prev, lam_k,
+    lam_km1)`` when ``extrap``, then the solve at ``lam`` carrying the
+    state and the working-set cache; with ``warm_start=False``, zero β and
+    the λ-continuation (visit orders from ``st.key``).  Returns ``(state,
+    cache, secant)``, the secant's support points for the next point."""
+    beta_k = st.beta
+    if not opts.warm_start:
+        st = solve_blocked(kind, opts, prob, lam, torch.zeros_like(st.beta),
+                           st.key)
+    else:
+        if extrap:
+            st = _extrapolate_path_start(st, cache, *secant, lam)
+        st, cache = _solve_at_lambda_ws(kind, opts, prob, lam, st, n_scale,
+                                        cache)
+    return st, cache, (beta_k, lam, secant[1])
 
 
 # ---------------------------------------------------------------------------

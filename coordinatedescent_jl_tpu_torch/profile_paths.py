@@ -56,6 +56,17 @@ and the kernel launch counters.  The batched line adds the refine rounds
 converged and (where the result has one) its support.  The line before
 them gives the card's name and power limit.  Needs a CUDA GPU.
 
+    python -m coordinatedescent_jl_tpu_torch.profile_paths --obs
+
+profiles instead the runs of ``chip_smoke.py`` 4k (profiling and
+checkpointing, ``utils/``): on the bench problem, ``resumable``
+(``lasso_path_resumable`` over the 100 points, ``checkpoint_every=1``,
+its file under ``build/``), ``x_traffic`` (``solve_x_traffic`` at
+0.05·λmax·(1 + 2e-7), default options: three solves), ``epoch_trace``
+(``solve_with_trace`` at that level), ``sigma_trace``
+(``scaled_lasso_with_trace`` at sqrt(2 ln p / n)·(1 + 1e-7)); then, on
+the group problem, ``group_trace`` (``group_solve_with_trace``).
+
     python -m coordinatedescent_jl_tpu_torch.profile_paths --trace-probe 1500
 
 counts instead how many of that many one-call traces (:func:`trace_one_call`
@@ -388,6 +399,41 @@ def vc_main():
              traced)
 
 
+def obs_main():
+    """The ``--obs`` runs (see the module docstring)."""
+    import os
+
+    import coordinatedescent_jl_tpu_torch as tcd
+
+    bp = bench_problem(torch.device("cuda", 0))
+    X, y, lams, opts = bp.X, bp.y, bp.lams, bp.opts
+    n, p = X.shape
+    lam_t = float(lams[-1]) * (1.0 + 2e-7)
+    lam_sc = math.sqrt(2 * math.log(p) / n) * (1.0 + 1e-7)
+    ck = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build", "profile_checkpoint.npz")
+
+    def resumable():
+        if os.path.exists(ck):
+            os.remove(ck)
+        tcd.lasso_path_resumable(X, y, lams, ck, options=opts,
+                                 standardize_X=False, checkpoint_every=1)
+
+    for name, fn in (
+            ("resumable", resumable),
+            ("x_traffic", lambda: tcd.solve_x_traffic(X, y, lam_t)),
+            ("epoch_trace", lambda: tcd.solve_with_trace(X, y, lam_t)),
+            ("sigma_trace", lambda: tcd.scaled_lasso_with_trace(X, y,
+                                                                lam_sc))):
+        _run(name, fn)
+    os.remove(ck)
+    del X, y, bp
+    torch.cuda.empty_cache()
+    gp = group_bench_problem(torch.device("cuda", 0))
+    _run("group_trace", lambda: tcd.group_solve_with_trace(
+        gp.X, gp.y, gp.lam * (1.0 + 1e-7), gp.G, options=gp.opts))
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_paths: needs a CUDA GPU", file=sys.stderr)
@@ -403,6 +449,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:2] == ["--vc"]:
         return vc_main()
+    if sys.argv[1:2] == ["--obs"]:
+        return obs_main()
     bp = bench_problem(torch.device("cuda", 0))
     X, y, lams, opts = bp.X, bp.y, bp.lams, bp.opts
     lam_end = float(lams[-1])

@@ -787,3 +787,100 @@ def test_locpolyl1_on_the_card(dev):
     assert st["used_batched"] and st["batched_certified"]
     assert mismatch(ob, ok_) == 0
     assert bool(torch.isfinite(rb).all()) and ob.is_cuda
+
+
+def _resume_problem(dev, n=500, p=2048, s=12, seed=21):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, p))
+    beta = np.zeros(p)
+    beta[rng.choice(p, s, replace=False)] = rng.standard_normal(s)
+    y = X @ beta + 0.3 * rng.standard_normal(n)
+    return (torch.as_tensor(X, dtype=torch.float32, device=dev),
+            torch.as_tensor(y, dtype=torch.float32, device=dev))
+
+
+def test_resume_bitwise_with_compaction_on_the_card(dev, tmp_path):
+    """An interrupted and resumed randomized path with compaction and the
+    secant start is bit for bit the uninterrupted one on the card: every
+    kernel adds in a fixed order."""
+    from coordinatedescent_jl_tpu_torch import (
+        lasso_path_resumable, load_checkpoint, save_checkpoint)
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        launch_counts, reset_launch_counts)
+
+    X, y = _resume_problem(dev)
+    lmax = float(torch.max(torch.abs(y @ X)) / X.shape[0])
+    lams = lmax * np.logspace(-0.3, -1.3, 12)
+    opts = CDOptions(block_size=64, compact=True, compact_size=256,
+                     extrapolate=True, randomize=True, opt_tol=1e-6)
+    f1, f2 = str(tmp_path / "full.npz"), str(tmp_path / "inter.npz")
+    reset_launch_counts()
+    full = lasso_path_resumable(X, y, lams, f1, options=opts, seed=5)
+    assert launch_counts()["K1"] and launch_counts()["K3"]
+    lasso_path_resumable(X, y, lams[:5], f2, options=opts, seed=5)
+    ck = load_checkpoint(f2)
+    save_checkpoint(f2, ck._replace(lam_path=np.asarray(lams, np.float32)))
+    res = lasso_path_resumable(X, y, lams, f2, options=opts, seed=5)
+    assert res.beta_path.device == X.device
+    assert torch.equal(res.beta_path, full.beta_path)
+    c1, c2 = load_checkpoint(f1), load_checkpoint(f2)
+    assert c1.ws_idx.shape == (256,)
+    for fld in ("beta_path", "beta_warm", "residuals", "key", "c", "drift",
+                "active", "ws_idx", "ws_ok", "beta_prev", "lam_k",
+                "lam_km1"):
+        assert np.array_equal(getattr(c1, fld), getattr(c2, fld)), fld
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("warm", [True, False])
+def test_count_x_kernels_match_plain_on_the_card(dev, dtype, warm):
+    """The design-read count of a solve with the kernels equals the plain
+    run's (the same refresh decisions: the fused check's masks are the
+    plain formulas bit for bit), and count_x changes no bit of the
+    kernels' solve.  K1 takes its exact inner: the plain path's active
+    pass is the exact scan (as in the JAX package), and K1's FISTA inner,
+    float32's default, is another algorithm with other refreshes."""
+    X, y = _resume_problem(dev, seed=22)
+    X, y = X.to(dtype), y.to(dtype)
+    lam = 0.1 * float(torch.max(torch.abs(y @ X)) / X.shape[0])
+    opts = CDOptions(block_size=64, compact=True, compact_size=256,
+                     randomize=False, opt_tol=1e-6, warm_start=warm,
+                     num_steps=5, inner="exact")
+
+    def solve(o, count):
+        prob = block_cd.build_blocked("ls", o, torch.ones(X.shape[1],
+                                                          dtype=dtype,
+                                                          device=dev),
+                                      X=X, y=y)
+        return block_cd.solve_blocked(
+            "ls", o, prob, lam, torch.zeros_like(prob.lamw),
+            torch.Generator().manual_seed(0), count_x=count)
+
+    st_k, xe_k = solve(opts, True)
+    st_p, xe_p = solve(opts.replace(use_pallas=False), True)
+    assert xe_k == xe_p and st_k.it == st_p.it
+    assert torch.equal(solve(opts, False).beta, st_k.beta)
+
+
+def test_debug_nans_catches_kernel_nans(dev):
+    """A NaN in r comes out of K5 and out of K1 as a FloatingPointError
+    while debug_nans is on; off, the same calls return NaN."""
+    from coordinatedescent_jl_tpu_torch import debug_nans
+    from coordinatedescent_jl_tpu_torch.kernels import _build
+
+    prob, st = _problem(dev, torch.float32)
+    nb, B = prob.lamw.shape
+    r = st.r.clone()
+    r[5] = float("nan")
+    order = (torch.arange(nb, device=dev), torch.arange(B, device=dev))
+    calls = (lambda: gradient_sweep.fused_gradient_sweep(prob.Xwb, r),
+             lambda: active_pass.fused_active_pass(
+                 prob, st.beta, r, torch.ones(nb, dtype=torch.bool,
+                                              device=dev), 0.05,
+                 float(r.shape[0]), *order, inner="ista"))
+    for call in calls:
+        with debug_nans(), pytest.raises(FloatingPointError):
+            call()
+        assert not _build.NAN_CHECK
+    assert torch.isnan(calls[0]()).any()
+    assert torch.isnan(calls[1]()[1]).any()      # the residual K1 returns

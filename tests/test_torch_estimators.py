@@ -166,15 +166,19 @@ def test_sqrt_lasso_kkt():
 
 
 def _count_solves(monkeypatch):
-    """Count the port's outer rounds: its solver calls at the top level."""
+    """Count the port's outer rounds: its solver calls at the top level
+    (the scaled Lasso's rounds are path points, the feasible Lasso's
+    solves)."""
     calls = {"n": 0}
-    inner = tlasso._solve_at_lambda_ws
 
-    def counted(*a, **k):
-        calls["n"] += 1
-        return inner(*a, **k)
+    def counted(inner):
+        def call(*a, **k):
+            calls["n"] += 1
+            return inner(*a, **k)
+        return call
 
-    monkeypatch.setattr(tlasso, "_solve_at_lambda_ws", counted)
+    for name in ("_path_point", "_solve_at_lambda_ws"):
+        monkeypatch.setattr(tlasso, name, counted(getattr(tlasso, name)))
     return calls
 
 
