@@ -101,6 +101,22 @@ Phases, each failing loudly (exit code 1, no result line):
       group support, K5 launched); ``debug_nans`` at n = 2,000, p = 4,096
       (a NaN in r raises out of K5 and out of K1, a clean ``lasso``
       passes, the mode is off afterwards).
+   l. the multi-device tiers (``parallel/``): (a) a world of one rank on
+      NCCL (a ``HashStore``) on the bench problem: ``lasso_sharded`` at
+      4c's level (4c's support, no coordinate 1e-4 from 4c's, relative gap
+      <= 1e-5), ``lasso_path_sharded`` scan and batched (certified) in
+      4a's supports, ``sqrt_lasso_sharded`` / ``scaled_lasso_sharded`` (σ
+      within 1e-6 relative of 4e's) / ``feasible_lasso_sharded`` in 4d /
+      4f's supports, ``lasso_sharded_with_trace`` in 4c's support,
+      ``lasso_path_resumable_sharded`` over 20 points interrupted at 10 and
+      resumed bit for bit; inside h, ``group_lasso_sharded`` with h's group
+      support; each launches K1 (in its form) and K5, the f32 ls runs K3
+      and K4, the group run K5 only; (b) two Gloo ranks spawned on this
+      card (time-sliced: no scaling), at p = 20,000: ``lasso_sharded``, a
+      20-point ``lasso_path_sharded`` and ``lasso_row_sharded`` in the
+      world of one's supports, ``lasso_lambda_batch`` at 4 λ within 1e-6
+      of the single-device ``lasso``, every rank's result the same, K1 and
+      K5 launched in each rank; a rank that fails fails the phase.
    Every kernel must have launched in the runs that drive it.  (The plain
    runs repeat the kernels' arithmetic in eager PyTorch and are no
    yardstick of speed; 4a's plain scan is the longest of them.)
@@ -212,6 +228,55 @@ def support_mismatch(a, b, tol):
 
     differ = (a != 0) != (b != 0)
     return int((differ & (torch.maximum(a.abs(), b.abs()) > tol)).sum())
+
+
+WORLD_B_P = 20_000
+
+
+def _world_b_rank(p, lam, lam_row, lams, lams4):
+    """One rank of 4l's world (b): the bench problem at ``p`` columns made
+    on cuda:0 from seed 0 (the same bits in every rank), then
+    ``lasso_sharded``, a 20-point ``lasso_path_sharded``,
+    ``lasso_row_sharded`` and ``lasso_lambda_batch`` over two ranks; the
+    results, the wall times and each run's kernel launch counts (reset
+    before it, read after it)."""
+    import torch
+    from coordinatedescent_jl_tpu_torch.parallel import (
+        distributed as pdist, lasso_lambda_batch, lasso_path_sharded,
+        lasso_row_sharded, lasso_sharded)
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        bench_problem, launch_counts, reset_launch_counts)
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    bp = bench_problem(dev, p=p, seed=0)
+    fmesh = pdist.feature_mesh()
+    out, times, launches = {}, {}, {}
+    runs = (
+        ("lasso", lambda: lasso_sharded(bp.X, bp.y, lam, fmesh,
+                                        options=bp.opts, device=dev).x),
+        ("path", lambda: lasso_path_sharded(
+            bp.X, bp.y, lams, fmesh, options=bp.opts, standardize_X=False,
+            path_batch=0, device=dev).beta_path),
+        ("row", lambda: lasso_row_sharded(bp.X, bp.y, lam_row,
+                                          pdist.obs_mesh(), options=bp.opts,
+                                          device=dev).x),
+        ("batch", lambda: lasso_lambda_batch(
+            bp.X, bp.y, lams4, pdist.make_mesh((2,), ("batch",)),
+            options=bp.opts, device=dev)))
+    for name, fn in runs:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = fn().cpu().numpy()
+        times[name] = round(time.perf_counter() - t0, 3)
+        launches[name] = launch_counts()
+    out["times"] = times
+    out["launches"] = launches
+    # the union round's psum of the replicated (C, n) working set
+    out["union_bytes"] = bp.opts.compact_size * bp.X.shape[0] * 4
+    return out
 
 
 def main():
@@ -1026,6 +1091,7 @@ def main():
     kkt_chk, _ = tcd.sqrt_lasso_kkt_compensated(X, y, res_d.beta, lam_d)
     if not kkt_chk <= 1.1e-7:
         fail(f"the recomputed sqrt certificate is {kkt_chk:.3e} > 1.1e-7")
+    x_d = sol_d.x                        # held against 4l's sqrt solve
     del sol_d, sol_dp, res_d
     torch.cuda.empty_cache()
 
@@ -1081,6 +1147,7 @@ def main():
         f"{res_f.converged}; launches {launches}")
     if not (res_f.converged and res_f.rel_gap <= 1e-7):
         fail("feasible polish did not reach its 1e-7 fixed point")
+    x_f = sol_f.x                        # held against 4l's feasible solve
     del sol_f, res_f
     torch.cuda.empty_cache()
 
@@ -1297,7 +1364,7 @@ def main():
         f"launches {launches_sk}")
     if not rel_sig <= 1e-6:
         fail("scaled_lasso_with_trace: sigma apart from scaled_lasso's")
-    del sol_k, b_tr, x_c
+    del sol_k, b_tr
 
     # debug_nans at a small shape: a NaN in r raises out of K5 and out of K1;
     # a clean lasso passes; the mode is off afterwards
@@ -1334,8 +1401,185 @@ def main():
     log(f"phase 4k (h's group trace apart): "
         f"{time.perf_counter() - t_4k:.1f} s")
 
-    del loss_g, beta_g, beta_gp, w_g, beta0, X, y, support, beta_true
+    # 4l. the multi-device tiers (parallel/): (a) a world of one rank on
+    # NCCL at full width, each run in 4a-4f's supports; (b) two Gloo ranks
+    # spawned on this one card (time-sliced: a correctness check, not a
+    # scaling measurement)
+    del loss_g, beta_g, beta_gp, w_g, beta0
     torch.cuda.empty_cache()
+    t_4l = time.perf_counter()
+    import torch.distributed as dist
+    from coordinatedescent_jl_tpu_torch import parallel as par
+    from coordinatedescent_jl_tpu_torch.parallel import distributed as pdist
+
+    pdist.initialize_distributed(backend="nccl", store=dist.HashStore(),
+                                 num_processes=1, process_id=0, timeout=600)
+    fmesh = pdist.feature_mesh()
+    # NCCL makes its communicator at the first collective: not in a run's time
+    dist.all_reduce(torch.zeros(1, device=dev),
+                    group=fmesh.get_group("feature"))
+    l_times = {}
+
+    def run_l(name, fn, need, never=()):
+        reset_counts()
+        out, t = wall(fn)
+        launches = counts()
+        require_launches(name, launches, need, never)
+        add(launches)
+        l_times[name] = t
+        log(f"4l(a) {name}: {t:.3f} s on {card}; launches {launches}; host "
+            f"reads {host.COUNTS['host_reads']} over "
+            f"{host.COUNTS['epochs']} epochs")
+        return out
+
+    def in_support(name, a, b, tol=supp_tol):
+        bad = support_mismatch(a, b, tol)
+        d = maxdiff(a, b)
+        log(f"4l {name}: supports {int((a != 0).sum())} vs "
+            f"{int((b != 0).sum())}, differing above {tol:g}: {bad}, max "
+            f"|diff| {d:.3e}")
+        if bad or tuple(a.shape) != tuple(b.shape):
+            fail(f"4l {name}: another support than the single-device run's")
+        return d
+
+    k_ls = ("K1", "K3", "K4", "K5")
+    sol_l = run_l("lasso_sharded", lambda: par.lasso_sharded(X, y, lam_t,
+                                                             fmesh), k_ls)
+    d = in_support("(a) lasso_sharded vs 4c", sol_l.x, x_c)
+    gap_l, primal_l = tcd.lasso_duality_gap_f64(X, y, sol_l.x, lam_t)
+    log(f"4l(a) lasso_sharded: rel gap {gap_l / primal_l:.3e} (tol 1e-5)")
+    if not (d <= 1e-4 and gap_l / primal_l <= 1e-5):
+        fail("4l lasso_sharded: a coordinate 1e-4 from 4c's or gap > 1e-5")
+    del sol_l
+    path_l = run_l("lasso_path_sharded (scan)", lambda: par.lasso_path_sharded(
+        X, y, lams, fmesh, options=opts, standardize_X=False, path_batch=0),
+        k_ls)
+    in_support("(a) path scan vs 4a", path_l.beta_path, scan_betas)
+    del path_l
+    st_l = {}
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        path_l = run_l("lasso_path_sharded (batched)",
+                       lambda: par.lasso_path_sharded(
+                           X, y, lams, fmesh, options=opts,
+                           standardize_X=False, path_batch=128,
+                           coarse_stride=L - 1, stats=st_l), k_ls)
+    fell = [str(w.message) for w in wl
+            if issubclass(w.category, RuntimeWarning)]
+    log(f"4l(a) batched path stats {st_l}")
+    if fell or not st_l.get("batched_certified"):
+        fail(f"4l: the sharded batched path fell back: {st_l} {fell}")
+    in_support("(a) path batched vs 4a", path_l.beta_path, scan_betas)
+    del path_l
+    sol_l = run_l("sqrt_lasso_sharded", lambda: par.sqrt_lasso_sharded(
+        X, y, lam_d, fmesh, options=opts_sq), ("K1sqrt", "K5"),
+        never=("K3", "K4"))
+    in_support("(a) sqrt_lasso_sharded vs 4d", sol_l.x, x_d)
+    sol_l = run_l("scaled_lasso_sharded", lambda: par.scaled_lasso_sharded(
+        X, y, lam_sc * (1.0 + 1e-7), fmesh), k_ls)
+    rel_s = abs(float(sol_l.sigma) - sigma_e) / sigma_e
+    log(f"4l(a) scaled_lasso_sharded: sigma {float(sol_l.sigma):.6f} vs 4e's "
+        f"{sigma_e:.6f}: relative {rel_s:.3e} (tol 1e-6)")
+    if not rel_s <= 1e-6:
+        fail("4l scaled_lasso_sharded: sigma more than 1e-6 from 4e's")
+    sol_l = run_l("feasible_lasso_sharded", lambda: par.feasible_lasso_sharded(
+        X, y, lam_sc * (1.0 + 1e-7), fmesh), k_ls)
+    in_support("(a) feasible_lasso_sharded vs 4f", sol_l.x, x_f)
+    b_tr, tr_l = run_l("lasso_sharded_with_trace",
+                       lambda: tcd.lasso_sharded_with_trace(X, y, lam_t,
+                                                            fmesh), k_ls)
+    log(f"4l(a) trace: {len(tr_l.max_h)} epochs, last max_h "
+        f"{tr_l.max_h[-1]:.3e}, last gap {tr_l.certificate[-1]:.3e}")
+    in_support("(a) trace vs 4c", b_tr, x_c)
+    del sol_l, b_tr
+    # the resumable sharded path: 20 points, interrupted at 10, resumed
+    os.makedirs(ck_dir, exist_ok=True)
+    lams20 = lams[:20]
+    p_full = run_l("lasso_path_resumable_sharded (20 points)",
+                   lambda: tcd.lasso_path_resumable_sharded(
+                       X, y, lams20, ck_file("sh_full.npz"), fmesh,
+                       options=opts, standardize_X=False), k_ls)
+    tcd.lasso_path_resumable_sharded(X, y, lams20[:10], ck_file("sh_int.npz"),
+                                     fmesh, options=opts, standardize_X=False)
+    ck_i = tcd.load_sharded_checkpoint(ck_file("sh_int.npz"))
+    tcd.save_sharded_checkpoint(ck_file("sh_int.npz"), ck_i._replace(
+        lam_path=np.asarray(lams20, ck_i.lam_path.dtype)))
+    p_res, t_r = wall(lambda: tcd.lasso_path_resumable_sharded(
+        X, y, lams20, ck_file("sh_int.npz"), fmesh, options=opts,
+        standardize_X=False))
+    c_f = tcd.load_sharded_checkpoint(ck_file("sh_full.npz"))
+    c_r = tcd.load_sharded_checkpoint(ck_file("sh_int.npz"))
+    differ = [f for f in c_f._fields
+              if not np.array_equal(getattr(c_f, f), getattr(c_r, f))]
+    same_path = torch.equal(p_full.beta_path, p_res.beta_path)
+    log(f"4l(a) resumed half: {t_r:.3f} s on {card}; bitwise {same_path}, "
+        f"checkpoint fields differing {differ}")
+    if not same_path or differ:
+        fail("4l: the resumed sharded path is not the uninterrupted run")
+    in_support("(a) resumable sharded vs 4a", p_full.beta_path,
+               scan_betas[:20])
+    del p_full, p_res
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    # (b) two Gloo ranks on this card, at p = 20,000 (the cut keeps the row
+    # tier's plain per-coordinate visits in the phase's time)
+    del X, y, support, beta_true
+    torch.cuda.empty_cache()
+    bpb = bench_problem(dev, p=WORLD_B_P, seed=0)
+    lam_b = 0.05 * bpb.lammax
+    lam_row = 0.2 * bpb.lammax
+    lams_b = [float(v) for v in bpb.lams[:20]]
+    lams4 = [float(v) for v in bpb.lams[::33]]
+    omesh = pdist.obs_mesh()
+    ref_b = dict(
+        lasso=par.lasso_sharded(bpb.X, bpb.y, lam_b, fmesh,
+                                options=bpb.opts).x,
+        path=par.lasso_path_sharded(bpb.X, bpb.y, lams_b, fmesh,
+                                    options=bpb.opts, standardize_X=False,
+                                    path_batch=0).beta_path,
+        row=par.lasso_row_sharded(bpb.X, bpb.y, lam_row, omesh,
+                                  options=bpb.opts).x,
+        batch=torch.stack([tcd.lasso(bpb.X, bpb.y, v, options=bpb.opts).x
+                           for v in lams4]))
+    del bpb
+    torch.cuda.empty_cache()
+    try:
+        (ranks, t_b) = wall(lambda: pdist.World(
+            _world_b_rank, 2, (WORLD_B_P, lam_b, lam_row, lams_b, lams4),
+            backend="gloo", timeout=600).wait())
+    except (OSError, RuntimeError) as e:
+        fail(f"4l(b): a rank of the two-rank world failed: {e}")
+    for name in ("lasso", "path", "row", "batch"):
+        for r, out in enumerate(ranks):
+            got = torch.as_tensor(out[name]).to(dev)
+            if not torch.equal(got, torch.as_tensor(ranks[0][name]).to(dev)):
+                fail(f"4l(b) {name}: rank {r}'s result is not rank 0's")
+        in_support(f"(b) {name} vs the world of one",
+                   torch.as_tensor(ranks[0][name]).to(dev), ref_b[name])
+    d_batch = maxdiff(torch.as_tensor(ranks[0]["batch"]).to(dev),
+                      ref_b["batch"])
+    log(f"4l(b) lasso_lambda_batch vs single-device lasso at 4 values: max "
+        f"|diff| {d_batch:.3e} (tol 1e-6)")
+    if not d_batch <= 1e-6:
+        fail("4l(b): lasso_lambda_batch is not the single-device lasso")
+    # the kernels each run must launch in every rank: the feature-sharded
+    # runs K1 and K5, the row tier K5 (its local gradient), the λ batch K1
+    need_b = dict(lasso=("K1", "K5"), path=("K1", "K5"), row=("K5",),
+                  batch=("K1",))
+    for r, out in enumerate(ranks):
+        log(f"4l(b) rank {r} on {card}: times {out['times']}; launches "
+            f"{out['launches']}; union all-reduce bytes (the (C, n) set) "
+            f"{out['union_bytes']}")
+        for name, keys in need_b.items():
+            missing = [k for k in keys if not out["launches"][name][k]]
+            if missing:
+                fail(f"4l(b) rank {r} {name}: {missing} not launched")
+            add(out["launches"][name])
+    log(f"4l(b): two Gloo ranks on {card}: {t_b:.1f} s wall (spawn "
+        f"included)")
+    dist.destroy_process_group()
+    log(f"phase 4l (h's group run apart) on {card}: "
+        f"{time.perf_counter() - t_4l:.1f} s; times {l_times}")
 
     # 4h. the group Lasso (bench.py:613-672): warm solves at
     # lam (1 + 1e-7 rep), the faster of two, then the plain run and the
@@ -1396,6 +1640,25 @@ def main():
         fail("group_solve_with_trace: another group support than "
              "group_lasso's")
     del b_gt
+    # 4l, inside 4h: the sharded group Lasso on a world of one (NCCL)
+    pdist.initialize_distributed(backend="nccl", store=dist.HashStore(),
+                                 num_processes=1, process_id=0, timeout=600)
+    reset_counts()
+    sol_gl, t_gl = wall(lambda: par.group_lasso_sharded(
+        Xg, yg, lam_h, Gg, pdist.feature_mesh(), options=gp.opts))
+    launches_gl = counts()
+    require_launches("group_lasso_sharded", launches_gl, ("K5",),
+                     never=[k for k in launches_gl if k != "K5"])
+    add(launches_gl)
+    grp_l = torch.nonzero(torch.any(sol_gl.x.reshape(-1, Gg) != 0,
+                                    dim=1)).flatten()
+    log(f"4l(a) group_lasso_sharded: {t_gl:.4f} s on {card}; groups "
+        f"{grp_l.numel()} vs group_lasso's {grp.numel()}, max |diff| "
+        f"{maxdiff(sol_gl.x, sol_h.x):.3e}; launches {launches_gl}")
+    dist.destroy_process_group()
+    if not torch.equal(grp_l, grp):
+        fail("4l group_lasso_sharded: another group support than 4h's")
+    del sol_gl
     tcd.polish_group_lasso(Xg, yg, sol_h.x, gp.lam, Gg)          # warm-up
     reset_counts()
     res_h, t_hpol = wall(lambda: tcd.polish_group_lasso(Xg, yg, sol_h.x,

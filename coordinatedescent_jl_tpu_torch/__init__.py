@@ -21,9 +21,14 @@ wls form, K3/K4 and K5.  Profiling (``utils/profiling.py``: timing,
 per-epoch and per-σ-round traces, the X-traffic report, K1's roofline
 against the card's measured peak, NaN debugging) and checkpointing
 (``utils/checkpoint.py``: the resumable λ path, whose resume is bit for
-bit the uninterrupted run) are ported in their single-device halves; the
-multi-device tiers are not ported yet.  The entry
-points run on the GPU unless the caller passes ``device="cpu"``.  The
+bit the uninterrupted run) are ported with their sharded halves
+(``lasso_sharded_with_trace``, ``lasso_path_resumable_sharded``).  The
+multi-device tiers (``parallel/``: the feature-sharded engine with its
+path, scaled, feasible, group and symmetric drivers, the row and tile
+tiers, the scenario batches, meshes and sharded ingestion) run on
+``torch.distributed``, every rank of a mesh calling an entry point with
+the same arguments.  The entry points run on the GPU unless the caller
+passes ``device="cpu"`` (a sharded entry point on ``cuda:<LOCAL_RANK>``).  The
 kernels are built with ``nvcc`` at first use on the machine with the GPU;
 importing the package needs no GPU, no ``nvcc`` and no JAX.
 """
@@ -54,11 +59,15 @@ from .models.varying_coefficient import (
     get_nonzero_coordinates, get_residuals, get_standard_error,
     get_standard_error_hew, locpoly, locpolyl1, lvocv_locpoly,
     lvocv_locpolyl1, refit_locpolyl1, sparse_coefficients, split_locpoly)
-from .utils.checkpoint import (PathCheckpoint, lasso_path_resumable,
-                               load_checkpoint, save_checkpoint)
+from .utils.checkpoint import (PathCheckpoint, ShardedPathCheckpoint,
+                               lasso_path_resumable,
+                               lasso_path_resumable_sharded, load_checkpoint,
+                               load_sharded_checkpoint, save_checkpoint,
+                               save_sharded_checkpoint)
 from .utils.profiling import (EpochTrace, RooflineReport, SigmaRoundTrace,
                               XTrafficReport, debug_nans,
-                              group_solve_with_trace, pass_roofline,
+                              group_solve_with_trace,
+                              lasso_sharded_with_trace, pass_roofline,
                               pass_roofline_multi, scaled_lasso_with_trace,
                               simple_timeit, solve_with_trace,
                               solve_x_traffic)
@@ -96,6 +105,9 @@ __all__ = [
     "RooflineReport", "XTrafficReport", "simple_timeit", "solve_with_trace",
     "scaled_lasso_with_trace", "group_solve_with_trace", "pass_roofline",
     "pass_roofline_multi", "solve_x_traffic", "debug_nans",
+    "ShardedPathCheckpoint", "save_sharded_checkpoint",
+    "load_sharded_checkpoint", "lasso_path_resumable_sharded",
+    "lasso_sharded_with_trace",
 ]
 
 __version__ = "0.1.0"

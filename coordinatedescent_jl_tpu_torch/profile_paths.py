@@ -67,6 +67,18 @@ its file under ``build/``), ``x_traffic`` (``solve_x_traffic`` at
 (``scaled_lasso_with_trace`` at sqrt(2 ln p / n)·(1 + 1e-7)); then, on
 the group problem, ``group_trace`` (``group_solve_with_trace``).
 
+    python -m coordinatedescent_jl_tpu_torch.profile_paths --par
+
+profiles instead the runs of ``chip_smoke.py`` 4l(a) (the multi-device
+tiers, ``parallel/``) on a world of one rank (NCCL over a ``HashStore``):
+on the bench problem ``par_lasso`` (``lasso_sharded`` at 0.05·λmax·(1 +
+2e-7)), ``par_scan`` and ``par_batched`` (``lasso_path_sharded``, the scan
+and ``path_batch=128, coarse_stride=99``), ``par_sqrt``, ``par_scaled``,
+``par_feasible`` (the levels and options of ``sqrt``, ``scaled`` and
+``feasible`` above), ``par_trace`` (``lasso_sharded_with_trace`` at
+0.05·λmax·(1 + 2e-7)); then ``par_group`` (``group_lasso_sharded`` on the
+group problem).
+
     python -m coordinatedescent_jl_tpu_torch.profile_paths --trace-probe 1500
 
 counts instead how many of that many one-call traces (:func:`trace_one_call`
@@ -434,6 +446,56 @@ def obs_main():
         gp.X, gp.y, gp.lam * (1.0 + 1e-7), gp.G, options=gp.opts))
 
 
+def par_main():
+    """The ``--par`` runs (see the module docstring)."""
+    import torch.distributed as dist
+
+    import coordinatedescent_jl_tpu_torch as tcd
+    from . import parallel as par
+    from .parallel import distributed as pdist
+
+    pdist.initialize_distributed(backend="nccl", store=dist.HashStore(),
+                                 num_processes=1, process_id=0, timeout=600)
+    mesh = pdist.feature_mesh()
+    bp = bench_problem(torch.device("cuda", 0))
+    X, y, lams, opts = bp.X, bp.y, bp.lams, bp.opts
+    n, p = X.shape
+    lam_t = float(lams[-1]) * (1.0 + 2e-7)
+    lam_sc = math.sqrt(2 * math.log(p) / n) * (1.0 + 1e-7)
+    lam_sq = 1.1 * math.sqrt(2 * math.log(p))
+    opts_sq = CDOptions(opt_tol=1e-6, max_iter=300, randomize=False,
+                        block_size=128)
+    stats = {}
+
+    def batched():
+        stats.clear()
+        par.lasso_path_sharded(X, y, lams, mesh, options=opts,
+                               standardize_X=False, path_batch=128,
+                               coarse_stride=len(lams) - 1, stats=stats)
+
+    for name, fn in (
+            ("par_lasso", lambda: par.lasso_sharded(X, y, lam_t, mesh)),
+            ("par_scan", lambda: par.lasso_path_sharded(
+                X, y, lams, mesh, options=opts, standardize_X=False,
+                path_batch=0)),
+            ("par_batched", batched),
+            ("par_sqrt", lambda: par.sqrt_lasso_sharded(X, y, lam_sq, mesh,
+                                                        options=opts_sq)),
+            ("par_scaled", lambda: par.scaled_lasso_sharded(X, y, lam_sc,
+                                                            mesh)),
+            ("par_feasible", lambda: par.feasible_lasso_sharded(X, y, lam_sc,
+                                                                mesh)),
+            ("par_trace", lambda: tcd.lasso_sharded_with_trace(X, y, lam_t,
+                                                               mesh))):
+        _run(name, fn, lambda: {"stats": dict(stats)})
+    del X, y, bp
+    torch.cuda.empty_cache()
+    gp = group_bench_problem(torch.device("cuda", 0))
+    _run("par_group", lambda: par.group_lasso_sharded(
+        gp.X, gp.y, gp.lam * (1.0 + 1e-7), gp.G, mesh, options=gp.opts))
+    dist.destroy_process_group()
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_paths: needs a CUDA GPU", file=sys.stderr)
@@ -451,6 +513,8 @@ def main():
         return vc_main()
     if sys.argv[1:2] == ["--obs"]:
         return obs_main()
+    if sys.argv[1:2] == ["--par"]:
+        return par_main()
     bp = bench_problem(torch.device("cuda", 0))
     X, y, lams, opts = bp.X, bp.y, bp.lams, bp.opts
     lam_end = float(lams[-1])

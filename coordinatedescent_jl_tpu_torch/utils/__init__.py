@@ -5,6 +5,10 @@ from .checkpoint import (
     save_checkpoint,
     load_checkpoint,
     lasso_path_resumable,
+    ShardedPathCheckpoint,
+    save_sharded_checkpoint,
+    load_sharded_checkpoint,
+    lasso_path_resumable_sharded,
 )
 from .profiling import (
     EpochTrace,
@@ -19,6 +23,7 @@ from .profiling import (
     solve_x_traffic,
     XTrafficReport,
     debug_nans,
+    lasso_sharded_with_trace,
     measured_peak_hbm,
     trace,
 )

@@ -3,8 +3,8 @@
 The parity tests feed identical state to both packages: these functions
 take the JAX package's records (``CDOptions``, ``IterLassoOptions``,
 ``BlockedProblem``, ``CDState``, ``WsCache``, ``GroupProblem``,
-``GroupState``, the smoothing kernels) and build the port's, on a
-given device and dtype.  They read the JAX arrays through ``numpy.asarray`` only, so this
+``GroupState``, the smoothing kernels, a sharded path checkpoint) and
+build the port's, on a given device and dtype.  They read the JAX arrays through ``numpy.asarray`` only, so this
 module imports no JAX.
 """
 
@@ -122,3 +122,33 @@ def kernel_from_jax(kernel):
     if name not in kinds:
         raise TypeError(f"unsupported kernel: {type(kernel)!r}")
     return kinds[name](float(np.asarray(kernel.h)))
+
+
+def sharded_checkpoint_from_jax(ck, seed: int = 0):
+    """A JAX ``ShardedPathCheckpoint`` (the record, or the path of the
+    ``.npz`` the JAX package wrote) as the port's: the same fields and
+    mesh shape, ``ws_idx`` as int64; the JAX PRNG key does not carry over,
+    so ``key`` holds fresh generator states seeded from ``(seed, rank)``
+    and, last, the replicated generator's from ``seed`` (a randomized
+    resume then draws other orders than the JAX run would; with
+    ``randomize=False`` the resume follows the JAX trajectory)."""
+    from ..parallel.sharded_cd import rank_generator
+    from .checkpoint import ShardedPathCheckpoint
+
+    if isinstance(ck, str):
+        with np.load(ck) as z:
+            fields = {f: z[f] for f in z.files}
+    else:
+        fields = {f: np.asarray(getattr(ck, f)) for f in ck._fields}
+    D = int(fields["n_shards"])
+    keys = [rank_generator(seed, s).get_state().numpy() for s in range(D)]
+    keys.append(torch.Generator().manual_seed(seed).get_state().numpy())
+    return ShardedPathCheckpoint(
+        lam_path=fields["lam_path"], next_index=int(fields["next_index"]),
+        beta_path=fields["beta_path"], beta_warm=fields["beta_warm"],
+        residuals=fields["residuals"], key=np.stack(keys), c=fields["c"],
+        drift=fields["drift"], active=fields["active"].astype(bool),
+        ws_idx=fields["ws_idx"].astype(np.int64),
+        ws_ok=fields["ws_ok"].astype(bool), beta_prev=fields["beta_prev"],
+        lam_k=float(fields["lam_k"]), lam_km1=float(fields["lam_km1"]),
+        n_shards=D)

@@ -95,11 +95,18 @@ def find_init_residuals(X, y, s: int, w=None):
     correlated columns, through the normal equations with an eps-scaled
     jitter, as the JAX package writes them (both packages then pick the
     same start, also when the top-s columns are collinear)."""
-    idx = find_largest_correlations(X, y, s, w)
-    Xs = X.index_select(1, idx)
+    return ols_residuals(X.index_select(1, find_largest_correlations(
+        X, y, s, w)), y, w)
+
+
+def ols_residuals(Xs, y, w=None):
+    """Residuals of the (weighted) OLS of ``y`` on the columns ``Xs``,
+    through the normal equations with the eps-scaled jitter of
+    :func:`find_init_residuals`."""
+    s = Xs.shape[1]
     A = Xs.T @ Xs if w is None else Xs.T @ (w[:, None] * Xs)
     b = y @ Xs if w is None else (w * y) @ Xs
-    jitter = (10 * torch.finfo(X.dtype).eps * torch.trace(A) / s) * torch.eye(
+    jitter = (10 * torch.finfo(Xs.dtype).eps * torch.trace(A) / s) * torch.eye(
         s, dtype=A.dtype, device=A.device)
     coef = torch.linalg.solve(A + jitter, b)
     return y - Xs @ coef

@@ -1,7 +1,6 @@
 """Observability: timing, convergence traces, roofline and X-traffic
 reports, NaN mode (counterpart of ``coordinatedescent_jl_tpu/utils/
-profiling.py``, its single-device half; ``lasso_sharded_with_trace`` goes
-with the multi-device tiers).
+profiling.py``).
 
 - ``simple_timeit``: median wall seconds of a call, the card synchronised
   when an output lies on it;
@@ -15,7 +14,9 @@ with the multi-device tiers).
 - ``measured_peak_hbm``, ``pass_roofline``, ``pass_roofline_multi``: the
   active-pass kernel K1 against the card's memory rate;
 - ``solve_x_traffic``: the design bytes a production solve reads
-  (``solve_blocked(count_x=True)``).
+  (``solve_blocked(count_x=True)``);
+- ``lasso_sharded_with_trace``: the per-epoch history of a feature-sharded
+  solve (``parallel/sharded_cd.py``), recorded on every rank.
 
 Every entry point runs on ``device`` (``None``: the GPU, raising when
 there is none; ``"cpu"`` for the plain path on the CPU).
@@ -48,8 +49,9 @@ from torch.utils._pytree import tree_leaves
 from ..kernels import _build
 from ..kernels.active_pass import (SMEM_OPTIN_H100, fused_active_pass,
                                    plan_active_pass)
-from ..ops.block_cd import (_active_pass, _compact_mode, _empty_ws_cache,
-                            _full_check, _init_state, _np_dtype,
+from ..ops.block_cd import (_active_pass, _blocks_matvec, _compact_mode,
+                            _empty_ws_cache, _full_check, _init_state,
+                            _np_dtype,
                             _path_point, _to_blocked_beta, _unblock,
                             build_blocked, full_f32_matmuls, solve_blocked)
 from ..ops.diagnostics import lasso_duality_gap
@@ -617,3 +619,84 @@ def solve_x_traffic(X, y, lam, weights=None,
         epochs=it,
         nnz=host.item(torch.sum(beta != 0)),
     )
+
+
+def lasso_sharded_with_trace(X, y, lam, mesh, weights=None, options=None, *,
+                             axis: str = "feature", seed: int = 0,
+                             max_epochs: int = 200, device=None):
+    """Per-epoch trace of a feature-sharded Lasso solve: the sharded
+    engine's full-check / concurrent-active-pass alternation
+    (``parallel/sharded_cd.py``, compaction and the union round included)
+    one epoch at a time, every rank recording the max-reduced maxH, the
+    global nnz and the duality gap of the global iterate (a psum'd penalty
+    and a max-reduced dual scale) in one host read after each epoch.
+    Every rank calls it with the same arguments; returns ``(beta,
+    EpochTrace)``, replicated.  The full epochs run the shard's check with
+    the screen off, as the sharded solve does (K3/K4 and K2/K5 on the card),
+    the active epochs K1."""
+    from ..parallel._collectives import pmax, psum
+    from ..parallel.sharded_cd import (_gather_cols, _own_vec, _setup,
+                                       _sharded_active_pass,
+                                       _sharded_full_check,
+                                       _sharded_init_state, rank_generator)
+
+    if options is None:
+        options = CDOptions()
+    B = options.block_size
+    su = _setup(X, mesh, axis, B, seed, device)
+    sh, dev, dtype, n, p, chunk = su.sh, su.dev, su.dtype, su.n, su.p, su.chunk
+    y = on_device(y, dev, dtype)
+    lamw = (torch.ones((p,), dtype=dtype, device=dev) if weights is None
+            else on_device(weights, dev, dtype))
+    lam = float(_np_dtype(dtype).type(lam))
+    n_scale = float(n)
+    validl = (torch.arange(chunk, device=dev) + sh.s * chunk < p).reshape(
+        -1, B)
+    with full_f32_matmuls():
+        prob = build_blocked("ls", options, _own_vec(lamw, sh, chunk, 1.0),
+                             X=su.Xl, y=y)
+        del su
+        nc = _compact_mode("ls", options, prob, dtype)
+        cache = _empty_ws_cache("ls", prob, nc, options) if nc else None
+        st = _sharded_init_state("ls", prob, torch.zeros_like(prob.lamw),
+                                 rank_generator(seed, sh.s), sh)
+        zero = torch.zeros_like(prob.lamw)
+
+        def step(was_full):
+            nonlocal st, cache
+            if was_full:
+                st, maxh = _sharded_full_check("ls", prob, st, lam, n_scale,
+                                               options.opt_tol, sh, options)
+            else:
+                st, maxh, cache = _sharded_active_pass(
+                    "ls", prob, st, lam, n_scale, options.randomize, sh,
+                    None, options, nc, cache)
+            # a union round reports 0.0 (the confirming check follows)
+            return torch.as_tensor(maxh, dtype=dtype, device=dev)
+
+        def record(maxh):
+            # lasso_duality_gap of the global iterate, from the shards
+            r = y - psum(_blocks_matvec(prob.Xb, st.beta), sh.group)
+            # X_b'r for every block in one batched product, no copy of
+            # the blocked design (an einsum would make one)
+            nb = prob.Xb.shape[0]
+            g = torch.abs(torch.bmm(r.expand(nb, 1, -1), prob.Xb)[:, 0])
+            loc = torch.stack([
+                torch.sum(torch.where(validl, prob.lamw
+                                      * torch.abs(st.beta), zero)),
+                torch.sum(st.beta != 0).to(dtype)])
+            l1, nnz = psum(loc, sh.group)
+            ratio = pmax(torch.max(torch.where(
+                validl, g / (n_scale * lam * prob.lamw), zero)), sh.group)
+            scale = torch.clamp(1.0 / torch.clamp_min(ratio, 1e-30), max=1.0)
+            theta = r * scale
+            primal = torch.sum(r * r) / (2 * n_scale) + lam * l1
+            dual = (torch.sum(y * y) - torch.sum((y - theta) ** 2)) / (
+                2 * n_scale)
+            return host.tolist(torch.stack([maxh.double(), nnz.double(),
+                                            (primal - dual).double()]))
+
+        tr = _epoch_loop(step, record, options, max_epochs,
+                         dtype.itemsize >= 8)
+        beta = _gather_cols(st.beta.reshape(-1), sh)[:p]
+    return beta, tr

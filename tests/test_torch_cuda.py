@@ -884,3 +884,140 @@ def test_debug_nans_catches_kernel_nans(dev):
         assert not _build.NAN_CHECK
     assert torch.isnan(calls[0]()).any()
     assert torch.isnan(calls[1]()[1]).any()      # the residual K1 returns
+
+
+# ---- the multi-device tiers on the card (a world of one rank, NCCL) ------
+
+
+@pytest.fixture
+def nccl_one(dev):
+    """A world of one rank on NCCL (a ``HashStore``), torn down after."""
+    import torch.distributed as dist
+
+    from coordinatedescent_jl_tpu_torch.parallel import distributed as pd
+
+    pd.initialize_distributed(backend="nccl", store=dist.HashStore(),
+                              num_processes=1, process_id=0, timeout=120)
+    try:
+        yield pd
+    finally:
+        dist.destroy_process_group()
+
+
+def test_lasso_sharded_world_of_one_on_the_card(dev, nccl_one):
+    """``lasso_sharded`` on a world of one: the single-device ``lasso``'s
+    support, and the shard launches K1 (its passes and compaction rounds),
+    K3/K4 (its check, screen off) and K5."""
+    from coordinatedescent_jl_tpu_torch.parallel import lasso_sharded
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        reset_launch_counts)
+
+    X, y, lam_max = _path_problem(dev, n=400, p=3000)
+    opts = CDOptions(block_size=128, opt_tol=1e-6, randomize=False)
+    ref = lasso(X, y, 0.1 * lam_max, options=opts)
+    reset_launch_counts()
+    sol = lasso_sharded(X, y, 0.1 * lam_max, nccl_one.feature_mesh(),
+                        options=opts)
+    n = _launches()
+    assert n["K1"] > 0 and n["K3"] > 0 and n["K4"] > 0 and n["K5"] > 0, n
+    assert sol.x.is_cuda and sol.x.shape == ref.x.shape
+    big = torch.maximum(sol.x.abs(), ref.x.abs()) > 1e-4
+    assert torch.equal((sol.x != 0) & big, (ref.x != 0) & big)
+    assert float((sol.x - ref.x).abs().max()) < 1e-4
+
+
+def test_sharded_check_kernels_match_plain_check(dev, nccl_one):
+    """The shard's full check on the card runs K3 (screen off) and K4 and
+    gives the plain check's masks and certificate."""
+    from coordinatedescent_jl_tpu_torch.parallel.sharded_cd import (
+        _sharded_full_check, make_shard)
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        reset_launch_counts)
+
+    prob, st = _problem(dev, torch.float32)
+    sh = make_shard(nccl_one.feature_mesh(), "feature")
+    n_scale = float(prob.y.shape[0])
+    lam0 = 0.3 * float(torch.max(torch.abs(prob.Xwb.transpose(1, 2)
+                                            @ prob.y[None, :, None]))) / n_scale
+    # a mid-solve state: fresh c on half of the blocks, drift on the rest
+    c = block_cd._full_gradient_c("ls", prob, st.r, False)
+    nb = prob.lamw.shape[0]
+    drift = torch.where(torch.arange(nb, device=dev) % 2 == 0,
+                        torch.zeros(nb, device=dev),
+                        torch.full((nb,), 0.05, device=dev))
+    st = st._replace(c=c, drift=drift)
+    opts = CDOptions(block_size=prob.lamw.shape[1], opt_tol=1e-6)
+    reset_launch_counts()
+    stk, mk = _sharded_full_check("ls", prob, st, lam0, n_scale, 1e-6, sh,
+                                  opts)
+    n = _launches()
+    assert n["K3"] == 1 and n["K4"] <= 1, n
+    stp, mp = block_cd._full_check("ls", prob, st, lam0, n_scale, 1e-6,
+                                   opts.replace(use_pallas=False,
+                                                screen=False))
+    assert torch.equal(stk.active, stp.active)
+    assert torch.equal(stk.drift, stp.drift)
+    assert abs(float(mk) - float(mp)) <= 1e-5 * max(1.0, float(mp))
+    torch.testing.assert_close(stk.c, stp.c, rtol=1e-5, atol=1e-4)
+
+
+def test_row_sharded_gradient_launches_k5(dev, nccl_one):
+    """``lasso_row_sharded``'s local gradient is K5 (then one all_reduce);
+    the solution has the single-device ``lasso``'s support."""
+    from coordinatedescent_jl_tpu_torch.parallel import lasso_row_sharded
+    from coordinatedescent_jl_tpu_torch.parallel.row_sharded import (
+        _Axes, _row_full_c)
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        reset_launch_counts)
+
+    X, y, lam_max = _path_problem(dev, n=400, p=700)
+    opts = CDOptions(block_size=128, opt_tol=1e-6, randomize=False)
+    ref = lasso(X, y, 0.1 * lam_max, options=opts)
+    mesh = nccl_one.obs_mesh()
+    reset_launch_counts()
+    sol = lasso_row_sharded(X, y, 0.1 * lam_max, mesh, options=opts)
+    assert _launches()["K5"] > 0
+    big = torch.maximum(sol.x.abs(), ref.x.abs()) > 1e-4
+    assert torch.equal((sol.x != 0) & big, (ref.x != 0) & big)
+    # the local gradient against the plain product
+    prob = block_cd.build_blocked("ls", opts, torch.ones(700, device=dev),
+                                  X=X, y=y)
+    ax = _Axes(mesh.get_group("obs"), None, 1, True)
+    reset_launch_counts()
+    c = _row_full_c(prob, y, ax)
+    assert _launches()["K5"] == 1
+    torch.testing.assert_close(
+        c, torch.einsum("bnk,n->bk", prob.Xwb, y), rtol=1e-5, atol=1e-3)
+
+
+def test_sharded_design_exchange_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """Two Gloo ranks on the card, each with its block of the plan
+    (``load_sharded_design``: 20 columns) where the solver owns 24: the
+    four columns rank 0 lacks come from rank 1 (point to point, staged
+    through the host), and ``lasso_sharded`` is bit for bit its run on
+    the global design, the same in both ranks."""
+    from coordinatedescent_jl_tpu_torch.parallel.distributed import World
+    from torch_rank_calls import Call, run_calls
+
+    n, p = 200, 40
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    y = (X[:, :3] @ np.array([1.0, -2.0, 0.5], np.float32)
+         + 0.3 * rng.standard_normal(n).astype(np.float32))
+    f = str(tmp_path / "X.bin")
+    X.tofile(f)
+    lam = 0.1 * float(np.abs(X.T @ y).max()) / n
+    opts = CDOptions(block_size=8, opt_tol=1e-6, randomize=False)
+    mesh = ((2,), ("feature",))
+    calls = [("parallel.lasso_sharded", mesh,
+              (Call("parallel.distributed.load_sharded_design", (f, n, p)),
+               y, lam), {"options": opts}),
+             ("parallel.lasso_sharded", mesh, (X, y, lam),
+              {"options": opts})]
+    ranks = World(run_calls, 2, (calls, "cuda:0"), backend="gloo",
+                  timeout=300).wait()
+    for r in ranks:
+        assert not any("_error" in c for c in r), r
+        assert np.array_equal(r[0]["x"], r[1]["x"])
+        assert np.array_equal(r[0]["x"], ranks[0][0]["x"])
+    assert np.count_nonzero(ranks[0][0]["x"]) > 0
