@@ -25,9 +25,14 @@ Phases, each failing loudly (exit code 1, no result line):
    exact masks, one device kernel and no host read per call; then, at the
    varying-coefficient scan's shape (one grid point's wls problem of 4j:
    n = 500, one block of 128 columns, the JAX package's resident pass
-   K1′), K1's wls form (FISTA and exact, cached Gram), K3 with the screen
-   off, K4 and K5, each with the device time of one call, and the device
-   time of the library call beside K5 on the working set;
+   K1′), K1's wls form (FISTA and exact, cached Gram) on its cluster route
+   and K5 on its cluster route (16 slices of one column tile, one cluster),
+   each one kernel a call with no host read, and each held bit for bit
+   against its previous route at the same plan (K1's cooperative grid of
+   the same CTAs and rows, K5's two kernels at the same slices), then K3
+   with the screen off and K4, each with the device time of one call, and
+   the device time of the library call beside K5 there and on the working
+   set;
 4. the main paths on the bench problem (dense Gaussian X, n = 10,000,
    p = 100,000, scattered s = 100 support, f32), each run with the launch
    counts set to 0 just before it and read just after:
@@ -425,7 +430,7 @@ def main():
     # rows of its 8 column tiles; same tolerance as the full sweep below
     ck = gs.fused_gradient_sweep(ws.Xwb, st.r)
     cp = gs.fused_gradient_sweep_plain(ws.Xwb, st.r)
-    plan = gs.plan_dense_sweep(8, n, B, _build.sm_count(dev))
+    plan = gs.sweep_plan(ws.Xwb)
     ms = cuda_ms(lambda: gs.fused_gradient_sweep(ws.Xwb, st.r), 50)
     pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(ws.Xwb, st.r), 50)
     lms = cuda_ms(lambda: torch.matmul(st.r, ws.Xwb), 50)
@@ -433,7 +438,8 @@ def main():
     ldms = library_device_ms(lambda: torch.matmul(st.r, ws.Xwb))
     report(None, "K5 fused_gradient_sweep", maxdiff(ck, cp),
            1e-5 * float(cp.abs().max()), ms, pms,
-           f"8-block working set, split {plan.split} x {plan.rows} rows; "
+           f"8-block working set, split {plan.split} x {plan.rows} rows"
+           f"{' (one cluster a tile)' if plan.cluster else ', two kernels'}; "
            f"one call: device {dms:.4f} ms, {len(names)} kernel(s); "
            f"library device {ldms} ms",
            f4 * (8 * n * B + n + 8 * B), 2 * 8 * n * B, library_ms=lms)
@@ -742,9 +748,13 @@ def main():
     # (n = 500, 100 expanded columns in one block of 128, f32, the default
     # options: a cached Gram, no compaction), from 0.9 of the point's
     # solution.  K1 runs its small-n plan there (the JAX package's resident
-    # pass K1′: 16 CTAs of 32 rows), K5 one column tile split in rows,
-    # K3/K4 one CTA.  The bytes are below one launch's latency (~0.2 us):
-    # the device time of one call is the yardstick.  Tolerances as above.
+    # pass K1′: one cluster of 16 CTAs of 32 rows), K5 one column tile
+    # split in 16 slices, one cluster, K3/K4 one CTA.  The bytes are below
+    # one launch's latency (~0.2 us): the device time of one call is the
+    # yardstick.  Tolerances as above.  Each cluster route is also held bit
+    # for bit against the route it replaced, at the same plan: K1's
+    # cooperative grid of the same CTAs and rows, K5's two kernels (the
+    # partials through HBM, the reduce kernel) at the same slices.
     vp = vc_bench_problem(dev)
     kern_v = tcd.GaussianKernel(vp.h)
     nv = vp.X.shape[0]
@@ -762,7 +772,12 @@ def main():
         opts_v)
     st_v = block_cd._init_state("wls", prob_v, block_cd._to_blocked_beta(
         0.9 * b_v, B).contiguous(), None)
-    plan_v = active_pass.plan_active_pass(nv, B, 4, _build.sm_count(dev))
+    plan_v = active_pass.plan_active_pass(nv, B, 4, _build.sm_count(dev),
+                                          _build.smem_optin(dev))
+    if not plan_v.cluster:
+        fail(f"K1 at n = {nv} must take the cluster route: {plan_v}")
+    coop_v = active_pass.on_route(plan_v, False, B, 4)
+    routes_same = {}
     one = torch.arange(1, device=dev)
     act_v = torch.ones(1, dtype=torch.bool, device=dev)
     for inner in ("ista", "exact"):
@@ -780,16 +795,25 @@ def main():
             *args, **kw), 3 if inner == "exact" else 10)
         reads, names, dms = one_call(
             lambda: active_pass.fused_active_pass(*args, **kw))
+        # the previous route once, at the same CTAs and rows: the same bits
+        oc = active_pass.fused_active_pass(*args, **kw, plan=coop_v)
+        routes_same[f"K1 {inner}"] = all(
+            torch.equal(a, c) for a, c in zip((bk, rk, mk), oc[:3]))
+        _, onames, odms = one_call(
+            lambda: active_pass.fused_active_pass(*args, **kw, plan=coop_v))
         # bytes: both designs' block, the Gram, lamw, beta in and out, r in
         # and out; flops: c and the residual update, then 16 FISTA steps
         # (or the exact scan's Gram recursion)
         report("K1wls_vc" if inner == "ista" else None,
                "K1 fused_active_pass (wls)", err, 1e-4, ms, pms,
-               f"one block at n = {nv} ({plan_v.grid} CTAs of "
-               f"{plan_v.rows} rows), Gram cached, {inner}; r err "
+               f"one block at n = {nv}, cluster route ({plan_v.grid} CTAs "
+               f"of {plan_v.rows} rows, {plan_v.smem} B of shared memory), "
+               f"Gram cached, {inner}; r err "
                f"{errr:.2e} (tol 1.0e-03); nnz {int((bk != 0).sum())}; one "
                f"call: device {dms:.4f} ms, {len(names)} kernel(s), {reads} "
-               "host reads",
+               f"host reads; the cooperative route at the same plan: device "
+               f"{odms:.4f} ms, {len(onames)} kernel(s), bitwise equal "
+               f"{routes_same[f'K1 {inner}']}",
                f4 * (2 * nv * B + B * B + 3 * B + 2 * nv),
                4 * nv * B + (16 * 2 * B * B if inner == "ista"
                              else 2 * B * B + 40 * B), device_ms=dms)
@@ -799,20 +823,37 @@ def main():
                  "and read nothing to the host")
     ck = gs.fused_gradient_sweep(prob_v.Xwb, st_v.r)
     cp = gs.fused_gradient_sweep_plain(prob_v.Xwb, st_v.r)
-    plan5 = gs.plan_dense_sweep(1, nv, B, _build.sm_count(dev))
+    plan5 = gs.sweep_plan(prob_v.Xwb)
+    if not plan5.cluster:
+        fail(f"K5 at (1, {nv}, {B}) must take the cluster route: {plan5}")
+    two5 = plan5._replace(cluster=False, grid=plan5.tiles * plan5.split)
+    routes_same["K5"] = torch.equal(ck, gs.fused_gradient_sweep(
+        prob_v.Xwb, st_v.r, plan=two5))
     ms = cuda_ms(lambda: gs.fused_gradient_sweep(prob_v.Xwb, st_v.r), 50)
     pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(prob_v.Xwb, st_v.r),
                   50)
     lms = cuda_ms(lambda: torch.matmul(st_v.r, prob_v.Xwb), 50)
     reads, names, dms = one_call(
         lambda: gs.fused_gradient_sweep(prob_v.Xwb, st_v.r))
+    _, onames, odms = one_call(
+        lambda: gs.fused_gradient_sweep(prob_v.Xwb, st_v.r, plan=two5))
     ldms = library_device_ms(lambda: torch.matmul(st_v.r, prob_v.Xwb))
     report("K5_vc", "K5 fused_gradient_sweep", maxdiff(ck, cp),
            1e-5 * float(cp.abs().max()), ms, pms,
            f"one block (1, {nv}, {B}), split {plan5.split} x {plan5.rows} "
-           f"rows; one call: device {dms:.4f} ms, {len(names)} kernel(s), "
-           f"library device {ldms} ms", f4 * (nv * B + nv + B), 2 * nv * B,
-           library_ms=lms, device_ms=dms)
+           f"rows, one cluster; one call: device {dms:.4f} ms, {len(names)} "
+           f"kernel(s), {reads} host reads, library device {ldms} ms; the "
+           f"two-kernel route at the same slices: device {odms:.4f} ms, "
+           f"{len(onames)} kernel(s), bitwise equal {routes_same['K5']}",
+           f4 * (nv * B + nv + B), 2 * nv * B, library_ms=lms,
+           device_ms=dms)
+    if reads or len(names) != 1:
+        fail("fused_gradient_sweep (one block) must launch one kernel and "
+             "read nothing to the host")
+    log(f"cluster routes against their previous routes at the same plan, "
+        f"bitwise: {routes_same}")
+    if not all(routes_same.values()):
+        fail("a cluster route differs from its previous route")
     c_v = block_cd._full_gradient_c("wls", prob_v, st_v.r, kernels=False)
     drift_v = torch.full((1,), 1e-3, device=dev)
     scal_v = block_cd._check_scalars(vp.lam0, float(nv),
@@ -1877,14 +1918,15 @@ def main():
                "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
         "K5f64": ("grad_f64", "dense_sweep.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
-        "K1wls_vc": ("fused_active_pass (wls, n = 500: the small-n regime)",
+        "K1wls_vc": ("fused_active_pass (wls, n = 500: the small-n regime, "
+                     "one cluster)",
                      "active_pass.cu",
                      "coordinatedescent_jl_tpu/ops/pallas_block.py:339"),
         "K3_vc": ("check_phase_a (screen off, one block)", "check.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_check.py:108"),
         "K4_vc": ("check_phase_b (one block)", "check.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_check.py:149"),
-        "K5_vc": ("fused_gradient_sweep (one block, n = 500)",
+        "K5_vc": ("fused_gradient_sweep (one block, n = 500, one cluster)",
                   "dense_sweep.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
     }

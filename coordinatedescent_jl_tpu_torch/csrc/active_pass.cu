@@ -1,16 +1,41 @@
 // Fused active pass (K1): one active-set block-CD pass over the visit order,
 // for the least-squares, weighted least-squares and sqrt-lasso kinds, float
-// and double, in one cooperative kernel launch (the kind is a template
-// argument: the least-squares instantiation carries none of the others'
-// code).
+// and double, in one kernel launch (the kind is a template argument: the
+// least-squares instantiation carries none of the others' code).
 //
 // Replaces coordinatedescent_jl_tpu/ops/pallas_block.py:fused_active_pass
 // (its kernels _make_chunked_kernel and _make_resident_kernel).  On the TPU
 // the grid steps run in order on one core, with n_active and the order
 // brought in by scalar prefetch, and beta and r stay resident in VMEM for
 // the whole pass: visit t+1 reads the r that visit t wrote.  Here one
-// co-resident grid of G CTAs (cudaLaunchCooperativeKernel, G from
-// kernels/active_pass.py::plan_active_pass) runs the whole pass:
+// launch of G CTAs (G from kernels/active_pass.py::plan_active_pass) runs
+// the whole pass, by one of two routes that the plan chooses from n, B, the
+// dtype and whether the Gram is cached:
+//   - the cooperative route (the chunked kernel's counterpart, e.g. n = 10K):
+//     a co-resident grid of up to one CTA per SM (cudaLaunchCooperativeKernel),
+//     grid barriers (cooperative groups' grid.sync()), the CTAs' partial sums
+//     exchanged through global scratch (L2);
+//   - the cluster route (the resident kernel's counterpart, _resident_pass,
+//     small n): where G <= 16 CTAs of at most 64 rows keep every row of r
+//     and of X_b in shared memory, the G CTAs are one thread-block cluster
+//     (cudaLaunchKernelEx with a cluster dimension of G; no co-residency
+//     query, no scratch).  Each CTA leaves its partial sums in its own
+//     shared memory and the others read them there (distributed shared
+//     memory, `mapa`), in the same order and with the same arithmetic as
+//     the cooperative route reads them from L2, so the two routes give the
+//     same bits at the same G and rows.  A visit's barrier is an mbarrier
+//     in each CTA that every CTA arrives on once (release at cluster
+//     scope), not a barrier of all G x 512 threads; the block's Gram is
+//     copied once for the cluster, each CTA issuing B / G of its rows as
+//     bulk copies multicast to every CTA (the Tensor Memory Accelerator,
+//     completing on a second mbarrier) as the visit starts; the CTAs then
+//     arrive, with nothing to release, at the hardware cluster barrier
+//     once done with the partials and the Gram, and wait for it as the
+//     next visit starts, by when it is complete (no CTA overwrites or
+//     leaves what another still reads).  The FISTA momentum sequence (the
+//     same at every visit) is read from a table computed once per device
+//     by the cooperative route's own expressions, off the step's chain;
+// Both routes:
 //   - the visit order is found on the device: every CTA walks `border` and
 //     takes the next block whose `active` flag is set (a warp ballot over
 //     32 entries at a time, during the previous visit's residual update),
@@ -25,10 +50,9 @@
 //     the residual update reads them again, from L2), writes its B partial
 //     sums of c = X_b' r (double-buffered by visit parity, so visit t+1
 //     cannot overwrite what a slow CTA still reads for visit t) and, with
-//     no cached Gram, its partial Gram over its rows; then a grid barrier
-//     (cooperative groups' grid.sync()); without a Gram the CTAs next add
-//     the G partial Grams, each a slice of the entries in CTA order, and
-//     meet at a second barrier;
+//     no cached Gram, its partial Gram over its rows; then a barrier;
+//     without a Gram the CTAs next add the G partial Grams, each a slice of
+//     the entries in CTA order, and meet at a second barrier;
 //   - every CTA then solves the block redundantly: the same partials added
 //     in the same order, the same Gram (from L2: the working set's 8 Grams
 //     are 512 KB) and the same code give every CTA a bit-identical d, so
@@ -80,8 +104,13 @@
 // 4 n B + 2 iters B^2 flops: the latency of one grid barrier, the L2 read
 // of the Gram and the solve's chain of iters steps, per visit, not the
 // bytes.  Without a Gram each visit adds 2 n B^2 flops, G partial Grams
-// through L2 and a second barrier.  grid.sync() builds under the plain
-// per-source `nvcc -c` (no -rdc) with CUDA 12.
+// (through L2, or through distributed shared memory on the cluster route)
+// and a second barrier.  At n = 500 (the varying-coefficient scan, one block
+// of 128) the bytes are ~0.3 MB: the launch, the barriers and the solve's
+// chain are all of it, hence the cluster route (its phases by SM clock:
+// kernel_ab.py --stamps, PERF.md).  grid.sync() and the
+// cluster barrier build under the plain per-source `nvcc -c` (no -rdc) with
+// CUDA 12.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -100,6 +129,7 @@ constexpr int AP_GBATCH = 4;     // Gram loads in flight per thread
 constexpr int AP_CBATCH = 8;     // partial-c loads in flight per thread
 constexpr int AP_RS = 24;        // slot of `red` that holds the running
                                  // ||r||^2 (block reductions use 0..15)
+constexpr int AP_MOM = 256;      // FISTA momentum coefficients in the table
 constexpr int KIND_LS = 0, KIND_WLS = 1, KIND_SQRT = 2;
 
 // The Gram in shared memory: row l starts at l ld + V ((l / 4) % 8), ld =
@@ -117,18 +147,34 @@ __device__ __forceinline__ int grow(int l, int ld) {
 // of ints; kernels/active_pass.py::plan_active_pass computes the same
 // bytes.  `scr` holds the row groups' sums of c while the CTA sweeps its
 // rows, then the solve's vectors (FISTA's extrapolated point, the exact
-// scan's beta), which are never live at the same time.
+// scan's beta), which are never live at the same time.  The cluster route
+// (`cl`) adds what the other CTAs read of this one: its partial c's by
+// visit parity (`pc`), its partial ||r||^2 by parity (`prs`, sqrt; its
+// second 16 bytes hold the mbarrier the Gram's copies complete on) and,
+// without a cached Gram, its slice of the summed Gram (`ks`, ceil(B^2 / G)
+// entries; the CTA's partial Gram is left in `K` itself).  All three are
+// empty on the cooperative route, whose offsets are unchanged by them.
 struct ApLayout {
-  int scr, xs, K, vecs, red, rs;
+  int scr, pc, prs, ks, xs, K, vecs, red, rs;
   size_t bytes;
 };
 
+// entries of the summed Gram in one CTA's slice (cluster route, no Gram)
+inline __host__ __device__ int ks_per(int B, int G) {
+  return (B * B + G - 1) / G;
+}
+
 template <typename T>
 __host__ __device__ inline ApLayout ap_layout(int B, int rows, int keep_x,
-                                              int keep_r) {
+                                              int keep_r, int cl, int gram,
+                                              int G) {
+  constexpr int V = vec_of<T>();
   ApLayout L;
   int o = 0;
-  L.scr = o;  o += AP_THREADS * vec_of<T>();       // see above
+  L.scr = o;  o += AP_THREADS * V;                 // see above
+  L.pc = o;   o += cl ? 2 * B : 0;                 // partial c, 2 parities
+  L.prs = o;  o += cl ? 2 * V : 0;                 // partial ||r||^2, mbarrier
+  L.ks = o;   o += cl && !gram ? (ks_per(B, G) + V - 1) / V * V : 0;
   L.xs = o;   o += keep_x ? rows * B : 0;          // the kept rows of X_b
   L.K = o;    o += B * gram_ld<T>(B);              // the block's Gram
   L.vecs = o; o += AP_NVEC * B;                    // c, beta0, lamw, ...
@@ -254,6 +300,58 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The FISTA momentum step t -> (1 + sqrt(1 + 4 t^2)) / 2, one expression
+// for both routes (the same rounding wherever it is evaluated).
+template <typename T>
+__device__ __forceinline__ T fista_t(T tt) {
+  return T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
+}
+
+// The cluster route's momentum table: the coefficients (t_k - 1) / t_{k+1}
+// of the first AP_MOM steps, and at [AP_MOM] the t before step AP_MOM.  The
+// sequence is the same at every visit of every pass, so it is computed
+// once per device (momentum_kernel, at the first cluster launch) by the
+// cooperative route's own expressions, and a step reads its coefficient
+// (a load that depends on no data, issued ahead of the step's chain)
+// instead of two square roots and a division.
+__device__ float ap_mom_f32[AP_MOM + 1];
+__device__ double ap_mom_f64[AP_MOM + 1];
+__device__ __forceinline__ float* mom_table(float) { return ap_mom_f32; }
+__device__ __forceinline__ double* mom_table(double) { return ap_mom_f64; }
+
+template <typename T>
+__global__ void momentum_kernel() {
+  T* mom = mom_table(T(0));
+  // step it's t is f^(it+1)(1) and its successor f^(it+2)(1)
+  T tp = T(1), tt = fista_t(T(1));
+  for (int it = 0; it < AP_MOM; ++it) {
+    const T tn = fista_t(tt);
+    mom[it] = (tt - T(1)) / tn;
+    tp = tt;
+    tt = tn;
+  }
+  mom[AP_MOM] = tp;
+}
+
+// Builds the table on the current device once (then waits for it, once,
+// so that a launch on any stream finds it).
+template <typename T>
+cudaError_t momentum_ready(cudaStream_t s) {
+  static std::mutex mu;
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[dev]) return cudaSuccess;
+  momentum_kernel<T><<<1, 1, 0, s>>>();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaStreamSynchronize(s);
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
+}
+
 // V elements at p (16-byte aligned) in or out of shared memory.
 template <typename T>
 __device__ __forceinline__ void lds16(const T* p, T (&v)[vec_of<T>()]) {
@@ -294,6 +392,20 @@ __device__ __forceinline__ void find_next(int* hdr, const long long* border,
 __device__ __forceinline__ void bar_scan() {
   asm volatile("bar.sync 1, 128;" ::: "memory");
 }
+
+// Phase stamps of the first visit (a measurement build only, nvcc
+// -DCDT_AP_STAMPS: kernel_ab.py --stamps): thread 0 of CTA g writes
+// clock64() at point i to ap_stamps[g][i]; cdt_ap_stamps reads them.
+constexpr int AP_NSTAMP = 8;
+#ifdef CDT_AP_STAMPS
+__device__ long long ap_stamps[132 * AP_NSTAMP];
+#define AP_STAMP_IF(i, cond)                                         \
+  if (threadIdx.x == 0 && (cond) && blockIdx.x < 132)                \
+    ap_stamps[blockIdx.x * AP_NSTAMP + (i)] = clock64();
+#else
+#define AP_STAMP_IF(i, cond)
+#endif
+#define AP_STAMP(i) AP_STAMP_IF(i, t == 0)
 
 // One rounding per operation (the compiler may not contract these into
 // fused multiply-adds).
@@ -338,7 +450,9 @@ __device__ __forceinline__ T sqrt_candidate(T bk, T ck, T a, T lam, T lod,
   return val;
 }
 
-template <typename T, int KIND>
+// CLUSTER: the cluster route (the G CTAs are one cluster; part_c, part_rs,
+// part_k and kred unused), else the cooperative route.
+template <typename T, int KIND, bool CLUSTER>
 __global__ void __launch_bounds__(AP_THREADS, 1)
 active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
                    const T* __restrict__ Kb, const T* __restrict__ lamw,
@@ -353,13 +467,34 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
                    T nsc) {
   constexpr int V = vec_of<T>();
   constexpr bool WLS = KIND == KIND_WLS, SQRT = KIND == KIND_SQRT;
-  cg::grid_group grid = cg::this_grid();
+  // the barrier of all G CTAs: the cluster's, or the cooperative grid's
+  auto all_sync = []() {
+    if constexpr (CLUSTER)
+      cluster_sync();
+    else
+      cg::this_grid().sync();
+  };
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* hdr = reinterpret_cast<int*>(smem_raw);  // [0] cursor, [1] block
+  // cluster route: the visit's barrier, an mbarrier each CTA's thread g
+  // arrives on in CTA g (G arrivals a phase; bytes 8-15 of the header)
+  unsigned long long* xbar =
+      reinterpret_cast<unsigned long long*>(smem_raw + 8);
+  unsigned xph = 0;
   T* base = reinterpret_cast<T*>(smem_raw + 16);
-  const ApLayout Ly = ap_layout<T>(B, rows, keep_x, keep_r);
+  const bool gram = Kb != nullptr;
+  const ApLayout Ly = ap_layout<T>(B, rows, keep_x, keep_r, CLUSTER, gram,
+                                   gridDim.x);
   const int ld = gram_ld<T>(B);
   T* scr = base + Ly.scr;
+  T* PC = base + Ly.pc;    // cluster route: this CTA's partial c's, by parity
+  T* PRS = base + Ly.prs;  // ... its partial ||r||^2, by parity
+  T* KS = base + Ly.ks;    // ... its slice of the summed Gram
+  // ... and the mbarrier the Gram's multicast rows complete on (one
+  // arrival a phase, this CTA's thread 0 expecting the B^2 elements)
+  unsigned long long* gbar =
+      reinterpret_cast<unsigned long long*>(PRS + vec_of<T>());
+  unsigned gph = 0;
   T* Y0 = scr;          // the solve's two MAXB-long vectors, over the
   T* Y1 = scr + MAXB;   // row-group sums
   T* LD = scr + 2 * MAXB;  // the sqrt scan's lam / sqrt(1 - lam^2 / a)
@@ -381,17 +516,18 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   const int row0 = min(g * rows, n), row1 = min(row0 + rows, n);
   const int nr = row1 - row0;
   T* rl = keep_r ? base + Ly.rs : r_out + row0;  // this CTA's rows of r
-  const bool gram = Kb != nullptr;
   // 16-byte paths: X's rows (and with them the kept rows, c's vectors and
   // the staggered Gram rows in shared memory) are 16-byte aligned
   const bool vec = reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
                    (!WLS || reinterpret_cast<uintptr_t>(Xw) % 16 == 0) &&
                    ((size_t)B * sizeof(T)) % 16 == 0;
-  const bool gvec = vec &&
-      reinterpret_cast<uintptr_t>(gram ? Kb : kred) % 16 == 0;
+  const bool gvec = vec && (!gram || reinterpret_cast<uintptr_t>(Kb) % 16 == 0)
+      && (gram || CLUSTER || reinterpret_cast<uintptr_t>(kred) % 16 == 0);
   // a cached Gram does not depend on a visit's sums: its copy into shared
   // memory is issued once the row sweep's loads are done, and runs under
-  // the grid barrier
+  // the barrier; on the cluster route the CTAs copy it together as the
+  // visit starts, each B / G of its rows into every CTA (bulk copies
+  // multicast to the cluster), under the sweep and the barrier
   const bool pre = gram && gvec;
   const int BB = B * B;
   const int CL = (B + V - 1) / V;  // column lanes of the row sweep
@@ -402,8 +538,8 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   const bool lead = own && q == 0;  // writes coordinate k
   T ts = nsc * lam0;  // the threshold scale (sqrt + ista: set per visit)
 
-  // beta_out starts as beta_in (the first grid barrier orders this copy
-  // before CTA 0 writes any visited block); r from r_in, own rows
+  // beta_out starts as beta_in (the first barrier orders this copy before
+  // CTA 0 writes any visited block); r from r_in, own rows
   for (size_t e = (size_t)g * AP_THREADS + tid; e < (size_t)nb * B;
        e += (size_t)G * AP_THREADS)
     beta_out[e] = beta_in[e];
@@ -412,18 +548,45 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   if (tid == 0) {
     hdr[0] = 0;
     if (SQRT) red[AP_RS] = *rsqr_in;
+    if (CLUSTER) {
+      mbar_init(xbar, G);
+      mbar_init(gbar, 1);
+      mbar_init_fence();
+    }
   }
+  // cluster route: the start phase of the hardware barrier (every CTA has
+  // started and initialized its mbarrier once it is complete; waited for
+  // before the first arrive on another CTA's mbarrier)
+  if constexpr (CLUSTER) cluster_arrive_relaxed();
   __syncthreads();
   if (w == 0) find_next(hdr, border, active, nb);
 
   T mh_all = T(0);
   int t = 0;
+  AP_STAMP(0)
   for (;; ++t) {
     __syncthreads();
     const int b = hdr[1];  // (found during the previous visit's residual)
     if (b < 0) break;
     const int par = t & 1;
+    T bk_pre = T(0), lw_pre = T(0);  // cluster route: beta0, lamw (tid < B)
     const T* Xb = X + (size_t)b * n * B;
+    if constexpr (CLUSTER) {
+      // the hardware barrier's pending phase: the start (first visit) or
+      // the previous visit's "done with the partials and the Gram" (below),
+      // complete by now.  It means every CTA has passed the previous
+      // visit's mbarrier phases (so the arrivals below count in the next)
+      // and no CTA reads its Gram any more: the next one may land
+      cluster_wait();
+      if (pre) {
+        if (tid == 0) mbar_arrive_expect(gbar, (unsigned)(BB * sizeof(T)));
+        const int l = g + G * tid;  // row l is CTA l % G's to copy
+        if (l < B)
+          bulk_multicast(K + grow<T>(l, ld), Kb + (size_t)b * BB + l * B,
+                         (unsigned)(B * sizeof(T)), gbar,
+                         (unsigned short)((1u << G) - 1));
+      }
+    }
     // the rows of c's (and the Gram's) left operand
     const T* Xwb = WLS ? Xw + (size_t)b * n * B : Xb;
 
@@ -471,14 +634,17 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
           }
         }
       }
-      if (pre) prefetch_gram(K, Kb + (size_t)b * BB, B, ld);
+      if (!CLUSTER && pre) prefetch_gram(K, Kb + (size_t)b * BB, B, ld);
       sts16(scr + tid * V, acc);
       __syncthreads();
       if (tid < B) {
         const int cc = tid / V, ee = tid % V;
         T s = T(0);
         for (int qq = 0; qq < RG; ++qq) s += scr[(qq * CL + cc) * V + ee];
-        part_c[((size_t)par * G + g) * B + tid] = s;
+        if constexpr (CLUSTER)
+          PC[par * B + tid] = s;
+        else
+          part_c[((size_t)par * G + g) * B + tid] = s;
       }
       if (!gram) {
         // thread (row l = tid / 4, quarter) sums K[l, q + 4 j] over the
@@ -503,44 +669,96 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
 #pragma unroll
             for (int j = 0; j < AP_KCH; ++j) {
               const int kk = q + AP_QUAD * (j0 + j);
-              if (kk < B) part_k[(size_t)g * BB + k * B + kk] = kacc[j];
+              if (kk < B) {
+                if constexpr (CLUSTER)
+                  K[grow<T>(k, ld) + kk] = kacc[j];  // read by the cluster
+                else
+                  part_k[(size_t)g * BB + k * B + kk] = kacc[j];
+              }
             }
           }
         }
       }
     }
-    grid.sync();
+    AP_STAMP(1)
+    if constexpr (CLUSTER) {
+      // the visit's barrier, an mbarrier: thread j arrives in CTA j
+      // (releasing this CTA's partials, seen through the __syncthreads),
+      // thread 0 waits for the G arrivals (acquire).  beta0 and lamw of the
+      // block do not depend on it: their loads are issued before it
+      if (tid < B) {
+        bk_pre = beta_in[(size_t)b * B + tid];
+        lw_pre = lamw[(size_t)b * B + tid];
+      }
+      __syncthreads();
+      if (tid < G) mbar_arrive_cluster(xbar, tid);
+      if (tid == 0) mbar_wait_cluster(xbar, xph);
+      xph ^= 1;
+      __syncthreads();
+    } else {
+      all_sync();
+    }
+    AP_STAMP(2)
 
     // 2. without a Gram: this CTA's slice of the entries, the G partial
     //    Grams added in CTA order (each entry by a quad: CTAs q, q + 4, ...,
-    //    then the quad's sums in a fixed order)
+    //    then the quad's sums in a fixed order); the cluster route reads
+    //    them out of the CTAs' K and keeps its slice in KS
+    const int per = ks_per(B, G);
     if (!gram) {
-      const int per = (BB + G - 1) / G;
       const int e0 = g * per, e1 = min(e0 + per, BB);
       for (int eb = e0; eb < e1; eb += AP_THREADS / AP_QUAD) {
         const int e = eb + tid / AP_QUAD;
         T s = T(0);
         if (e < e1) {
+          if constexpr (CLUSTER) {
+            const int ke = grow<T>(e / B, ld) + e % B;
 #pragma unroll 8
-          for (int qq = q; qq < G; qq += AP_QUAD)
-            s += __ldcg(part_k + (size_t)qq * BB + e);
+            for (int qq = q; qq < G; qq += AP_QUAD) s += peer(K, qq)[ke];
+          } else {
+#pragma unroll 8
+            for (int qq = q; qq < G; qq += AP_QUAD)
+              s += __ldcg(part_k + (size_t)qq * BB + e);
+          }
         }
         s += __shfl_xor_sync(FULL, s, 1);
         s += __shfl_xor_sync(FULL, s, 2);
-        if (e < e1 && q == 0) kred[e] = s;
+        if (e < e1 && q == 0) {
+          if constexpr (CLUSTER)
+            KS[e - e0] = s;
+          else
+            kred[e] = s;
+        }
       }
-      grid.sync();
+      all_sync();
     }
 
-    // 3. the block's Gram (prefetched, or from kred);
+    // 3. the block's Gram (prefetched, from kred, or from the CTAs' KS);
     //    c, the G partials added in a fixed order: with 16-byte loads,
     //    thread (column group, subset s) sums CTAs s, s + S, ... in order,
     //    then the S subsets in order; beta0, lamw; the solve's vectors
-    if (pre)
-      cp_async_wait_all();
-    else
+    if (pre) {
+      if constexpr (CLUSTER) {
+        mbar_wait(gbar, gph);   // the multicast rows are in
+        gph ^= 1;
+      } else {
+        cp_async_wait_all();
+      }
+    } else if (CLUSTER && !gram) {
+      for (int e = tid; e < BB; e += AP_THREADS) {
+        const int o = e / per;
+        K[grow<T>(e / B, ld) + e % B] = peer(KS, o)[e - o * per];
+      }
+    } else {
       load_gram(K, gram ? Kb + (size_t)b * BB : kred, B, ld, gvec, !gram);
-    const T* pc = part_c + (size_t)par * G * B;
+    }
+    // partial c of CTA gg (the cluster route: in that CTA's shared memory)
+    auto pc = [&](int gg) -> const T* {
+      if constexpr (CLUSTER)
+        return peer(PC + par * B, gg);
+      else
+        return part_c + ((size_t)par * G + gg) * B;
+    };
     if (vec) {
       const int CG = B / V, S = AP_THREADS / CG;
       const int cgi = tid % CG, s = tid / CG;
@@ -554,8 +772,13 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
           for (int j = 0; j < AP_CBATCH; ++j) {
             const int gg = g0 + S * j;
             if (gg < G) {
-              const uint4 u = __ldcg(reinterpret_cast<const uint4*>(
-                  pc + (size_t)gg * B + cgi * V));
+              const uint4* src =
+                  reinterpret_cast<const uint4*>(pc(gg) + cgi * V);
+              uint4 u;
+              if constexpr (CLUSTER)
+                u = *src;
+              else
+                u = __ldcg(src);
               memcpy(&v[j][0], &u, 16);
             } else {
 #pragma unroll
@@ -578,7 +801,8 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
       }
     } else if (tid < B) {
       T cs = T(0);
-      for (int gg = 0; gg < G; ++gg) cs += __ldcg(pc + (size_t)gg * B + tid);
+      for (int gg = 0; gg < G; ++gg)
+        cs += CLUSTER ? pc(gg)[tid] : __ldcg(pc(gg) + tid);
       c[tid] = cs;
     }
     __syncthreads();  // the sums of c are read out of scr, which Y0 and
@@ -588,21 +812,24 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     if (SQRT && ista && t > 0 && w == 0) {
       T s = T(0);
       for (int gg = lane; gg < G; gg += 32)
-        s += __ldcg(part_rs + (size_t)par * G + gg);
+        s += CLUSTER ? peer(PRS, gg)[par]
+                     : __ldcg(part_rs + (size_t)par * G + gg);
       s = warp_sum(s);
       if (lane == 0) red[AP_RS] = s;
     }
     // Y0 = beta0 and Y1 = 0 past B (the FISTA product reads all MAXB)
     if (tid < MAXB) {
-      const T bk = tid < B ? beta_in[(size_t)b * B + tid] : T(0);
+      const T bk = tid >= B ? T(0)
+                   : CLUSTER ? bk_pre : beta_in[(size_t)b * B + tid];
       if (tid < B) {
         b0[tid] = bk;
-        lw[tid] = lamw[(size_t)b * B + tid];
+        lw[tid] = CLUSTER ? lw_pre : lamw[(size_t)b * B + tid];
       }
       Y0[tid] = bk;
       if (tid >= B) Y1[tid] = T(0);
     }
     __syncthreads();
+    AP_STAMP(3)
 
     // 4. the block solve, redundantly in every CTA -> D, DD, mh
     T mh = T(0);
@@ -644,7 +871,11 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
       const T thr = own ? ts * lw[k] / L : T(0);
       const T q0 = (own ? c[k] : T(0)) + warp_dot(Y0, kc);
       T dk = own ? b0[k] : T(0), dpk = dk;
-      T tt = T(1);
+      // the cluster route reads the first AP_MOM steps' momentum from its
+      // table (the steps past it go on from the t the table ends with)
+      const T* mom = mom_table(T(0));
+      const int m = CLUSTER ? min(iters, AP_MOM) : 0;
+      T tt = CLUSTER && m < iters ? mom[AP_MOM] : T(1);
       for (int it = 0; it < iters; ++it) {
         const T* Yc = (it & 1) ? Y1 : Y0;
         T* Yn = (it & 1) ? Y0 : Y1;
@@ -654,9 +885,14 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
           dpk = dk;
           dk = dn;
         }
-        tt = T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
-        const T tn = T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
-        const T coef = (tt - T(1)) / tn;
+        T coef;
+        if (it < m) {
+          coef = mom[it];
+        } else {
+          tt = fista_t(tt);
+          const T tn = fista_t(tt);
+          coef = (tt - T(1)) / tn;
+        }
         if (lead) Yn[k] = dk + coef * (dk - dpk);
         __syncthreads();
       }
@@ -746,6 +982,13 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
       if (SQRT && tid == 0) red[AP_RS] = rs;
     }
     __syncthreads();
+    AP_STAMP(4)
+    // cluster route: this visit's reads of the other CTAs' shared memory
+    // and of its own Gram are done (their values are consumed: nothing to
+    // release).  The phase is waited for as the next visit starts, or at
+    // the end, by when it is complete: no CTA leaves, or overwrites
+    // partials or a Gram, while another reads them, at no barrier's cost
+    if constexpr (CLUSTER) cluster_arrive_relaxed();
     mh_all = tmax(mh_all, mh);
     if (g == 0 && tid < B) beta_out[(size_t)b * B + tid] = D[tid];
 
@@ -782,31 +1025,45 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     if (SQRT && ista) {
       // this CTA's sum of squares, for the next visit's (parity's) threshold
       const T tot = block_sum(rsacc, red);
-      if (tid == 0) part_rs[(size_t)((t + 1) & 1) * G + g] = tot;
+      if (tid == 0) {
+        if constexpr (CLUSTER)
+          PRS[(t + 1) & 1] = tot;
+        else
+          part_rs[(size_t)((t + 1) & 1) * G + g] = tot;
+      }
     }
     __syncthreads();
+    AP_STAMP(5)
   }
+  AP_STAMP_IF(6, true)
   if (keep_r)
     for (int i = tid; i < nr; i += AP_THREADS) r_out[row0 + i] = rl[i];
   if (g == 0 && tid == 0) *maxh_out = mh_all;
+  // cluster route: the last visit's partials are read (a CTA's shared
+  // memory lives as long as the CTA), or with no visit the start phase
+  if constexpr (CLUSTER) cluster_wait();
   // ||r||^2 out (sqrt only; ls and wls do not read it and leave it to the
   // caller): the input's for a pass with no visit; the scan's running value
   // (exact); the last visit's rebuild (ista), whose partials the other CTAs
-  // wrote: one more grid barrier
+  // wrote: one more barrier
   if constexpr (SQRT) {
     if (ista && t > 0) {
-      grid.sync();
+      all_sync();
       if (g == 0 && w == 0) {
         T s = T(0);
         for (int gg = lane; gg < G; gg += 32)
-          s += __ldcg(part_rs + (size_t)(t & 1) * G + gg);
+          s += CLUSTER ? peer(PRS, gg)[t & 1]
+                       : __ldcg(part_rs + (size_t)(t & 1) * G + gg);
         s = warp_sum(s);
         if (lane == 0) *rsqr_out = s;
       }
+      // ... and no CTA leaves before CTA 0 has read these
+      if constexpr (CLUSTER) cluster_sync();
     } else if (g == 0 && tid == 0) {
       *rsqr_out = red[AP_RS];
     }
   }
+  AP_STAMP_IF(7, true)
 }
 
 template <typename T>
@@ -816,26 +1073,46 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
                 const T* rsqr_in, T* beta_out, T* r_out, T* maxh,
                 T* rsqr_out, T* part_c, T* part_rs, T* part_k, T* kred,
                 int nb, int n, int B, int grid, int rows, int keep_x,
-                int keep_r, int smem, int kind, int ista, int iters,
-                double lam0, double nsc, cudaStream_t s) {
+                int keep_r, int smem, int cluster, int kind, int ista,
+                int iters, double lam0, double nsc, cudaStream_t s) {
+  const bool gram = Kb != nullptr;
   if (B < 1 || B > MAXB || nb < 1 || n < 1 || grid < 1 || rows < 1 ||
-      (long long)grid * rows < n || (Kb == nullptr && (!part_k || !kred)) ||
-      kind < KIND_LS || kind > KIND_SQRT || !Xw || !rsqr_in || !rsqr_out ||
-      !part_rs)
+      (long long)grid * rows < n || kind < KIND_LS || kind > KIND_SQRT ||
+      !Xw || !rsqr_in || !rsqr_out ||
+      (cluster ? grid > MAX_CLUSTER
+               : (!part_c || !part_rs || (!gram && (!part_k || !kred)))))
     return (int)cudaErrorInvalidValue;
-  if ((size_t)smem < ap_layout<T>(B, rows, keep_x, keep_r).bytes)
+  if ((size_t)smem <
+      ap_layout<T>(B, rows, keep_x, keep_r, cluster, gram, grid).bytes)
     return (int)cudaErrorInvalidValue;
+  T tl = T(lam0), tn = T(nsc);
+  cudaError_t e;
+  if (cluster) {
+    // one cluster of `grid` CTAs; a refused launch is the caller's error
+    e = momentum_ready<T>(s);
+    if (e != cudaSuccess) return (int)e;
+    auto kern = kind == KIND_WLS    ? active_pass_kernel<T, KIND_WLS, true>
+                : kind == KIND_SQRT ? active_pass_kernel<T, KIND_SQRT, true>
+                                    : active_pass_kernel<T, KIND_LS, true>;
+    e = launch_clusters(kern, grid, AP_THREADS, (size_t)smem, grid, s, X, Xw,
+                        Kb, lamw, border, active, corder, beta_in, r_in,
+                        rsqr_in, beta_out, r_out, maxh, rsqr_out, part_c,
+                        part_rs, part_k, kred, nb, n, B, rows, keep_x, keep_r,
+                        ista, iters, tl, tn);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   const void* kern =
-      kind == KIND_WLS    ? (const void*)active_pass_kernel<T, KIND_WLS>
-      : kind == KIND_SQRT ? (const void*)active_pass_kernel<T, KIND_SQRT>
-                          : (const void*)active_pass_kernel<T, KIND_LS>;
+      kind == KIND_WLS ? (const void*)active_pass_kernel<T, KIND_WLS, false>
+      : kind == KIND_SQRT
+          ? (const void*)active_pass_kernel<T, KIND_SQRT, false>
+          : (const void*)active_pass_kernel<T, KIND_LS, false>;
   // the grid must be co-resident (a plain launch of too large a grid
   // would hang at the first barrier; the cooperative launch refuses it)
   int resident = 0;
-  cudaError_t e = resident_ctas(kern, AP_THREADS, (size_t)smem, &resident);
+  e = resident_ctas(kern, AP_THREADS, (size_t)smem, &resident);
   if (e != cudaSuccess) return (int)e;
   if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  T tl = T(lam0), tn = T(nsc);
   void* args[] = {&X,       &Xw,      &Kb,     &lamw,     &border, &active,
                   &corder,  &beta_in, &r_in,   &rsqr_in,  &beta_out, &r_out,
                   &maxh,    &rsqr_out, &part_c, &part_rs, &part_k, &kred,
@@ -847,7 +1124,65 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
   return (int)cudaGetLastError();
 }
 
+// The launch-latency probe (kernel_ab.py --small): a kernel of K1's CTA
+// size and `smem` bytes of shared memory that copies the same `n16` 16-byte
+// chunks at `src` into every CTA's shared memory (as every CTA of a visit
+// reads the block's Gram) and then takes `barriers` barriers of the
+// route's kind, launched on `grid` CTAs as each route launches K1 (the
+// cooperative route with its residency query).
+template <bool CLUSTER>
+__global__ void __launch_bounds__(AP_THREADS, 1)
+probe_kernel(int barriers, const uint4* __restrict__ src, int n16) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* dst = reinterpret_cast<uint4*>(smem_raw);
+  for (int i = threadIdx.x; i < n16; i += AP_THREADS) dst[i] = __ldg(src + i);
+  if (n16) __syncthreads();
+  for (int i = 0; i < barriers; ++i) {
+    if constexpr (CLUSTER)
+      cluster_sync();
+    else
+      cg::this_grid().sync();
+  }
+}
+
+inline int probe_launch(int cluster, int grid, int smem, int barriers,
+                        const void* src, int bytes, cudaStream_t s) {
+  if (bytes < 0 || bytes % 16 || bytes > smem || (bytes && !src))
+    return (int)cudaErrorInvalidValue;
+  const uint4* src4 = (const uint4*)src;
+  int n16 = bytes / 16;
+  cudaError_t e;
+  if (cluster) {
+    e = launch_clusters(probe_kernel<true>, grid, AP_THREADS, (size_t)smem,
+                        grid, s, barriers, src4, n16);
+  } else {
+    const void* kern = (const void*)probe_kernel<false>;
+    int resident = 0;
+    e = resident_ctas(kern, AP_THREADS, (size_t)smem, &resident);
+    if (e != cudaSuccess) return (int)e;
+    if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&barriers, &src4, &n16};
+    e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(AP_THREADS), args,
+                                    (size_t)smem, s);
+  }
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace cdt
+
+#ifdef CDT_AP_STAMPS
+extern "C" int cdt_ap_stamps(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, cdt::ap_stamps,
+                                   sizeof(cdt::ap_stamps));
+}
+#endif
+
+extern "C" int cdt_probe_launch(int cluster, int grid, int smem, int barriers,
+                                const void* src, int bytes, void* stream) {
+  return cdt::probe_launch(cluster, grid, smem, barriers, src, bytes,
+                           (cudaStream_t)stream);
+}
 
 #define CDT_ACTIVE_PASS(SUFFIX, T)                                            \
   extern "C" int cdt_active_pass_##SUFFIX(                                    \
@@ -856,15 +1191,15 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
       const void* beta_in, const void* r_in, const void* rsqr_in,             \
       void* beta_out, void* r_out, void* maxh, void* rsqr_out, void* part_c,  \
       void* part_rs, void* part_k, void* kred, int nb, int n, int B,          \
-      int grid, int rows, int keep_x, int keep_r, int smem, int kind,         \
-      int ista, int iters, double lam0, double nsc, void* stream) {           \
+      int grid, int rows, int keep_x, int keep_r, int smem, int cluster,      \
+      int kind, int ista, int iters, double lam0, double nsc, void* stream) { \
     return cdt::active_pass<T>(                                               \
         (const T*)X, (const T*)Xw, (const T*)Kb, (const T*)lamw,              \
         (const long long*)border, (const unsigned char*)active,               \
         (const long long*)corder, (const T*)beta_in, (const T*)r_in,          \
         (const T*)rsqr_in, (T*)beta_out, (T*)r_out, (T*)maxh, (T*)rsqr_out,   \
         (T*)part_c, (T*)part_rs, (T*)part_k, (T*)kred, nb, n, B, grid, rows,  \
-        keep_x, keep_r, smem, kind, ista, iters, lam0, nsc,                   \
+        keep_x, keep_r, smem, cluster, kind, ista, iters, lam0, nsc,          \
         (cudaStream_t)stream);                                                \
   }
 

@@ -25,19 +25,33 @@
 //     groups), so one warp instruction covers a 128-column row of a tile
 //     (f32), and each thread keeps U = 4 such loads in flight;
 //   - r is staged a slab of rows at a time in shared memory;
-//   - a persistent grid, sized by the wrapper's planner and capped here by
-//     the occupancy the card reports, walks the work items (column tile,
-//     row slice).  With many tiles (782 at the bench shape) a slice is the
-//     whole of n: one launch, each tile summed by one CTA and written
-//     straight to the output, no partials.  With few tiles (the 8-block
-//     working set) the planner splits the rows S ways so that the items
-//     fill the card, and a second, fixed-order pass adds the S partials.
-//     A persistent grid rather than a TMA ring of row slabs: with up to 7
+//   - the work items are (column tile, row slice), laid out by the wrapper's
+//     planner (kernels/gradient_sweep.py::plan_dense_sweep) in one of three
+//     routes:
+//       * one slice a tile (many tiles: 782 at the bench shape): a
+//         persistent grid, sized by the planner and capped here by the
+//         occupancy the card reports, walks the tiles, each summed by one
+//         CTA and written straight to the output, no partials;
+//       * S <= 16 slices a tile (few tiles and rows, e.g. the
+//         varying-coefficient scan's one tile of 500 rows): each tile's S
+//         slices are one thread-block cluster, a CTA each; a CTA stores its
+//         partial tile into CTA 0's shared memory (distributed shared
+//         memory), and after the cluster barrier CTA 0 adds the S partials
+//         in slice order and writes the output: one launch, one barrier,
+//         no partials in HBM (CTA 0 reads only its own shared memory, so
+//         the others leave at once; an mbarrier that the others arrive on
+//         measured slower than the hardware barrier, PERF.md);
+//       * more slices (the 8-block working set at n = 10K, 66 slices): the
+//         persistent grid writes the S partials to HBM and a second,
+//         fixed-order pass adds them;
+//     a persistent grid rather than a TMA ring of row slabs: with up to 7
 //     such CTAs per SM, ~48 KB of loads are in flight per SM, which keeps
 //     the sweep within 8 % of the HBM bound on the H100 (PERF.md), and
 //     needs no mbarrier pipeline;
 //   - every sum runs in a fixed order (rows per thread in order, the row
-//     groups in order, the slices in order): deterministic, no atomics.
+//     groups in order, the slices in order): deterministic, no atomics; the
+//     cluster and the two-pass routes add the same partials in the same
+//     order, so at one S they give the same bits.
 // A row whose byte stride is not a multiple of 16 (grad_f64 at an odd p)
 // takes the same kernel with masked scalar loads.
 #include <algorithm>
@@ -51,7 +65,8 @@ constexpr int SW_THREADS = 128;
 constexpr int SW_UNROLL = 4;   // 16-byte loads in flight per thread
 constexpr int SW_SLAB = 1024;  // rows of r staged in shared memory
 
-template <typename TX, typename T>
+// CLUSTER: the grid is the items, a tile's `split` slices one cluster.
+template <typename TX, typename T, bool CLUSTER>
 __global__ void __launch_bounds__(SW_THREADS)
 sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
              int W, int tpb, int split, int rows, int vec, size_t ncols,
@@ -62,9 +77,13 @@ sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* rs = reinterpret_cast<T*>(smem_raw);  // [SW_SLAB]
   T* red = rs + SW_SLAB;                   // [RG][SW_TILE]
+  T* pt = red + RG * SW_TILE;              // cluster: [split][SW_TILE] partials
   const int tid = threadIdx.x;
   const int cl = tid % CL, rg = tid / CL;
   const int items = nb * tpb * split;
+  // cluster: every CTA has started before any stores into CTA 0 (the wait
+  // below, long complete by then)
+  if constexpr (CLUSTER) cluster_arrive_relaxed();
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int s = it % split, tile = it / split;
     const int b = tile / tpb, o = (tile % tpb) * SW_TILE;
@@ -89,13 +108,15 @@ sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
     };
     for (int s0 = row0; s0 < row1; s0 += SW_SLAB) {
       const int s1 = min(s0 + SW_SLAB, row1);
+      // software-pipelined: the next rows' loads are in flight while this
+      // step's multiply-adds (and, for grad64, the widening) run; a
+      // cluster's short slices issue their first loads under r's staging
+      TX x[SW_UNROLL][V], xn[SW_UNROLL][V];
+      if (CLUSTER) load_rows(x, s0 + rg, s1);
       __syncthreads();
       for (int i = s0 + tid; i < s1; i += SW_THREADS) rs[i - s0] = r[i];
       __syncthreads();
-      // software-pipelined: the next rows' loads are in flight while this
-      // step's multiply-adds (and, for grad64, the widening) run
-      TX x[SW_UNROLL][V], xn[SW_UNROLL][V];
-      load_rows(x, s0 + rg, s1);
+      if (!CLUSTER) load_rows(x, s0 + rg, s1);
       for (int i = s0 + rg; i < s1; i += RG * SW_UNROLL) {
         if (i + RG * SW_UNROLL < s1) load_rows(xn, i + RG * SW_UNROLL, s1);
 #pragma unroll
@@ -115,12 +136,27 @@ sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
 #pragma unroll
     for (int e = 0; e < V; ++e) red[rg * SW_TILE + cl * V + e] = acc[e];
     __syncthreads();
-    T* dst = split == 1 ? out + (size_t)b * W + o
-                        : part + (size_t)s * ncols + (size_t)b * W + o;
+    // the cluster route stores its partial tile into row s of CTA 0's pt
+    if constexpr (CLUSTER) cluster_wait();
+    T* dst = CLUSTER      ? peer(pt, 0) + s * SW_TILE
+             : split == 1 ? out + (size_t)b * W + o
+                          : part + (size_t)s * ncols + (size_t)b * W + o;
     for (int k = tid; k < width; k += SW_THREADS) {
       T sum = T(0);
       for (int q = 0; q < RG; ++q) sum += red[q * SW_TILE + k];
       dst[k] = sum;
+    }
+    if constexpr (CLUSTER) {
+      // CTA 0 of the tile's cluster (slice 0) adds the slices' partials in
+      // slice order, as sweep_reduce_kernel does
+      cluster_sync();
+      if (s == 0) {
+        for (int k = tid; k < width; k += SW_THREADS) {
+          T sum = T(0);
+          for (int j = 0; j < split; ++j) sum += pt[j * SW_TILE + k];
+          out[(size_t)b * W + o + k] = sum;
+        }
+      }
     }
   }
 }
@@ -136,11 +172,16 @@ __global__ void sweep_reduce_kernel(const T* __restrict__ part, int split,
   out[col] = s;
 }
 
+// cluster: the tile's slices are one cluster each (2 <= split <= 16; the
+// grid is then every item, and `part` and `grid` are unused).
 template <typename TX, typename T>
 int dense_sweep(const TX* X, const T* r, T* part, T* out, int nb, int n,
-                int W, int split, int rows, int grid, cudaStream_t s) {
+                int W, int split, int rows, int grid, int cluster,
+                cudaStream_t s) {
   if (nb < 1 || n < 1 || W < 1 || split < 1 || rows < 1 || grid < 1 ||
-      (split > 1 && part == nullptr) || (long long)split * rows < n)
+      (long long)split * rows < n ||
+      (cluster ? split < 2 || split > MAX_CLUSTER
+               : split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   constexpr int V = vec_of<TX>();
   constexpr int RG = SW_THREADS / (SW_TILE / V);
@@ -151,14 +192,23 @@ int dense_sweep(const TX* X, const T* r, T* part, T* out, int nb, int n,
   const int vec = (reinterpret_cast<uintptr_t>(X) % 16 == 0) &&
                   ((size_t)W * sizeof(TX)) % 16 == 0;
   const size_t smem = sizeof(T) * (SW_SLAB + RG * SW_TILE);
+  if (cluster) {
+    // CTA 0's rows of the slices' partials
+    const size_t csmem = smem + sizeof(T) * split * SW_TILE;
+    const cudaError_t e = launch_clusters(
+        sweep_kernel<TX, T, true>, (int)items, SW_THREADS, csmem, split, s, X,
+        r, nb, n, W, tpb, split, rows, vec, ncols, out, (T*)nullptr);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   // the planner's grid, capped by what the card keeps resident at once
   int resident = 0;
-  const cudaError_t e = resident_ctas((const void*)sweep_kernel<TX, T>,
+  const cudaError_t e = resident_ctas((const void*)sweep_kernel<TX, T, false>,
                                       SW_THREADS, smem, &resident);
   if (e != cudaSuccess) return (int)e;
   grid = (int)std::min<long long>({(long long)grid, items,
                                    (long long)std::max(resident, 1)});
-  sweep_kernel<TX, T><<<grid, SW_THREADS, smem, s>>>(
+  sweep_kernel<TX, T, false><<<grid, SW_THREADS, smem, s>>>(
       X, r, nb, n, W, tpb, split, rows, vec, ncols, out, part);
   if (split > 1) {
     const int nt = 256;
@@ -173,10 +223,10 @@ int dense_sweep(const TX* X, const T* r, T* part, T* out, int nb, int n,
 #define CDT_DENSE_SWEEP(NAME, TX, T)                                          \
   extern "C" int NAME(const void* X, const void* r, void* part, void* out,    \
                       int nb, int n, int W, int split, int rows, int grid,    \
-                      void* stream) {                                         \
+                      int cluster, void* stream) {                            \
     return cdt::dense_sweep<TX, T>((const TX*)X, (const T*)r, (T*)part,       \
                                    (T*)out, nb, n, W, split, rows, grid,      \
-                                   (cudaStream_t)stream);                     \
+                                   cluster, (cudaStream_t)stream);            \
   }
 
 CDT_DENSE_SWEEP(cdt_dense_sweep_f32, float, float)

@@ -33,11 +33,40 @@ around back-to-back calls, the host's time to issue a call, the device
 kernels' time and count from ``torch.profiler``, and ``cdt_ms`` the device
 time of the port's own kernels alone (a wrapper's allocations, copies and
 sorts are other kernels; events and host time are medians of five runs);
-one JSON line, after the card's name and power limit.  Needs a CUDA GPU.
+one JSON line, after the card's name and power limit.  Every key also
+carries ``by_kernel`` (each device kernel's ms per call, by name) and
+``digest`` (a hash of the call's outputs: two trees that compute the same
+bits print the same digest).  Needs a CUDA GPU.
+
+    python -m coordinatedescent_jl_tpu_torch.kernel_ab --small
+
+times the small-n regime alone, at ``chip_smoke.py``'s varying-coefficient
+point (one wls block of 128 at n = 500, cached Gram): ``K1p`` (FISTA, 16
+steps), ``K1p_iters0`` (no step: the launch, the sweep, the barrier, the
+residual update), ``K1p_exact`` (the exact scan; ``K1p_exact_scan_dev_ms``
+its device time less ``K1p_iters0``'s), ``K5p`` (K5 on that block) beside
+``K5p_matmul`` (``torch.matmul``), ``K5ws`` / ``K5ws_matmul`` on the
+working set's (8, 10,000, 128); where the tree has the routes (the
+``plan=`` keyword): K1′ on each route at the plan's CTAs and rows
+(``K1p_cluster_<inner>``, ``K1p_coop_<inner>``, with ``bitwise``
+equality of the two routes' outputs) and FISTA at 4, 8, 16 (and, the
+cooperative route, 32) CTAs (``K1p_<route>_G<G>``), K5 at (1, 500, 128) on every slice count S
+of 1-16 (``K5p_S<S>``, the cluster route, and ``K5p_S3_two`` the
+two-kernel route at S = 3, bitwise against the cluster's at S = 3), the
+working set on a 16-slice cluster (``K5ws_S16``), and where the library
+has K1's launch probe an empty launch of K1′'s CTAs and shared memory on
+each route with 0, 1 and 2 barriers (``probe_coop_b<k>``,
+``probe_cluster_b<k>``), and one that first copies the 64 KB Gram into
+every CTA's shared memory (``probe_<route>_b1_gram``), and K1 over 8
+blocks with cached Grams at n = 1,000, 2,000 and 4,096 on a 16-CTA
+cluster and on the cooperative route's own plan (``K1n<n>_cluster``,
+``K1n<n>_coop``).  ``--stamps``: K1′'s first
+visit by phase on each route (:func:`stamps_main`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -46,6 +75,20 @@ import sys
 import time
 
 import torch
+
+
+def _digest(out) -> str:
+    """A hash of the bytes of a call's tensor outputs."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _short(name: str) -> str:
+    """A device kernel's name without its template arguments' noise."""
+    return name.split("(")[0].replace("void ", "")[:80]
 
 
 def _ms(fn, reps: int, rounds: int = 5) -> dict:
@@ -76,10 +119,19 @@ def _ms(fn, reps: int, rounds: int = 5) -> dict:
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {}
+    for e in kern:
+        by[_short(e.name)] = (by.get(_short(e.name), 0.0)
+                              + e.time_range.elapsed_us() * 1e-3 / reps)
     return {"ms": statistics.median(ev) / reps,
+            "digest": _digest(fn()), "by_kernel": by,
             "host_ms": statistics.median(hs) * 1e3 / reps,
             "dev_ms": sum(e.time_range.elapsed_us() for e in kern)
             * 1e-3 / reps,
+            # a trace now and then loses a kernel's record: the mean of the
+            # kernels it kept
+            "dev_ms_per_kernel": sum(e.time_range.elapsed_us() for e in kern)
+            * 1e-3 / max(len(kern), 1),
             "cdt_ms": sum(e.time_range.elapsed_us() for e in kern
                           if "cdt::" in e.name) * 1e-3 / reps,
             "kernels": len(kern) / reps}
@@ -256,5 +308,220 @@ def _k1_resident(tcd, ap, block_cd, dev) -> dict:
         *args, kind="wls", inner="ista", iters=16, rsqr=st.rsqr), 50)
 
 
+def small_main():
+    """The ``--small`` keys (module docstring)."""
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA GPU", file=sys.stderr)
+        sys.exit(1)
+    import inspect
+
+    import coordinatedescent_jl_tpu_torch as tcd
+    from coordinatedescent_jl_tpu_torch.kernels import _build
+    from coordinatedescent_jl_tpu_torch.kernels import active_pass as ap
+    from coordinatedescent_jl_tpu_torch.kernels import gradient_sweep as gs
+    from coordinatedescent_jl_tpu_torch.ops import block_cd
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        bench_problem, vc_bench_problem)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"package": tcd.__file__}
+    routes = "plan" in inspect.signature(ap.fused_active_pass).parameters
+    vp = vc_bench_problem(dev)
+    B, nv = 128, vp.X.shape[0]
+    w = tcd.evaluate(tcd.GaussianKernel(vp.h), vp.z, 0.5)
+    eX = tcd.expand_X(vp.X, vp.z, 0.5, vp.degree)
+    opts = tcd.CDOptions()
+    lamw = tcd.std_X(eX, w)
+    prob = block_cd.build_blocked("wls", opts, lamw, X=eX, y=vp.y, w=w)
+    b, _ = tcd.coordinate_descent(torch.zeros(eX.shape[1], device=dev),
+                                  tcd.WeightedLSLoss(vp.y, eX, w),
+                                  tcd.ProxL1(vp.lam0, lamw), opts)
+    st = block_cd._init_state("wls", prob, block_cd._to_blocked_beta(
+        0.9 * b, B).contiguous(), None)
+    args = (prob, st.beta, st.r, torch.ones(1, dtype=torch.bool, device=dev),
+            vp.lam0, float(nv), torch.arange(1, device=dev),
+            torch.arange(B, device=dev))
+
+    def k1(inner, iters=16, **kw):
+        return lambda: ap.fused_active_pass(*args, kind="wls", inner=inner,
+                                            iters=iters, rsqr=st.rsqr, **kw)
+
+    out["K1p"] = _ms(k1("ista"), 200)
+    out["K1p_iters0"] = _ms(k1("ista", 0), 200)
+    out["K1p_exact"] = _ms(k1("exact"), 200)
+    out["K1p_exact_scan_dev_ms"] = (out["K1p_exact"]["dev_ms_per_kernel"]
+                                    - out["K1p_iters0"]["dev_ms_per_kernel"])
+    out["K5p"] = _ms(lambda: gs.fused_gradient_sweep(prob.Xwb, st.r), 200)
+    out["K5p_matmul"] = _ms(lambda: torch.matmul(st.r, prob.Xwb), 200)
+    sms = _build.sm_count(dev)
+    if routes:
+        plan = ap.plan_active_pass(nv, B, 4, sms, _build.smem_optin(dev))
+        out["K1p_plan"] = plan._asdict()
+        for inner in ("ista", "exact"):
+            res = {}
+            for name, cl in (("cluster", True), ("coop", False)):
+                pl = ap.on_route(plan, cl, B, 4)
+                out[f"K1p_{name}_{inner}"] = _ms(k1(inner, plan=pl), 200)
+                res[name] = k1(inner, plan=pl)()
+            out[f"K1p_{inner}_bitwise"] = all(
+                torch.equal(a, c) for a, c in zip(res["cluster"],
+                                                  res["coop"]))
+        # K1′ (FISTA) at other CTA counts on each route
+        for G in (4, 8, 16, 32):
+            for name, cl in (("cluster", True), ("coop", False)):
+                if cl and G > 16:
+                    continue
+                pl = ap.on_route(ap.ActivePlan(G, -(-nv // G), True, True, 0),
+                                 cl, B, 4)
+                out[f"K1p_{name}_G{G}"] = _ms(k1("ista", plan=pl), 200)
+        ref = None
+        for S in range(1, 17):
+            rows = -(-nv // S)
+            if -(-nv // rows) != S:
+                continue
+            pl = gs.SweepPlan(1, S, rows, S, S > 1)
+            key = f"K5p_S{S}"
+            out[key] = _ms(lambda: gs.fused_gradient_sweep(
+                prob.Xwb, st.r, plan=pl), 200)
+            if S == 3:
+                ref = gs.fused_gradient_sweep(prob.Xwb, st.r, plan=pl)
+        pl = gs.SweepPlan(1, 3, 167, 3, False)
+        out["K5p_S3_two"] = _ms(lambda: gs.fused_gradient_sweep(
+            prob.Xwb, st.r, plan=pl), 200)
+        out["K5p_S3_bitwise"] = torch.equal(
+            ref, gs.fused_gradient_sweep(prob.Xwb, st.r, plan=pl))
+        # where the cluster regime ends: 8 blocks with cached Grams at n =
+        # 1,000, 2,000 and 4,096 (ls, FISTA) on a 16-CTA cluster against the
+        # cooperative route's own plan (one CTA an SM, 32 rows or more)
+        g2 = torch.Generator(device=dev).manual_seed(3)
+        for nn in (1000, 2000, 4096):
+            pn = block_cd.build_blocked(
+                "ls", tcd.CDOptions(block_size=B, cache_gram=True,
+                                    compact=False),
+                torch.ones(8 * B, device=dev),
+                X=torch.randn((nn, 8 * B), generator=g2, device=dev),
+                y=torch.randn((nn,), generator=g2, device=dev))
+            sn = block_cd._init_state("ls", pn, torch.zeros(
+                (8, B), device=dev), None)
+            an = (pn, sn.beta, sn.r, torch.ones(8, dtype=torch.bool,
+                                                device=dev), 0.05, float(nn),
+                  torch.arange(8, device=dev), torch.arange(B, device=dev))
+            grid, rows = ap._rows(nn, sms)
+            coop = ap.ActivePlan(grid, rows, True, True, ap._smem(
+                B, 4, grid, rows, True, True, False, True), False)
+            clus = ap.on_route(ap.ActivePlan(*ap._rows(nn, 16), True, True, 0),
+                               True, B, 4)
+            for name, pl in (("cluster", clus), ("coop", coop)):
+                out[f"K1n{nn}_{name}"] = _ms(lambda: ap.fused_active_pass(
+                    *an, inner="ista", iters=16, plan=pl), 100)
+                out[f"K1n{nn}_{name}"]["plan"] = pl._asdict()
+            del pn, sn, an
+    lib = _build.library()
+    if getattr(lib, "cdt_probe_launch", None) is not None and routes:
+        stream = _build.stream(dev)
+        gram = prob.Kb                   # 64 KB, read by every CTA
+        for name, cl in (("coop", 0), ("cluster", 1)):
+            pl = ap.on_route(plan, bool(cl), B, 4)
+            for nbar, nbytes in ((0, 0), (1, 0), (2, 0), (1, gram.numel() * 4)):
+                key = f"probe_{name}_b{nbar}" + ("_gram" if nbytes else "")
+                out[key] = _ms(lambda: _build.check(lib.cdt_probe_launch(
+                    cl, pl.grid, pl.smem, nbar, gram.data_ptr(), nbytes,
+                    stream), "probe"), 200)
+    del prob, st, args
+
+    bp = bench_problem(dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    cols = torch.unique(torch.cat([bp.support, torch.randperm(
+        bp.X.shape[1], generator=g, device=dev)[:1024]]))[:1024]
+    n = bp.X.shape[0]
+    ws = block_cd.build_blocked("ls", bp.opts.replace(cache_gram=True),
+                                torch.ones(1024, device=dev),
+                                X=bp.X[:, cols].contiguous(), y=bp.y)
+    del bp
+    r = torch.randn(n, generator=g, device=dev)
+    out["K5ws"] = _ms(lambda: gs.fused_gradient_sweep(ws.Xwb, r), 200)
+    out["K5ws_matmul"] = _ms(lambda: torch.matmul(r, ws.Xwb), 200)
+    if routes:
+        pl = gs.SweepPlan(8, 16, -(-n // 16), 128, True)
+        out["K5ws_S16"] = _ms(lambda: gs.fused_gradient_sweep(
+            ws.Xwb, r, plan=pl), 200)
+    print(json.dumps(out), flush=True)
+
+
+def stamps_main():
+    """``--stamps``: K1′'s first visit by phase, in SM clock cycles, on
+    each route at 16 and 8 CTAs (FISTA and ``iters = 0``), from a build
+    with ``-DCDT_AP_STAMPS`` (thread 0 of each CTA stamps ``clock64()``):
+    setup (kernel start to the loop), sweep (to the barrier), barrier,
+    gather (the partial c's summed, the solve's vectors set), solve,
+    residual (the update and the next visit's search), tail (the loop's
+    end to the kernel's), each the mean over the CTAs of 100 calls."""
+    import os
+
+    os.environ["CDT_NVCC_FLAGS"] = "-DCDT_AP_STAMPS"
+    import ctypes
+
+    import numpy as np
+
+    import coordinatedescent_jl_tpu_torch as tcd
+    from coordinatedescent_jl_tpu_torch.kernels import _build
+    from coordinatedescent_jl_tpu_torch.kernels import active_pass as ap
+    from coordinatedescent_jl_tpu_torch.ops import block_cd
+    from coordinatedescent_jl_tpu_torch.profile_paths import vc_bench_problem
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda", 0)
+    vp = vc_bench_problem(dev)
+    B, nv = 128, vp.X.shape[0]
+    w = tcd.evaluate(tcd.GaussianKernel(vp.h), vp.z, 0.5)
+    eX = tcd.expand_X(vp.X, vp.z, 0.5, vp.degree)
+    lamw = tcd.std_X(eX, w)
+    prob = block_cd.build_blocked("wls", tcd.CDOptions(), lamw, X=eX,
+                                  y=vp.y, w=w)
+    st = block_cd._init_state("wls", prob, torch.zeros((1, B), device=dev),
+                              None)
+    args = (prob, st.beta, st.r, torch.ones(1, dtype=torch.bool, device=dev),
+            vp.lam0, float(nv), torch.arange(1, device=dev),
+            torch.arange(B, device=dev))
+    lib = _build.library()
+    buf = np.zeros((132, 8), dtype=np.int64)
+    names = ("sweep", "barrier", "gather", "solve", "residual", "loop_end",
+             "tail")
+    out = {}
+    for G in (16, 8):
+        for cl in (True, False):
+            pl = ap.on_route(ap.ActivePlan(G, -(-nv // G), True, True, 0),
+                             cl, B, 4)
+            for iters in (16, 0):
+                rows = []
+                for _ in range(101):
+                    ap.fused_active_pass(*args, kind="wls", inner="ista",
+                                         iters=iters, rsqr=st.rsqr, plan=pl)
+                    torch.cuda.synchronize()
+                    _build.check(lib.cdt_ap_stamps(
+                        buf.ctypes.data_as(ctypes.c_void_p)), "stamps")
+                    rows.append(np.diff(buf[:G], axis=1))
+                d = np.stack(rows[1:]).astype(np.float64)   # (calls, G, 7)
+                key = (f"{'cluster' if cl else 'coop'}_G{G}_iters{iters}")
+                out[key] = {n: round(float(d[:, :, i].mean()), 1)
+                            for i, n in enumerate(names)}
+                out[key]["slowest_sweep"] = round(float(
+                    d[:, :, 0].max(axis=1).mean()), 1)
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if "--small" in sys.argv:
+        small_main()
+    elif "--stamps" in sys.argv:
+        stamps_main()
+    else:
+        main()

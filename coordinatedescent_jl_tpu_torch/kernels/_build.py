@@ -44,10 +44,14 @@ _D = ctypes.c_double
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
     # X, Xw, Kb|0, lamw, border, active, corder, beta_in, r_in, rsqr_in,
-    # beta_out, r_out, maxh, rsqr_out, part_c, part_rs, part_k|0, kred|0,
-    # nb, n, B, grid, rows, keep_x, keep_r, smem, kind, ista, iters, lam0,
-    # n_scale, stream
-    "cdt_active_pass": [_P] * 18 + [_I] * 11 + [_D, _D, _P],
+    # beta_out, r_out, maxh, rsqr_out, part_c|0, part_rs|0, part_k|0,
+    # kred|0, nb, n, B, grid, rows, keep_x, keep_r, smem, cluster, kind,
+    # ista, iters, lam0, n_scale, stream
+    "cdt_active_pass": [_P] * 18 + [_I] * 12 + [_D, _D, _P],
+    # cluster, grid, smem, barriers, src|0, bytes, stream (K1's launch probe)
+    "cdt_probe_launch": [_I] * 4 + [_P, _I, _P],
+    # host buffer of 132 x 8 int64 (a -DCDT_AP_STAMPS build only)
+    "cdt_ap_stamps": [_P],
     # Xwb, r, order, part, out, n_need, n, B, R, stream
     "cdt_rsweep": [_P] * 5 + [_I] * 4 + [_P],
     # c, beta, drift, adiag, lamw, validf, xwnorm, scal, need, ub, cand,
@@ -58,10 +62,10 @@ _SIGNATURES = {
     "cdt_check_b": [_P] * 13 + [_I] * 3 + [_P],
     # phase_b, &ctas (int)
     "cdt_check_resident": [_I, _P],
-    # X, r, part|0, out, nb, n, W, split, rows, grid, stream (both K5
-    # instantiations)
-    "cdt_dense_sweep": [_P] * 4 + [_I] * 6 + [_P],
-    "cdt_grad64": [_P] * 4 + [_I] * 6 + [_P],
+    # X, r, part|0, out, nb, n, W, split, rows, grid, cluster, stream (both
+    # K5 instantiations)
+    "cdt_dense_sweep": [_P] * 4 + [_I] * 7 + [_P],
+    "cdt_grad64": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -90,7 +94,10 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(repr((COMPILE_FLAGS, EXTRA_FLAGS)).encode())
+    # CDT_NVCC_FLAGS: extra flags for a measurement build (kernel_ab.py
+    # --stamps), part of the library's name
+    flags = [*COMPILE_FLAGS, *os.environ.get("CDT_NVCC_FLAGS", "").split()]
+    digest = hashlib.sha256(repr((flags, EXTRA_FLAGS)).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
@@ -102,7 +109,7 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
         # one nvcc per source, all started together
-        _run_all([[nvcc, *COMPILE_FLAGS, *EXTRA_FLAGS.get(src.name, []),
+        _run_all([[nvcc, *flags, *EXTRA_FLAGS.get(src.name, []),
                    "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
                   for src, obj in zip(sources, objs)])
         tmp = BUILD_DIR / f"{tag}.so"
@@ -114,8 +121,8 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{name}_{suffix}", None)
+        for suffix in ("", "_f32", "_f64"):
+            fn = getattr(lib, f"{name}{suffix}", None)
             if fn is None:
                 continue
             fn.argtypes = argtypes

@@ -17,13 +17,20 @@ minimizer and ``‖r‖²`` carried through the coordinates), then
 ``r -= X_b·Δβ_b``.
 
 Design on the H100 (see the CUDA source for the details): the TPU kernel
-relies on its grid running in order on one core; here one cooperative
-launch per pass runs a co-resident grid whose CTAs each own a slice of
-the rows of r for the whole pass, find the visit order on the device (no
-host read of ``n_active``), meet at a grid barrier per visit and solve
-each block redundantly.  :func:`plan_active_pass` sizes the grid and the
-shared memory.  Per visit it is bounded by the barrier's latency, the
-Gram's read from L2 and the solve's chain of steps.
+relies on its grid running in order on one core; here one launch per pass
+runs G CTAs that each own a slice of the rows of r for the whole pass,
+find the visit order on the device (no host read of ``n_active``), meet
+at a barrier per visit and solve each block redundantly.
+:func:`plan_active_pass` sizes the grid and the shared memory and picks
+the route: where at most 16 CTAs of at most 64 rows keep every row of r
+and of X_b in shared memory (n up to 1,024 at B = 128 in f32, the
+resident kernel's regime) the CTAs are one thread-block cluster, launched
+with no co-residency query and no scratch, their partial sums read out of
+each other's shared memory, the Gram multicast to all of them by bulk
+copies; else a cooperative launch of up to one CTA an SM exchanges them
+through global scratch.  The two routes give the same bits at the same G
+and rows.  Per visit it is bounded by the barrier's latency, the Gram's
+read from L2 and the solve's chain of steps.
 
 ``LAUNCHES_KIND[kind][dtype is float64]`` counts the wrapper calls that
 launched the kernel (float64: the polishes' inner solves).  The plain twin
@@ -51,41 +58,84 @@ _MAX_B = 128       # widest block the kernel takes (K fits shared memory)
 _AP_THREADS = 512
 _AP_NVEC = 9
 _AP_MIN_ROWS = 32
+_MAX_CLUSTER = 16           # CTAs of the largest cluster (csrc/common.cuh)
+# the most rows a CTA of the cluster route owns: at 125 and 256 rows (n =
+# 2,000 and 4,096, f32, B = 128) its 16 CTAs measured 2 % and 15 % slower
+# than the cooperative route's CTA an SM (PERF.md §6)
+_CLUSTER_MAX_ROWS = 64
 SMEM_OPTIN_H100 = 232_448   # shared memory one CTA may opt in to (H100)
 
 
 class ActivePlan(NamedTuple):
-    grid: int      # co-resident CTAs
+    grid: int      # CTAs (co-resident, or one cluster)
     rows: int      # rows of r (and of each X_b) a CTA owns
     keep_x: bool   # the CTA keeps its rows of X_b in shared memory
     keep_r: bool   # ... and its rows of r (else they live in r_out)
     smem: int      # dynamic shared memory per CTA, bytes
+    cluster: bool = False   # the cluster route (else the cooperative one)
+
+
+def _smem(B: int, itemsize: int, grid: int, rows: int, keep_x: bool,
+          keep_r: bool, cluster: bool, gram: bool) -> int:
+    """Bytes of ``csrc/active_pass.cu::ap_layout``: a 16-byte header, the
+    row-group sums (16 bytes a thread), on the cluster route the partial
+    c's of two parities, the partial ‖r‖² and the Gram copies' mbarrier
+    (32 bytes) and without a Gram
+    the CTA's slice of the summed Gram (``ceil(B² / grid)`` entries, in
+    16-byte steps), the kept rows of X_b, the Gram at row stride
+    ``B + 128 / itemsize``, nine B-long vectors, 32 reduction slots and
+    the kept rows of r."""
+    v = 16 // itemsize
+    ks = 0 if gram or not cluster else -(-(-(-B * B // grid)) // v) * v
+    elems = (_AP_THREADS * v + (2 * B + 2 * v if cluster else 0) + ks
+             + rows * B * int(keep_x) + B * (B + 128 // itemsize)
+             + _AP_NVEC * B + 32 + rows * int(keep_r))
+    return 16 + itemsize * elems
+
+
+def _rows(n: int, most: int):
+    """(CTAs, rows a CTA) for ``n`` rows on at most ``most`` CTAs of
+    ``_AP_MIN_ROWS`` rows or more, no CTA without rows."""
+    grid = max(1, min(most, -(-n // _AP_MIN_ROWS)))
+    rows = -(-n // grid)
+    return -(-n // rows), rows
 
 
 @functools.lru_cache(maxsize=64)
 def plan_active_pass(n: int, B: int, itemsize: int, sms: int,
-                     smem_limit: int = SMEM_OPTIN_H100) -> ActivePlan:
-    """K1's launch plan: one CTA per SM (the Gram alone takes 64-128 KB of
-    shared memory), fewer when n gives a CTA under ``_AP_MIN_ROWS`` rows;
-    each keeps its rows of r, then its rows of X_b, in shared memory while
-    they fit under ``smem_limit``.  The bytes mirror
-    ``csrc/active_pass.cu::ap_layout``: a 16-byte header, the row-group
-    sums (16 bytes a thread), the kept rows of X_b, the Gram at row
-    stride ``B + 128 / itemsize``, nine B-long vectors, 32 reduction
-    slots and the kept rows of r."""
-    grid = max(1, min(sms, -(-n // _AP_MIN_ROWS)))
-    rows = -(-n // grid)
-    grid = -(-n // rows)             # no CTA without rows
-    ld = B + 128 // itemsize
-    base = 16 + itemsize * (_AP_THREADS * (16 // itemsize) + B * ld
-                            + _AP_NVEC * B + 32)
+                     smem_limit: int = SMEM_OPTIN_H100,
+                     gram: bool = True) -> ActivePlan:
+    """K1's launch plan, for a pass with (``gram``) or without a cached
+    Gram.  The cluster route where at most ``_MAX_CLUSTER`` CTAs of
+    ``_AP_MIN_ROWS`` to ``_CLUSTER_MAX_ROWS`` rows keep every row of r and
+    of X_b in shared memory under ``smem_limit``.  Else the cooperative
+    route: one
+    CTA per SM (the Gram alone takes 64-128 KB of shared memory), fewer
+    when n gives a CTA under ``_AP_MIN_ROWS`` rows; each keeps its rows of
+    r, then its rows of X_b, in shared memory while they fit."""
+    base = _smem(B, itemsize, 1, 0, False, False, False, True)
     if base > smem_limit:
         raise ValueError(f"active-pass kernel: block width {B} needs "
                          f"{base} bytes of shared memory > {smem_limit}")
+    grid, rows = _rows(n, _MAX_CLUSTER)
+    smem = _smem(B, itemsize, grid, rows, True, True, True, gram)
+    if rows <= _CLUSTER_MAX_ROWS and smem <= smem_limit:
+        return ActivePlan(grid, rows, True, True, smem, True)
+    grid, rows = _rows(n, sms)
     keep_r = base + itemsize * rows <= smem_limit
     keep_x = keep_r and base + itemsize * rows * (B + 1) <= smem_limit
-    smem = base + itemsize * rows * (int(keep_r) + B * int(keep_x))
-    return ActivePlan(grid, rows, keep_x, keep_r, smem)
+    return ActivePlan(grid, rows, keep_x, keep_r,
+                      _smem(B, itemsize, grid, rows, keep_x, keep_r, False,
+                            gram))
+
+
+def on_route(plan: ActivePlan, cluster: bool, B: int, itemsize: int,
+             gram: bool = True) -> ActivePlan:
+    """``plan``'s CTAs and rows on the other route (or the same), for the
+    tests and ``chip_smoke.py``'s route-against-route check."""
+    return plan._replace(cluster=cluster, smem=_smem(
+        B, itemsize, plan.grid, plan.rows, plan.keep_x, plan.keep_r,
+        cluster, gram))
 
 
 def _prefetch_order(active, border):
@@ -106,11 +156,13 @@ def _prefetch_order(active, border):
 
 def fused_active_pass(prob, beta_b, r, active, lam0, n_scale, border, corder,
                       *, kind: str = "ls", rsqr=None, inner: str = "exact",
-                      iters: int = 16):
+                      iters: int = 16, plan: ActivePlan | None = None):
     """One fused active-set pass; returns ``(beta_b, r, maxh, rsqr)``.
 
     CUDA tensors launch the kernels (or raise); CPU tensors run the plain
-    twin :func:`fused_active_pass_plain`."""
+    twin :func:`fused_active_pass_plain`.  ``plan`` (default
+    :func:`plan_active_pass`'s) lets a test or ``chip_smoke.py`` launch
+    another route (:func:`on_route`)."""
     if rsqr is None:
         rsqr = torch.zeros((), dtype=beta_b.dtype, device=beta_b.device)
     if not beta_b.is_cuda:
@@ -118,11 +170,12 @@ def fused_active_pass(prob, beta_b, r, active, lam0, n_scale, border, corder,
                                        n_scale, border, corder, kind=kind,
                                        rsqr=rsqr, inner=inner, iters=iters)
     return _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale,
-                                   border, corder, kind, rsqr, inner, iters)
+                                   border, corder, kind, rsqr, inner, iters,
+                                   plan)
 
 
 def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
-                            corder, kind, rsqr, inner, iters):
+                            corder, kind, rsqr, inner, iters, plan):
     # the checks run on every pass (hundreds per solve): plain comparisons,
     # messages built only on failure
     nb, B = prob.lamw.shape
@@ -158,20 +211,28 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
         border = border.to(torch.int64)
     if corder.dtype != torch.int64:
         corder = corder.to(torch.int64)
-    plan = plan_active_pass(n, B, dt.itemsize, _build.sm_count(dev),
-                            _build.smem_optin(dev))
     gram = Kb is not None
-    # outputs: beta, r, maxh and rsqr in one allocation; scratch: the
-    # partial c's (2 parities x G x B) and the partial sums of r^2 (2
-    # parities x G, the sqrt kind's), and without a Gram the partial Grams
-    # (G x B x B) and their sum (B x B)
+    if plan is None:
+        plan = plan_active_pass(n, B, dt.itemsize, _build.sm_count(dev),
+                                _build.smem_optin(dev), gram)
+    # outputs: beta, r, maxh and rsqr in one allocation
     out = torch.empty((nb * B + n + 2,), dtype=dt, device=dev)
-    nc = 2 * plan.grid * B
-    nrs = 2 * plan.grid
-    nk = 0 if gram else plan.grid * B * B
-    scratch = torch.empty((nc + nrs + (0 if gram else nk + B * B),),
-                          dtype=dt, device=dev)
-    op, sp, w = out.data_ptr(), scratch.data_ptr(), dt.itemsize
+    op, w = out.data_ptr(), dt.itemsize
+    if plan.cluster:
+        # the partials stay in the cluster's shared memory: no scratch
+        part = [None] * 4
+    else:
+        # scratch: the partial c's (2 parities x G x B) and the partial
+        # sums of r^2 (2 parities x G, the sqrt kind's), and without a Gram
+        # the partial Grams (G x B x B) and their sum (B x B)
+        nc = 2 * plan.grid * B
+        nrs = 2 * plan.grid
+        nk = 0 if gram else plan.grid * B * B
+        scratch = torch.empty((nc + nrs + (0 if gram else nk + B * B),),
+                              dtype=dt, device=dev)
+        sp = scratch.data_ptr()
+        part = [sp, sp + nc * w, None if gram else sp + (nc + nrs) * w,
+                None if gram else sp + (nc + nrs + nk) * w]
     lib = _build.library()
     fn = lib.cdt_active_pass_f32 if dt == torch.float32 else \
         lib.cdt_active_pass_f64
@@ -180,11 +241,9 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
              prob.lamw.data_ptr(), border.data_ptr(), active.data_ptr(),
              corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(),
              rsqr.data_ptr(), op, op + nb * B * w, op + (nb * B + n) * w,
-             op + (nb * B + n + 1) * w, sp, sp + nc * w,
-             None if gram else sp + (nc + nrs) * w,
-             None if gram else sp + (nc + nrs + nk) * w,
+             op + (nb * B + n + 1) * w, *part,
              nb, n, B, plan.grid, plan.rows, int(plan.keep_x),
-             int(plan.keep_r), plan.smem, _KINDS[kind],
+             int(plan.keep_r), plan.smem, int(plan.cluster), _KINDS[kind],
              int(inner == "ista"), int(iters), float(lam0), float(n_scale),
              _build.stream(dev))
     _build.check(err, "active_pass")

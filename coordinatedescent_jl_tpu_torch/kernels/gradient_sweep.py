@@ -21,11 +21,15 @@ in two instantiations of one kernel —
   float64 accumulation and output (the certificate of the f64 polish and
   the compensated gaps).
 
-Bounded by device-memory bandwidth (X read once): 16-byte loads, a
-persistent grid over (column tile, row slice) items laid out by
-:func:`plan_dense_sweep`.  At the bench's 782 tiles a slice is all n rows:
-one launch, no partials; the 8-tile working set splits its rows and adds
-the slices' partials in order in a second launch.
+Bounded by device-memory bandwidth (X read once): 16-byte loads over
+(column tile, row slice) items laid out by :func:`plan_dense_sweep`, in
+one of three routes.  At the bench's 782 tiles a slice is all n rows: a
+persistent grid, one launch, no partials.  Few tiles of few rows (the
+varying-coefficient scan's one tile of 500 rows) split into S <= 16
+slices that form one thread-block cluster a tile: the slices' partials
+stay in shared memory and CTA 0 adds them in order (one launch).  The
+8-tile working set at n = 10K splits 66 ways and adds the slices' partials
+in order in a second launch.
 
 ``LAUNCHES`` (K2), ``LAUNCHES_DENSE`` (K5 blocked) and ``LAUNCHES_F64``
 (K5 f64) count the wrapper calls that launched a kernel.
@@ -47,12 +51,18 @@ LAUNCHES_F64 = 0
 _ROW_CHUNK = 256   # K2: rows per partial-sum CTA
 # K5's plan (csrc/dense_sweep.cu): columns per work item, CTAs (of 128
 # threads) per SM that the persistent grid may hold, the CTAs per SM that
-# the work items should give before the rows are split, and the fewest
-# rows a slice may have
+# the work items should give before the rows are split, the fewest rows a
+# slice may have (the partials of more slices cost their HBM traffic), the
+# CTAs of the largest cluster (csrc/common.cuh MAX_CLUSTER), and the fewest
+# rows of a slice inside one cluster (the f32 blocked sweep of n <=
+# _SW_CLUSTER_MAX_N rows)
 _SW_TILE = 128
 _SW_CTAS_PER_SM = 16
 _SW_FILL = 4
 _SW_MIN_ROWS = 128
+_MAX_CLUSTER = 16
+_SW_CLUSTER_ROWS = 32
+_SW_CLUSTER_MAX_N = _MAX_CLUSTER * _SW_MIN_ROWS
 # columns per float64 chunk of grad_f64_plain: bounds the f64 copy of X to
 # n·8192·8 bytes (655 MB at n = 10K) instead of a whole f64 X
 _F64_COLS = 8192
@@ -114,36 +124,51 @@ class SweepPlan(NamedTuple):
     tiles: int   # column tiles of _SW_TILE columns (a block's last is ragged)
     split: int   # row slices per tile (1: no partials, one launch)
     rows: int    # rows per slice
-    grid: int    # CTAs of the persistent grid (the kernel caps it further
-                 # by the occupancy the card reports)
+    grid: int    # CTAs: of the persistent grid (the kernel caps it further
+                 # by the occupancy the card reports), or every item
+    cluster: bool = False   # a tile's slices are one cluster (one launch)
 
 
 @functools.lru_cache(maxsize=64)
-def plan_dense_sweep(nb: int, n: int, W: int, sms: int) -> SweepPlan:
+def plan_dense_sweep(nb: int, n: int, W: int, sms: int,
+                     resplit: bool = False) -> SweepPlan:
     """K5's launch plan for ``nb`` blocks of ``n`` rows and row stride
     ``W`` on a card with ``sms`` multiprocessors: the rows are split only
     when the column tiles alone cannot give ``_SW_FILL`` CTAs per SM (the
-    8-tile working set), and never below ``_SW_MIN_ROWS`` rows a slice."""
+    8-tile working set), and never below ``_SW_MIN_ROWS`` rows a slice.
+    ``resplit`` (the f32 blocked sweep; the f64 forms keep the sums'
+    order): at most ``_SW_CLUSTER_MAX_N`` rows split into up to
+    ``_MAX_CLUSTER`` slices of ``_SW_CLUSTER_ROWS`` or more.  Where a tile
+    has 2 to ``_MAX_CLUSTER`` slices they are one cluster, and the grid is
+    every item; more slices add their partials in a second launch."""
     tiles = nb * -(-W // _SW_TILE)
     want = _SW_FILL * sms
     split = 1
     if tiles < want:
-        split = max(1, min(-(-want // tiles), n // _SW_MIN_ROWS))
+        fill = -(-want // tiles)
+        if resplit and n <= _SW_CLUSTER_MAX_N:
+            split = max(1, min(_MAX_CLUSTER, fill, -(-n // _SW_CLUSTER_ROWS)))
+        else:
+            split = max(1, min(fill, n // _SW_MIN_ROWS))
     rows = -(-n // split)
     split = -(-n // rows)            # no empty slice
+    if 1 < split <= _MAX_CLUSTER:
+        return SweepPlan(tiles, split, rows, tiles * split, True)
     return SweepPlan(tiles, split, rows,
                      min(tiles * split, _SW_CTAS_PER_SM * sms))
 
 
-def _dense_sweep(fn, X, r, out, nb: int, n: int, W: int, name: str):
+def _dense_sweep(fn, X, r, out, nb: int, n: int, W: int, name: str, plan):
     """Launch one K5 instantiation: ``out`` (nb·W columns) ← X'r over
-    row stride ``W``; a partials buffer only when the plan splits rows."""
-    plan = plan_dense_sweep(nb, n, W, _build.sm_count(out.device))
+    row stride ``W``; a partials buffer only when the plan splits rows
+    outside a cluster."""
     part = (torch.empty((plan.split, nb * W), dtype=out.dtype,
-                        device=out.device) if plan.split > 1 else None)
+                        device=out.device)
+            if plan.split > 1 and not plan.cluster else None)
     err = fn(X.data_ptr(), r.data_ptr(),
              None if part is None else part.data_ptr(), out.data_ptr(), nb, n,
-             W, plan.split, plan.rows, plan.grid, _build.stream(out.device))
+             W, plan.split, plan.rows, plan.grid, int(plan.cluster),
+             _build.stream(out.device))
     _build.check(err, name)
 
 
@@ -156,9 +181,19 @@ def _require_sweep_inputs(name, X, r, xdtypes, rdtype, n):
         "on {}", name, n, rdtype, X.device)
 
 
-def fused_gradient_sweep(Xwb, r):
+def sweep_plan(Xwb) -> SweepPlan:
+    """The plan :func:`fused_gradient_sweep` launches for the blocked
+    design ``Xwb`` (a CUDA tensor): the f32 sweep re-splits small n."""
+    nb, n, B = Xwb.shape
+    return plan_dense_sweep(nb, n, B, _build.sm_count(Xwb.device),
+                            Xwb.dtype == torch.float32)
+
+
+def fused_gradient_sweep(Xwb, r, *, plan: SweepPlan | None = None):
     """Blocked ``c[b] = Xw_b'r`` for every block, ``(nb, B)``.  CUDA tensors
-    launch K5 (or raise); CPU tensors run the plain twin."""
+    launch K5 (or raise); CPU tensors run the plain twin.  ``plan``
+    (default :func:`sweep_plan`'s) lets a test or ``chip_smoke.py`` launch
+    another route at the same slices."""
     if not Xwb.is_cuda:
         return fused_gradient_sweep_plain(Xwb, r)
     global LAUNCHES_DENSE
@@ -169,7 +204,8 @@ def fused_gradient_sweep(Xwb, r):
     lib = _build.library()
     fn = (lib.cdt_dense_sweep_f32 if Xwb.dtype == torch.float32
           else lib.cdt_dense_sweep_f64)
-    _dense_sweep(fn, Xwb, r, out, nb, n, B, "dense_sweep")
+    _dense_sweep(fn, Xwb, r, out, nb, n, B, "dense_sweep",
+                 plan or sweep_plan(Xwb))
     LAUNCHES_DENSE += 1
     if _build.NAN_CHECK:
         _build.check_nans("dense_sweep", out)
@@ -183,11 +219,12 @@ def fused_gradient_sweep_plain(Xwb, r):
     return torch.matmul(r, Xwb)
 
 
-def grad_f64(X, r64):
+def grad_f64(X, r64, *, plan: SweepPlan | None = None):
     """``X'r`` with float64 accumulation, ``(p,)`` float64, for a dense
     ``(n, p)`` design ``X`` (float32 or float64) and a float64 ``r``.  CUDA
     tensors launch K5's f64-accumulating instantiation (or raise); CPU
-    tensors run the plain twin."""
+    tensors run the plain twin.  ``plan`` as :func:`fused_gradient_sweep`'s
+    (default: :func:`plan_dense_sweep`'s slices, never re-split)."""
     if not X.is_cuda:
         return grad_f64_plain(X, r64)
     global LAUNCHES_F64
@@ -198,7 +235,8 @@ def grad_f64(X, r64):
     lib = _build.library()
     fn = lib.cdt_grad64_f32 if X.dtype == torch.float32 else \
         lib.cdt_grad64_f64
-    _dense_sweep(fn, X, r64, out, 1, n, p, "grad64")
+    _dense_sweep(fn, X, r64, out, 1, n, p, "grad64",
+                 plan or plan_dense_sweep(1, n, p, _build.sm_count(X.device)))
     LAUNCHES_F64 += 1
     if _build.NAN_CHECK:
         _build.check_nans("grad64", out)

@@ -161,6 +161,130 @@ def test_active_pass_kernel_kinds_match_twin(dev, kind, n, B, inner, gram,
         assert float(sk) == float(kw["rsqr"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gram", [False, True])
+@pytest.mark.parametrize("inner", ["ista", "exact"])
+@pytest.mark.parametrize("kind", ["ls", "wls", "sqrt"])
+def test_active_pass_cluster_route_matches_cooperative_bitwise(
+        dev, kind, inner, gram, dtype):
+    """K1's cluster route (n = 500: 16 CTAs of 32 rows, one cluster, the
+    partials read out of the CTAs' shared memory) against the cooperative
+    route at the same CTAs and rows (the partials through global scratch):
+    the same bits in β, r, maxh and rsqr, over six blocks (so both visit
+    parities), and both near the twin."""
+    n, B = 500, 128
+    prob, st = _kind_problem(dev, dtype, kind, n, B, gram)
+    nb = prob.lamw.shape[0]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = active_pass.plan_active_pass(
+        n, B, itemsize,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        torch.cuda.get_device_properties(dev).shared_memory_per_block_optin,
+        gram)
+    assert plan.cluster and (plan.grid, plan.rows) == (16, 32)
+    lam0 = 0.05 * n ** 0.5 if kind == "sqrt" else 0.05
+    args = (prob, st.beta, st.r, st.active, lam0, float(n),
+            torch.arange(nb, device=dev), torch.arange(B, device=dev))
+    kw = dict(kind=kind, inner=inner, rsqr=torch.dot(st.r, st.r))
+    coop = active_pass.on_route(plan, False, B, itemsize, gram)
+    outk = active_pass.fused_active_pass(*args, **kw, plan=plan)
+    outc = active_pass.fused_active_pass(*args, **kw, plan=coop)
+    for a, c in zip(outk, outc):
+        assert torch.equal(a, c)
+    assert torch.equal(outk[0], active_pass.fused_active_pass(*args, **kw)[0])
+    bp, rp, mp, sp = active_pass.fused_active_pass_plain(*args, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(outk[0], bp, atol=tol, rtol=0)
+    torch.testing.assert_close(outk[1], rp, atol=10 * tol, rtol=0)
+    torch.testing.assert_close(outk[2], mp, atol=tol, rtol=0)
+    if kind == "sqrt":
+        torch.testing.assert_close(outk[3], sp, atol=0,
+                                   rtol=1e-11 if itemsize == 8 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_active_pass_cluster_momentum_past_the_stored_steps(dev, dtype):
+    """The cluster route reads the first 256 FISTA momentum coefficients
+    from its per-device table and computes the steps past it as the
+    cooperative route does: the same bits at 16, 256 and 300 steps."""
+    n, B = 300, 16
+    prob, st = _problem(dev, dtype, n=n, p=80, B=B, gram=True)
+    nb = prob.lamw.shape[0]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = active_pass.plan_active_pass(n, B, itemsize, 132)
+    assert plan.cluster
+    args = (prob, st.beta, st.r, st.active, 0.05, float(n),
+            torch.arange(nb, device=dev), torch.arange(B, device=dev))
+    for iters in (16, 256, 300):
+        outk = active_pass.fused_active_pass(*args, inner="ista",
+                                             iters=iters, plan=plan)
+        outc = active_pass.fused_active_pass(
+            *args, inner="ista", iters=iters,
+            plan=active_pass.on_route(plan, False, B, itemsize))
+        for a, c in zip(outk, outc):
+            assert torch.equal(a, c), iters
+
+
+def test_active_pass_cluster_route_refuses_a_larger_cluster(dev):
+    """A cluster of more than 16 CTAs is refused, not run another way."""
+    prob, st = _problem(dev, torch.float32, n=1000, gram=True)
+    nb = prob.lamw.shape[0]
+    plan = active_pass.plan_active_pass(1000, 128, 4, 132)
+    wide = active_pass.on_route(plan._replace(grid=32, rows=32), True, 128, 4)
+    n0 = active_pass.LAUNCHES_KIND["ls"][0]
+    with pytest.raises(RuntimeError, match="active_pass failed"):
+        active_pass.fused_active_pass(
+            prob, st.beta, st.r, st.active, 0.05, 1000.0,
+            torch.arange(nb, device=dev), torch.arange(128, device=dev),
+            inner="ista", plan=wide)
+    assert active_pass.LAUNCHES_KIND["ls"][0] == n0
+
+
+@pytest.mark.parametrize("case", ["vc", "tiles6", "f64", "grad64", "grad64_odd"])
+def test_dense_sweep_cluster_route_matches_two_kernels_bitwise(dev, case):
+    """K5's cluster route (a tile's S slices one cluster, CTA 0 adding the
+    partials in slice order out of shared memory) against the two-kernel
+    route at the same S (the partials through HBM, the reduce kernel): the
+    same bits.  The varying-coefficient block (1, 500, 128) at S = 3 and
+    16, six tiles of n = 1000 rows, the f64 blocked form, and grad_f64 at
+    p = 100 and 701 (scalar loads) with its unchanged slices."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(4)
+    f64 = case == "f64"
+    if case.startswith("grad64"):
+        p = 701 if case == "grad64_odd" else 100
+        X = torch.as_tensor(rng.standard_normal((1000, p)),
+                            dtype=torch.float32, device=dev)
+        r = torch.as_tensor(rng.standard_normal(1000), dtype=torch.float64,
+                            device=dev)
+        plan = gradient_sweep.plan_dense_sweep(1, 1000, p, sms)
+        assert plan.cluster and 1 < plan.split <= 16
+        plans = [plan]
+        run = lambda pl: gradient_sweep.grad_f64(X, r, plan=pl)  # noqa: E731
+    else:
+        nb, n = (1, 500) if case == "vc" else (6, 1000)
+        dt = torch.float64 if f64 else torch.float32
+        Xwb = torch.as_tensor(rng.standard_normal((nb, n, 128)), dtype=dt,
+                              device=dev)
+        r = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=dev)
+        plan = gradient_sweep.sweep_plan(Xwb)
+        assert plan.cluster
+        plans = [plan]
+        if case == "vc":
+            assert (plan.split, plan.rows) == (16, 32)
+            plans.append(gradient_sweep.SweepPlan(1, 3, 167, 3, True))
+        run = lambda pl: gradient_sweep.fused_gradient_sweep(  # noqa: E731
+            Xwb, r, plan=pl)
+    for pl in plans:
+        two = pl._replace(cluster=False, grid=pl.tiles * pl.split)
+        ck, c2 = run(pl), run(two)
+        assert torch.equal(ck, c2), pl
+    if case == "vc":
+        cp = gradient_sweep.fused_gradient_sweep_plain(Xwb, r)
+        torch.testing.assert_close(ck, cp, atol=1e-5 * float(cp.abs().max()),
+                                   rtol=0)
+
+
 def test_active_pass_kernel_refuses_a_second_design_unless_wls(dev):
     prob, st = _kind_problem(dev, torch.float32, "wls", 1000, 128, True)
     nb = prob.lamw.shape[0]
@@ -372,6 +496,29 @@ def test_check_kernels_are_one_launch_and_deterministic(dev, screen):
     assert sum("check_b_kernel" in k for k in kernels) == 1, kernels
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+def test_small_n_routes_are_one_kernel_and_no_host_read(dev):
+    """At the varying-coefficient point K1 (wls, both inners) and K5 each
+    launch one device kernel a call and read nothing to the host.  (After
+    the file's other one-call traces: a trace taken before the heavy
+    solves of test_solve_kinds_kernels_match_plain made the tracer drop
+    the first kernel of every later trace in the process.)"""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    prob, st, lam0 = _vc_point(dev)
+    one = torch.arange(1, device=dev)
+    corder = torch.arange(128, device=dev)
+    act = torch.ones(1, dtype=torch.bool, device=dev)
+    for inner in ("ista", "exact"):
+        reads, names, _, counted, _ = trace_one_call(
+            lambda: active_pass.fused_active_pass(
+                prob, st.beta, st.r, act, lam0, 500.0, one, corder,
+                kind="wls", inner=inner, rsqr=st.rsqr))
+        assert (reads, len(names), counted) == (0, 1, 1), names
+    reads, names, _, counted, _ = trace_one_call(
+        lambda: gradient_sweep.fused_gradient_sweep(prob.Xwb, st.r))
+    assert (reads, len(names), counted) == (0, 1, 1), names
 
 
 def test_lasso_kernels_match_plain_path(dev):

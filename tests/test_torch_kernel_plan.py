@@ -1,8 +1,10 @@
 """The launch planners of the port's hand-written kernels, on the CPU.
 
-``kernels/active_pass.py::plan_active_pass`` sizes K1's cooperative grid
-and its shared memory; ``kernels/gradient_sweep.py::plan_dense_sweep``
-lays out K5's persistent grid and decides when it splits the rows;
+``kernels/active_pass.py::plan_active_pass`` picks K1's route (one
+thread-block cluster of at most 16 CTAs, or a cooperative grid) and sizes
+its grid and shared memory; ``kernels/gradient_sweep.py::plan_dense_sweep``
+lays out K5's items, decides when it splits the rows and when a tile's
+slices are one cluster;
 ``kernels/check.py::plan_check`` sizes K3/K4's cooperative grid.  All are
 pure Python, so they are held here against hand-worked cases for an H100
 (132 SMs, 232,448 bytes of shared memory a CTA may opt in to).
@@ -103,16 +105,91 @@ def test_plans_at_the_varying_coefficient_shape():
     n = 500, p = 50 at degree 1, so 100 expanded columns padded to one
     block of B = 128, float32).  K1: 500 rows at 32 or more a CTA give 16
     CTAs of 32 rows (the last 20), each keeping its rows of r and of both
-    designs' block in shared memory: 94,864 bytes of header, sums, Gram,
-    vectors and slots, plus 32 rows of r and 32 × 128 of X_b (16,512).
-    K5: one column tile, split over 3 slices of 167 rows (fewer than
-    4 CTAs an SM would need slices under 128 rows).  K3/K4: one CTA, the
-    row kept in registers, whatever the residency."""
+    designs' block in shared memory, on the cluster route: 94,864 bytes of
+    header, sums, Gram, vectors and slots, 1,056 of the partial c's (two
+    parities) and ‖r‖² the cluster reads and the Gram copies' mbarrier,
+    plus 32 rows of r and 32 × 128 of X_b (16,512).  K5 (f32, re-split): one column tile over 16 slices of
+    32 rows (the last 20), one cluster; the f64 forms keep the 3 slices of
+    167 rows that 4 CTAs an SM and 128 rows a slice give, also as one
+    cluster.  K3/K4: one CTA, the row kept in registers, whatever the
+    residency."""
     k1 = active_pass.plan_active_pass(500, 128, 4, SMS, OPTIN)
-    assert k1 == active_pass.ActivePlan(16, 32, True, True, 111_376)
+    assert k1 == active_pass.ActivePlan(16, 32, True, True, 112_432, True)
     assert k1.grid * k1.rows - 500 == 12
+    k5 = gradient_sweep.plan_dense_sweep(1, 500, 128, SMS, resplit=True)
+    assert k5 == gradient_sweep.SweepPlan(1, 16, 32, 16, True)
     k5 = gradient_sweep.plan_dense_sweep(1, 500, 128, SMS)
-    assert k5 == gradient_sweep.SweepPlan(1, 3, 167, 3)
+    assert k5 == gradient_sweep.SweepPlan(1, 3, 167, 3, True)
     for resident in (2, 3, 4):
         assert check.plan_check(1, 128, SMS, resident) == check.CheckPlan(
             1, 1, True)
+
+
+@pytest.mark.parametrize("itemsize, gram, most", [
+    (4, True, 1024), (4, False, 1024), (8, True, 1008), (8, False, 880)])
+def test_active_pass_cluster_route_bounds(itemsize, gram, most):
+    """K1 at B = 128 takes the cluster route up to the largest n whose 16
+    CTAs of at most 64 rows keep every row of r and X_b in shared memory,
+    and the cooperative route from one row past it.  f32: 64 rows (16 x
+    64 = 1,024; shared memory would hold 264 rows with a Gram, 256
+    without, but 16 CTAs of 125 and 256 rows measured slower than the
+    cooperative route).  f64 with a Gram: 165,136 bytes of the cooperative
+    layout, 2,080 of the partials the cluster reads and its mbarrier, and
+    1,032 a row leave 63 rows a CTA; without a Gram each CTA also holds
+    its 1,024-entry slice of the summed Gram (55 rows)."""
+    plan = active_pass.plan_active_pass(most, 128, itemsize, SMS, OPTIN,
+                                        gram)
+    assert plan.cluster and plan.grid == 16 and plan.rows == most // 16
+    assert plan.keep_x and plan.keep_r and plan.smem <= OPTIN
+    past = active_pass.plan_active_pass(most + 1, 128, itemsize, SMS, OPTIN,
+                                        gram)
+    assert not past.cluster and past.grid > 16
+    # the other route at the same CTAs and rows differs only in the
+    # cluster's partials
+    coop = active_pass.on_route(plan, False, 128, itemsize, gram)
+    assert (coop.grid, coop.rows, coop.cluster) == (16, most // 16, False)
+    extra = 2 * 128 + 2 * (16 // itemsize)
+    if not gram:
+        extra += 128 * 128 // 16
+    assert plan.smem - coop.smem == itemsize * extra
+
+
+def test_active_pass_cluster_route_hand_worked():
+    """f32, B = 128, a Gram: n = 500 gives 16 CTAs of 32 rows; n = 100 4
+    CTAs of 25; n = 1,000 16 CTAs of 63 (the cooperative route would
+    take 32 of 32); the bench's n = 10,000 stays cooperative, as before."""
+    plan = active_pass.plan_active_pass
+    assert plan(500, 128, 4, SMS, OPTIN)[:2] == (16, 32)
+    assert plan(100, 128, 4, SMS, OPTIN) == active_pass.ActivePlan(
+        4, 25, True, True, 94_864 + 4 * (264 + 25 * 129), True)
+    big = plan(1000, 128, 4, SMS, OPTIN)
+    assert (big.grid, big.rows, big.cluster) == (16, 63, True)
+    assert not plan(10_000, 128, 4, SMS, OPTIN).cluster
+
+
+@pytest.mark.parametrize("nb, n, W, resplit, want", [
+    # the varying-coefficient block, f32: 16 slices of 32 rows, one cluster
+    (1, 500, 128, True, (16, 32, 16, True)),
+    # the same block in the f64 forms: today's 3 slices, now one cluster
+    (1, 500, 128, False, (3, 167, 3, True)),
+    # grad_f64 on a narrow dense design: 7 slices of 143 rows, unchanged
+    (1, 1000, 100, False, (7, 143, 7, True)),
+    # grad_f64 at n = 10K: 78 slices, more than a cluster: two launches
+    (1, 10_000, 100, False, (78, 129, 78, False)),
+    # the working set at n = 10K: 66 slices and two launches either way
+    (8, 10_000, 128, True, (66, 152, 528, False)),
+    (8, 10_000, 128, False, (66, 152, 528, False)),
+    # 2,048 rows is the largest f32 re-split; one more keeps 128-row slices
+    (1, 2048, 128, True, (16, 128, 16, True)),
+    (1, 2049, 128, True, (16, 129, 16, True)),
+    (1, 4000, 128, True, (31, 130, 31, False)),
+    # the bench's 782 tiles: one slice, the persistent grid
+    (782, 10_000, 128, True, (1, 10_000, 782, False)),
+])
+def test_dense_sweep_cluster_plan(nb, n, W, resplit, want):
+    plan = gradient_sweep.plan_dense_sweep(nb, n, W, SMS, resplit)
+    assert (plan.split, plan.rows, plan.grid, plan.cluster) == want
+    assert plan.split * plan.rows >= n > (plan.split - 1) * plan.rows
+    # a cluster holds at most 16 CTAs, its grid is every item
+    if plan.cluster:
+        assert 2 <= plan.split <= 16 and plan.grid == plan.tiles * plan.split
