@@ -22,22 +22,28 @@ Phases, each failing loudly (exit code 1, no result line):
    against the twins; K5 on the working set's 8 blocks
    and on the full design; then the K2/K5 crossover of the gradient
    refresh; K3 (screen on and off) and K4 on a mid-solve state, with
-   exact masks, one device kernel and no host read per call; then, at the
+   exact masks, one device kernel and no host read per call, and again on
+   8 of its blocks (the lasso's working set) on their plain one-CTA route,
+   held as at one block below; then, at the
    varying-coefficient scan's shape (one grid point's wls problem of 4j:
    n = 500, one block of 128 columns, the JAX package's resident pass
    K1′), K1's wls form (FISTA and exact, cached Gram) on its cluster route
    and K5 on its cluster route (16 slices of one column tile, one cluster),
    each one kernel a call with no host read, and each held bit for bit
    against its previous route at the same plan (K1's cooperative grid of
-   the same CTAs and rows, K5's two kernels at the same slices), then K3
-   with the screen off and K4, each with the device time of one call, and
-   the device time of the library call beside K5 there and on the working
-   set;
+   the same CTAs and rows, K5's two kernels at the same slices), each
+   plan's clusters held at once (the card's occupancy query, at least
+   one), then K3 with the screen off and K4 on their plain one-CTA route,
+   each one kernel a call with no host read and held bit for bit against
+   the cooperative route at one CTA, each with the device time of one call
+   on both routes, and the device time of the library call beside K5 there
+   and on the working set;
 4. the main paths on the bench problem (dense Gaussian X, n = 10,000,
    p = 100,000, scattered s = 100 support, f32), each run with the launch
    counts set to 0 just before it and read just after:
    a. the scan: ``lasso`` at 0.05·λmax and the 100-point ``lasso_path``
-      from 0.5·λmax to 0.05·λmax (``path_batch=0``), with the kernels and
+      from 0.5·λmax to 0.05·λmax (``path_batch=0``), with the kernels (its
+      working sets' checks must launch K3 and K4 on the one-CTA route) and
       with the plain path (``use_pallas=False``); the final point's
       relative duality gap (float64 accumulation) must be <= 1e-5 and the
       plain solves must reach the same support; ``refit_lasso_path`` on
@@ -364,6 +370,81 @@ def main():
             rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bms, bound_by=by, library_ms=library_ms,
                             device_ms=device_ms)
+
+    def check_one_cta(tag, what, a_args, screens):
+        """K3 (each of ``screens``; the first reported as ``K3_<tag>``) and
+        K4 (on phase A's plain outputs at the first) on their one-CTA
+        route: one ``check_a_cta`` / ``check_b_cta`` kernel a call and no
+        host read, masks equal to the twins', bound and maxh within
+        relative 1e-5, every output bit for bit the cooperative route's
+        forced at one CTA, and both routes' device times."""
+        nonlocal ok
+        nb_k = a_args[0].shape[0]
+        plan3 = check._plan(False, nb_k, B, dev.index)
+        plan4 = check._plan(True, nb_k, B, dev.index)
+        if not (plan3.cta and plan4.cta):
+            fail(f"K3/K4 at {nb_k} rows must take the one-CTA route: "
+                 f"{plan3}, {plan4}")
+        same = {}
+
+        def routes(name, fn, coop, plain, nbytes, flops, tol_of, masks_of,
+                   kernel, key):
+            nonlocal ok
+            outk, outp, outc = fn(None), plain(), fn(coop)
+            same[name] = all(torch.equal(x, y) for x, y in zip(outk, outc))
+            masks = masks_of(outk, outp)
+            err, tol = tol_of(outk, outp)
+            ms = cuda_ms(lambda: fn(None), 50)
+            pms = cuda_ms(plain, 20)
+            reads, names, dms = one_call(lambda: fn(None))
+            _, onames, odms = one_call(lambda: fn(coop))
+            report(key, f"{kernel} ({tag})", err, tol, ms, pms,
+                   f"{name}: {what}, one-CTA route; mask mismatches {masks}; "
+                   f"one call: device {dms:.4f} ms, {len(names)} kernel(s) "
+                   f"{[k.split('(')[0] for k in names]}, {reads} host reads; "
+                   f"the cooperative route at one CTA: device {odms:.4f} ms, "
+                   f"{len(onames)} kernel(s), bitwise equal {same[name]}",
+                   nbytes, flops, device_ms=dms)
+            ok = ok and masks == 0
+            cta_name = "check_a_cta" if kernel == "K3" else "check_b_cta"
+            if reads or len(names) != 1 or cta_name not in names[0]:
+                fail(f"{kernel} at {nb_k} rows ({name}) must launch one "
+                     f"{cta_name} kernel and read nothing to the host: "
+                     f"{names}, {reads} host reads")
+            return outp
+
+        first = None
+        for screen in screens:
+            outp = routes(
+                f"screen={screen}",
+                lambda plan, screen=screen: check.check_phase_a(
+                    *a_args, screen=screen, plan=plan),
+                plan3._replace(coop=True),
+                lambda screen=screen: check.check_phase_a_plain(
+                    *a_args, screen=screen),
+                f4 * (7 * nb_k * B + 5 * nb_k + 5), 40 * nb_k * B,
+                lambda k, q: (max(maxdiff(k[3], q[3]), maxdiff(k[4], q[4])),
+                              1e-5 * max(1.0, float(q[3].abs().max()))),
+                lambda k, q: sum(int((k[i] != q[i]).sum())
+                                 for i in (0, 1, 2, 5)),
+                "K3", f"K3_{tag}" if first is None else None)
+            if first is None:
+                first = outp
+        b_args = (a_args[0], a_args[1], first[3], first[1], first[2],
+                  *a_args[3:])
+        routes("phase B", lambda plan: check.check_phase_b(*b_args,
+                                                           plan=plan),
+               plan4._replace(coop=True),
+               lambda: check.check_phase_b_plain(*b_args),
+               f4 * (7 * nb_k * B + 3 * nb_k + 5), 20 * nb_k * B,
+               lambda k, q: (maxdiff(k[0], q[0]),
+                             1e-5 * max(1.0, float(q[0]))),
+               lambda k, q: int((k[1] != q[1]).sum()), "K4", f"K4_{tag}")
+        log(f"K3/K4 ({tag}) one-CTA route against the cooperative route at "
+            f"one CTA, bitwise: {same}")
+        if not all(same.values()):
+            fail(f"the one-CTA route differs from the cooperative route "
+                 f"({tag})")
 
     B = 128
     f4 = 4
@@ -724,6 +805,16 @@ def main():
     if reads or len(names) != 1:
         fail("check_phase_b must launch one kernel and read nothing to the "
              "host")
+    # K3/K4 on the working set's 8 blocks (the lasso's inner solves, screen
+    # on): 4 blocks of the planted support and 4 without, gathered from
+    # the state above, on their one-CTA route
+    act_rows = torch.nonzero(st.active).flatten()
+    idle_rows = torch.nonzero(~st.active).flatten()
+    rows8 = torch.sort(torch.cat([act_rows[:4], idle_rows[:4]]))[0]
+    check_one_cta("ws", "the 8-block working set", tuple(
+        t[rows8].contiguous() for t in (c_full, st.beta, drift, full.adiag,
+                                        full.lamw, validf, full.xwnorm))
+        + (scal,), (True, False))
     del full, st, args, a_args, b_args, c_full, bk, rk, bp, rp, ck, cp
     torch.cuda.empty_cache()
 
@@ -772,10 +863,14 @@ def main():
         opts_v)
     st_v = block_cd._init_state("wls", prob_v, block_cd._to_blocked_beta(
         0.9 * b_v, B).contiguous(), None)
-    plan_v = active_pass.plan_active_pass(nv, B, 4, _build.sm_count(dev),
-                                          _build.smem_optin(dev))
+    plan_v = active_pass.card_plan(nv, B, torch.float32, dev, True, "wls")
     if not plan_v.cluster:
         fail(f"K1 at n = {nv} must take the cluster route: {plan_v}")
+    # the card's occupancy query: clusters of this shape it holds at once
+    held_v = _build.active_clusters("cdt_active_pass_clusters_f32",
+                                    dev.index, 1, plan_v.smem, plan_v.grid)
+    if held_v < 1:
+        fail(f"the card holds no cluster of K1's plan {plan_v}")
     coop_v = active_pass.on_route(plan_v, False, B, 4)
     routes_same = {}
     one = torch.arange(1, device=dev)
@@ -807,7 +902,8 @@ def main():
         report("K1wls_vc" if inner == "ista" else None,
                "K1 fused_active_pass (wls)", err, 1e-4, ms, pms,
                f"one block at n = {nv}, cluster route ({plan_v.grid} CTAs "
-               f"of {plan_v.rows} rows, {plan_v.smem} B of shared memory), "
+               f"of {plan_v.rows} rows, {plan_v.smem} B of shared memory, "
+               f"{held_v} such clusters held at once), "
                f"Gram cached, {inner}; r err "
                f"{errr:.2e} (tol 1.0e-03); nnz {int((bk != 0).sum())}; one "
                f"call: device {dms:.4f} ms, {len(names)} kernel(s), {reads} "
@@ -826,6 +922,10 @@ def main():
     plan5 = gs.sweep_plan(prob_v.Xwb)
     if not plan5.cluster:
         fail(f"K5 at (1, {nv}, {B}) must take the cluster route: {plan5}")
+    held5 = _build.active_clusters("cdt_dense_sweep_f32_clusters", dev.index,
+                                   plan5.split)
+    if held5 < 1:
+        fail(f"the card holds no cluster of K5's plan {plan5}")
     two5 = plan5._replace(cluster=False, grid=plan5.tiles * plan5.split)
     routes_same["K5"] = torch.equal(ck, gs.fused_gradient_sweep(
         prob_v.Xwb, st_v.r, plan=two5))
@@ -841,7 +941,8 @@ def main():
     report("K5_vc", "K5 fused_gradient_sweep", maxdiff(ck, cp),
            1e-5 * float(cp.abs().max()), ms, pms,
            f"one block (1, {nv}, {B}), split {plan5.split} x {plan5.rows} "
-           f"rows, one cluster; one call: device {dms:.4f} ms, {len(names)} "
+           f"rows, one cluster ({held5} held at once); one call: device "
+           f"{dms:.4f} ms, {len(names)} "
            f"kernel(s), {reads} host reads, library device {ldms} ms; the "
            f"two-kernel route at the same slices: device {odms:.4f} ms, "
            f"{len(onames)} kernel(s), bitwise equal {routes_same['K5']}",
@@ -862,50 +963,21 @@ def main():
     valid_v = prob_v.valid.float()
     a_args = (c_v, st_v.beta, drift_v, prob_v.adiag, prob_v.lamw, valid_v,
               prob_v.xwnorm, scal_v)
-    outk = check.check_phase_a(*a_args, screen=False)
-    outp = check.check_phase_a_plain(*a_args, screen=False)
-    masks = sum(int((outk[i] != outp[i]).sum()) for i in (0, 1, 2, 5))
-    err = max(maxdiff(outk[3], outp[3]), maxdiff(outk[4], outp[4]))
-    ms = cuda_ms(lambda: check.check_phase_a(*a_args, screen=False), 50)
-    pms = cuda_ms(lambda: check.check_phase_a_plain(*a_args, screen=False),
-                  20)
-    reads, names, dms = one_call(
-        lambda: check.check_phase_a(*a_args, screen=False))
-    report("K3_vc", "K3 check_phase_a", err,
-           1e-5 * max(1.0, float(outp[3].abs().max())), ms, pms,
-           f"one block, screen=False; mask mismatches {masks}; need "
-           f"{int(outp[0].sum())}; one call: device {dms:.4f} ms, "
-           f"{len(names)} kernel(s), {reads} host reads",
-           f4 * (7 * B + 5 + 5), 40 * B, device_ms=dms)
-    ok = ok and masks == 0
-    if reads or len(names) != 1:
-        fail("check_phase_a (one block) must launch one kernel and read "
-             "nothing to the host")
-    b_args = (c_v, st_v.beta, outp[3], outp[1], outp[2], prob_v.adiag,
-              prob_v.lamw, valid_v, prob_v.xwnorm, scal_v)
-    outk = check.check_phase_b(*b_args)
-    outp = check.check_phase_b_plain(*b_args)
-    masks = int((outk[1] != outp[1]).sum())
-    ms = cuda_ms(lambda: check.check_phase_b(*b_args), 50)
-    pms = cuda_ms(lambda: check.check_phase_b_plain(*b_args), 20)
-    reads, names, dms = one_call(lambda: check.check_phase_b(*b_args))
-    report("K4_vc", "K4 check_phase_b", maxdiff(outk[0], outp[0]),
-           1e-5 * max(1.0, float(outp[0])), ms, pms,
-           f"one block; mask mismatches {masks}; one call: device "
-           f"{dms:.4f} ms, {len(names)} kernel(s), {reads} host reads",
-           f4 * (7 * B + 3 + 5), 20 * B, device_ms=dms)
-    ok = ok and masks == 0
-    if reads or len(names) != 1:
-        fail("check_phase_b (one block) must launch one kernel and read "
-             "nothing to the host")
-    del prob_v, st_v, eX_v, a_args, b_args
+    # K3/K4 at one block: the plain one-CTA route, held against the twin
+    # and bit for bit against the cooperative route forced at one CTA
+    check_one_cta("vc", "one block", a_args, (False,))
+    del prob_v, st_v, eX_v, a_args
     log(f"one-call traces: {len(RETAKEN)}, retaken {sum(RETAKEN)} (the "
         "tracer dropped a launch the wrapper counted)")
     if not ok:
         fail("a kernel disagrees with its plain twin")
 
     # ---- 4. the main paths ----------------------------------------------
-    counts = launch_counts
+    def counts():
+        # every wrapper's count, and K3's / K4's launches on the one-CTA
+        # route (the working sets' checks)
+        return {**launch_counts(), "K3_ws": check.LAUNCHES_A_CTA,
+                "K4_ws": check.LAUNCHES_B_CTA}
 
     def reset_counts():
         reset_launch_counts()
@@ -940,8 +1012,10 @@ def main():
         f"{reads_solve['epochs']} epochs; lasso + path {reads['host_reads']} "
         f"over {reads['epochs']} epochs "
         f"({reads['host_reads'] / max(reads['epochs'], 1):.2f} per epoch)")
-    require_launches("scan", launches, ("K1", "K2", "K3", "K4", "K5"))
+    require_launches("scan", launches, ("K1", "K2", "K3", "K4", "K5",
+                                        "K3_ws", "K4_ws"))
     add(launches)
+    ws_launches = {k: launches[k] for k in ("K3_ws", "K4_ws")}
     if tuple(path.beta_path.shape) != (L, p):
         fail(f"path shape {tuple(path.beta_path.shape)} != {(L, p)}")
     if not bool(torch.isfinite(path.beta_path).all()):
@@ -1929,10 +2003,16 @@ def main():
         "K5_vc": ("fused_gradient_sweep (one block, n = 500, one cluster)",
                   "dense_sweep.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
+        "K3_ws": ("check_phase_a (one CTA: the working set of at most 8 "
+                  "blocks, screen on)", "check.cu",
+                  "coordinatedescent_jl_tpu/ops/pallas_check.py:108"),
+        "K4_ws": ("check_phase_b (one CTA: the working set of at most 8 "
+                  "blocks)", "check.cu",
+                  "coordinatedescent_jl_tpu/ops/pallas_check.py:149"),
     }
     log(f"launches over the main-path runs: {total}; the 4j scan's: "
-        f"{vc_launches}")
-    launched = {**total, **vc_launches}
+        f"{vc_launches}; the one-CTA route's in the 4a scan: {ws_launches}")
+    launched = {**total, **vc_launches, **ws_launches}
     kernels = [{"name": meta[k][0], "route": "cuda", "source": src + meta[k][1],
                 "replaces": meta[k][2], "launches": launched[k], **rec[k]}
                for k in meta]

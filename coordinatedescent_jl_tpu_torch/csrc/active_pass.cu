@@ -1066,6 +1066,14 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   AP_STAMP_IF(7, true)
 }
 
+// The cluster route's kernel of `kind`.
+template <typename T>
+inline auto cluster_kernel(int kind) {
+  return kind == KIND_WLS    ? active_pass_kernel<T, KIND_WLS, true>
+         : kind == KIND_SQRT ? active_pass_kernel<T, KIND_SQRT, true>
+                             : active_pass_kernel<T, KIND_LS, true>;
+}
+
 template <typename T>
 int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
                 const long long* border, const unsigned char* active,
@@ -1091,14 +1099,11 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
     // one cluster of `grid` CTAs; a refused launch is the caller's error
     e = momentum_ready<T>(s);
     if (e != cudaSuccess) return (int)e;
-    auto kern = kind == KIND_WLS    ? active_pass_kernel<T, KIND_WLS, true>
-                : kind == KIND_SQRT ? active_pass_kernel<T, KIND_SQRT, true>
-                                    : active_pass_kernel<T, KIND_LS, true>;
-    e = launch_clusters(kern, grid, AP_THREADS, (size_t)smem, grid, s, X, Xw,
-                        Kb, lamw, border, active, corder, beta_in, r_in,
-                        rsqr_in, beta_out, r_out, maxh, rsqr_out, part_c,
-                        part_rs, part_k, kred, nb, n, B, rows, keep_x, keep_r,
-                        ista, iters, tl, tn);
+    e = launch_clusters(cluster_kernel<T>(kind), grid, AP_THREADS,
+                        (size_t)smem, grid, s, X, Xw, Kb, lamw, border,
+                        active, corder, beta_in, r_in, rsqr_in, beta_out,
+                        r_out, maxh, rsqr_out, part_c, part_rs, part_k, kred,
+                        nb, n, B, rows, keep_x, keep_r, ista, iters, tl, tn);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
@@ -1185,6 +1190,17 @@ extern "C" int cdt_probe_launch(int cluster, int grid, int smem, int barriers,
 }
 
 #define CDT_ACTIVE_PASS(SUFFIX, T)                                            \
+  /* the clusters of `cluster` CTAs with `smem` bytes each of the cluster  \
+     route's kernel of `kind` that the device holds at once */             \
+  extern "C" int cdt_active_pass_clusters_##SUFFIX(int kind, int smem,     \
+                                                   int cluster,            \
+                                                   void* count) {          \
+    if (kind < cdt::KIND_LS || kind > cdt::KIND_SQRT || smem < 0)          \
+      return (int)cudaErrorInvalidValue;                                   \
+    return (int)cdt::active_clusters(                                      \
+        (const void*)cdt::cluster_kernel<T>(kind), cdt::AP_THREADS,        \
+        (size_t)smem, cluster, (int*)count);                               \
+  }                                                                        \
   extern "C" int cdt_active_pass_##SUFFIX(                                    \
       const void* X, const void* Xw, const void* Kb, const void* lamw,        \
       const void* border, const void* active, const void* corder,             \

@@ -11,7 +11,8 @@
 // Design: one cooperative launch per call (cudaLaunchCooperativeKernel) of
 // a co-resident grid of G CTAs of 256 threads, G from
 // kernels/check.py::plan_check (one CTA per 8 block rows, capped at the
-// CTAs the card holds at once).  A warp owns a block row, rows strided
+// CTAs the card holds at once; at most 8 rows, G = 1, take the one-CTA
+// route at the end of this header).  A warp owns a block row, rows strided
 // over the G x 8 warps; per 128-wide chunk of the row each lane takes 4
 // consecutive coordinates with one 16-byte load per array
 // (common.cuh::load_chunk; masked scalar loads when B % 4 != 0 or an
@@ -44,6 +45,22 @@
 // barriers (~1-2 us each at ~100 CTAs), one round of 16-byte loads and the
 // reductions.  The design spreads the rows over ~100 SMs so that the load
 // round is short, and keeps the barriers to the true dependencies.
+//
+// The one-CTA route (check_a_cta / check_b_cta), where the plan's grid is
+// one CTA (nb <= 8 block rows: the varying-coefficient scan's one block,
+// any solve or working set of at most 8 blocks).  A call there reads at
+// most 8 rows (~25 KB at B = 128, 0.01 us at the memory rate), so its time
+// is latency alone and the cooperative machinery is all cost.  The same
+// body (check_a / check_b) is compiled without it: a plain launch of one
+// CTA, no residency query, no grid barrier and no partials in global
+// memory; the screen's three terms and maxh are combined from the warps'
+// values in shared memory after __syncthreads(), in warp order.  The
+// layout is the cooperative route's at one CTA (warp w owns row w, four
+// coordinates a lane), so its outputs are that route's bit for bit: at
+// G = 1 the cooperative route's sums over the CTAs add the one CTA's value
+// to zeros, which leaves it unchanged.  (A row spread over several warps,
+// one coordinate a lane, measured 0.9 us faster a call at one block, but
+// adds the L1 norm in another order; PERF.md has the times.)
 #include <cooperative_groups.h>
 
 #include <cfloat>
@@ -81,7 +98,7 @@ struct CheckArgs {
   float* bound;
   float* maxh;            // 1 value
   float* active;          // (nb,)
-  float* part;            // CK_PART x G partials
+  float* part;            // CK_PART x G partials (the cooperative route)
   int nb, B, screen, vec;
 };
 
@@ -206,18 +223,18 @@ __device__ __forceinline__ void reduce_chunk(const Chunk& v,
   }
 }
 
-// Phase A's pass over row b.  `kept` is the row's only chunk when the warp
-// holds it in registers (else nullptr: each chunk is loaded here, and a
-// row of several chunks is loaded again for the second half).
+// Phase A's pass over row b of drift `dr`.  `kept` is the row's only
+// chunk when the warp holds it in registers (else nullptr: each chunk is
+// loaded here, and a row of several chunks is loaded again for the second
+// half).
 __device__ __forceinline__ void row_a(const CheckArgs& A, const Scalars& s,
                                       int b, int lane, const Chunk* kept,
-                                      float scale, float rho, bool ok,
-                                      float& lmax) {
+                                      float dr, float scale, float rho,
+                                      bool ok, float& lmax) {
   const float eps = FLT_EPSILON;
   const int B = A.B;
   const int nch = (B + CK_CHUNK - 1) / CK_CHUNK;
   const size_t off = (size_t)b * B;
-  const float dr = __ldg(A.drift + b);
   const float dball = dr * (1.f + 64.f * eps);
   Chunk v;
   float h[CK_V], bnd[CK_V];
@@ -292,10 +309,11 @@ __device__ __forceinline__ void row_b(const CheckArgs& A, const Scalars& s,
   if (lane == 0) A.active[b] = act ? 1.f : 0.f;
 }
 
-// The CTA's max of `lmax` into its partial, a grid barrier, then CTA 0
-// writes the max of the G partials to maxh.
+// The CTA's max of `lmax`: on one CTA (!kGrid) it is maxh; on the grid it
+// goes to the CTA's partial, a grid barrier, then CTA 0 writes the max of
+// the G partials to maxh.
+template <bool kGrid>
 __device__ __forceinline__ void finish_maxh(const CheckArgs& A,
-                                            cg::grid_group& grid,
                                             float (*red)[CK_WARPS],
                                             float lmax) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -305,48 +323,59 @@ __device__ __forceinline__ void finish_maxh(const CheckArgs& A,
   if (threadIdx.x == 0) {
     float m = red[3][0];
     for (int q = 1; q < CK_WARPS; ++q) m = tmax(m, red[3][q]);
-    A.part[(size_t)blockIdx.x * CK_PART + 3] = m;
+    if constexpr (kGrid)
+      A.part[(size_t)blockIdx.x * CK_PART + 3] = m;
+    else
+      *A.maxh = m;
   }
-  grid.sync();
-  if (blockIdx.x == 0 && w == 0) {
-    float m = 0.f;
-    for (int q0 = lane; q0 < (int)gridDim.x; q0 += 32 * CK_UNROLL) {
-      float pm[CK_UNROLL];
+  if constexpr (kGrid) {
+    cg::this_grid().sync();
+    if (blockIdx.x == 0 && w == 0) {
+      float m = 0.f;
+      for (int q0 = lane; q0 < (int)gridDim.x; q0 += 32 * CK_UNROLL) {
+        float pm[CK_UNROLL];
 #pragma unroll
-      for (int u = 0; u < CK_UNROLL; ++u) {
-        const int q = q0 + 32 * u;
-        pm[u] = q < (int)gridDim.x ? __ldcg(A.part + (size_t)q * CK_PART + 3)
-                                   : 0.f;
+        for (int u = 0; u < CK_UNROLL; ++u) {
+          const int q = q0 + 32 * u;
+          pm[u] = q < (int)gridDim.x
+                      ? __ldcg(A.part + (size_t)q * CK_PART + 3)
+                      : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < CK_UNROLL; ++u) m = tmax(m, pm[u]);
       }
-#pragma unroll
-      for (int u = 0; u < CK_UNROLL; ++u) m = tmax(m, pm[u]);
+      m = warp_max(m);
+      if (lane == 0) *A.maxh = m;
     }
-    m = warp_max(m);
-    if (lane == 0) *A.maxh = m;
   }
 }
 
-__global__ void __launch_bounds__(CK_THREADS) check_a_kernel(CheckArgs A) {
-  cg::grid_group grid = cg::this_grid();
+// Phase A on the cooperative grid (kGrid) or on one CTA.
+template <bool kGrid>
+__device__ __forceinline__ void check_a(const CheckArgs& A) {
   __shared__ float red[CK_PART][CK_WARPS];
   const float eps = FLT_EPSILON;
-  const Scalars s = read_scalars(A.scal);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int gw = blockIdx.x * CK_WARPS + w;
   const int nwg = gridDim.x * CK_WARPS;
-  // every warp owns at most one row of one chunk: keep it in registers
+  // every warp owns at most one row of one chunk: keep it and its drift
+  // in registers, loaded before the scalars' first use (a load after the
+  // screen's barriers would wait a second memory round)
   const bool keep = A.nb <= nwg && A.B <= CK_CHUNK;
   Chunk v;
-  if (keep && gw < A.nb) load_row(A, gw, lane * CK_V, v);
+  float dr = 0.f;
+  if (keep && gw < A.nb) {
+    load_row(A, gw, lane * CK_V, v);
+    dr = __ldg(A.drift + gw);
+  }
+  const Scalars s = read_scalars(A.scal);
 
   float scale = 1.f, rho = 0.f;
   bool ok = false;
   if (A.screen) {
     float rmax = 0.f, l1 = 0.f, bad = 0.f;
     if (keep) {
-      if (gw < A.nb)
-        screen_terms(v, __ldg(A.drift + gw), lane * CK_V, A.B, s, rmax, l1,
-                     bad);
+      if (gw < A.nb) screen_terms(v, dr, lane * CK_V, A.B, s, rmax, l1, bad);
     } else {
       for (int b = gw; b < A.nb; b += nwg) {
         const float dr = __ldg(A.drift + b);
@@ -366,45 +395,54 @@ __global__ void __launch_bounds__(CK_THREADS) check_a_kernel(CheckArgs A) {
       red[2][w] = bad;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      float r0 = red[0][0], r1 = red[1][0], r2 = red[2][0];
+    // the CTA's terms, its warps' in warp order: every thread of one CTA
+    // takes them as they are; on the grid thread 0 writes them to the
+    // CTA's partials
+    float ratio = red[0][0], gl1 = red[1][0], gbad = red[2][0];
+    if (!kGrid || threadIdx.x == 0) {
       for (int q = 1; q < CK_WARPS; ++q) {
-        r0 = tmax(r0, red[0][q]);
-        r1 += red[1][q];
-        r2 = tmax(r2, red[2][q]);
-      }
-      float* p = A.part + (size_t)blockIdx.x * CK_PART;
-      p[0] = r0;
-      p[1] = r1;
-      p[2] = r2;
-    }
-    grid.sync();
-    // every warp of every CTA adds the G partials the same way: lane q
-    // takes CTAs q, q + 32, ... in order (their loads in flight together:
-    // one L2 round for G <= 32 CK_UNROLL), then a fixed shuffle tree (its
-    // sums are commutative pairs, so every lane holds the same value)
-    float ratio = 0.f, gl1 = 0.f, gbad = 0.f;
-    for (int q0 = lane; q0 < (int)gridDim.x; q0 += 32 * CK_UNROLL) {
-      float pr[CK_UNROLL], pl[CK_UNROLL], pb[CK_UNROLL];
-#pragma unroll
-      for (int u = 0; u < CK_UNROLL; ++u) {
-        const int q = q0 + 32 * u;
-        const float* p = A.part + (size_t)q * CK_PART;
-        const bool in = q < (int)gridDim.x;
-        pr[u] = in ? __ldcg(p) : 0.f;
-        pl[u] = in ? __ldcg(p + 1) : 0.f;
-        pb[u] = in ? __ldcg(p + 2) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < CK_UNROLL; ++u) {
-        ratio = tmax(ratio, pr[u]);
-        gl1 += pl[u];
-        gbad = tmax(gbad, pb[u]);
+        ratio = tmax(ratio, red[0][q]);
+        gl1 += red[1][q];
+        gbad = tmax(gbad, red[2][q]);
       }
     }
-    ratio = warp_max(ratio);
-    gl1 = warp_sum(gl1);
-    ok = warp_max(gbad) == 0.f;
+    if constexpr (kGrid) {
+      if (threadIdx.x == 0) {
+        float* p = A.part + (size_t)blockIdx.x * CK_PART;
+        p[0] = ratio;
+        p[1] = gl1;
+        p[2] = gbad;
+      }
+      cg::this_grid().sync();
+      // every warp of every CTA adds the G partials the same way: lane q
+      // takes CTAs q, q + 32, ... in order (their loads in flight
+      // together: one L2 round for G <= 32 CK_UNROLL), then a fixed
+      // shuffle tree (its sums are commutative pairs, so every lane holds
+      // the same value)
+      ratio = gl1 = gbad = 0.f;
+      for (int q0 = lane; q0 < (int)gridDim.x; q0 += 32 * CK_UNROLL) {
+        float pr[CK_UNROLL], pl[CK_UNROLL], pb[CK_UNROLL];
+#pragma unroll
+        for (int u = 0; u < CK_UNROLL; ++u) {
+          const int q = q0 + 32 * u;
+          const float* p = A.part + (size_t)q * CK_PART;
+          const bool in = q < (int)gridDim.x;
+          pr[u] = in ? __ldcg(p) : 0.f;
+          pl[u] = in ? __ldcg(p + 1) : 0.f;
+          pb[u] = in ? __ldcg(p + 2) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < CK_UNROLL; ++u) {
+          ratio = tmax(ratio, pr[u]);
+          gl1 += pl[u];
+          gbad = tmax(gbad, pb[u]);
+        }
+      }
+      ratio = warp_max(ratio);
+      gl1 = warp_sum(gl1);
+      gbad = warp_max(gbad);
+    }
+    ok = gbad == 0.f;
     scale = fminf(1.f, 1.f / tmax(ratio, 1e-30f));
     const float primal = s.rn2 / (2.f * s.nsc) + s.lam0 * gl1;
     const float dual =
@@ -416,16 +454,18 @@ __global__ void __launch_bounds__(CK_THREADS) check_a_kernel(CheckArgs A) {
 
   float lmax = 0.f;
   if (keep) {
-    if (gw < A.nb) row_a(A, s, gw, lane, &v, scale, rho, ok, lmax);
+    if (gw < A.nb) row_a(A, s, gw, lane, &v, dr, scale, rho, ok, lmax);
   } else {
     for (int b = gw; b < A.nb; b += nwg)
-      row_a(A, s, b, lane, nullptr, scale, rho, ok, lmax);
+      row_a(A, s, b, lane, nullptr, __ldg(A.drift + b), scale, rho, ok,
+            lmax);
   }
-  finish_maxh(A, grid, red, lmax);
+  finish_maxh<kGrid>(A, red, lmax);
 }
 
-__global__ void __launch_bounds__(CK_THREADS) check_b_kernel(CheckArgs A) {
-  cg::grid_group grid = cg::this_grid();
+// Phase B on the cooperative grid (kGrid) or on one CTA.
+template <bool kGrid>
+__device__ __forceinline__ void check_b(const CheckArgs& A) {
   __shared__ float red[CK_PART][CK_WARPS];
   const Scalars s = read_scalars(A.scal);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -433,8 +473,28 @@ __global__ void __launch_bounds__(CK_THREADS) check_b_kernel(CheckArgs A) {
   float lmax = 0.f;
   for (int b = blockIdx.x * CK_WARPS + w; b < A.nb; b += nwg)
     row_b(A, s, b, lane, lmax);
-  finish_maxh(A, grid, red, lmax);
+  finish_maxh<kGrid>(A, red, lmax);
 }
+
+__global__ void __launch_bounds__(CK_THREADS) check_a_kernel(CheckArgs A) {
+  check_a<true>(A);
+}
+
+__global__ void __launch_bounds__(CK_THREADS) check_b_kernel(CheckArgs A) {
+  check_b<true>(A);
+}
+
+__global__ void __launch_bounds__(CK_THREADS) check_a_cta(CheckArgs A) {
+  check_a<false>(A);
+}
+
+__global__ void __launch_bounds__(CK_THREADS) check_b_cta(CheckArgs A) {
+  check_b<false>(A);
+}
+
+// An empty launch of the one-CTA route's shape: the regime's floor
+// (kernel_ab.py --small).
+__global__ void __launch_bounds__(CK_THREADS) check_probe_kernel() {}
 
 inline const void* check_kernel(int phase_b) {
   return phase_b ? (const void*)check_b_kernel : (const void*)check_a_kernel;
@@ -444,9 +504,11 @@ inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
-int launch_check(int phase_b, CheckArgs a, int grid, cudaStream_t st) {
-  if (a.nb < 1 || a.B < 1 || grid < 1 || a.part == nullptr)
-    return (int)cudaErrorInvalidValue;
+// cta = 1: the one-CTA route (nb <= CK_WARPS); else the cooperative route
+// on `grid` CTAs.
+int launch_check(int phase_b, CheckArgs a, int grid, int cta,
+                 cudaStream_t st) {
+  if (a.nb < 1 || a.B < 1) return (int)cudaErrorInvalidValue;
   // 16-byte loads (and bound stores) need every row to start on 16 bytes
   a.vec = a.B % CK_V == 0;
   for (const void* p : {(const void*)a.c, (const void*)a.beta,
@@ -455,6 +517,16 @@ int launch_check(int phase_b, CheckArgs a, int grid, cudaStream_t st) {
                         phase_b ? (const void*)a.bound_in
                                 : (const void*)a.bound})
     a.vec = a.vec && aligned16(p);
+  if (cta) {
+    // no barrier to wait at: a plain launch, no residency to check
+    if (a.nb > CK_WARPS) return (int)cudaErrorInvalidValue;
+    if (phase_b)
+      check_b_cta<<<1, CK_THREADS, 0, st>>>(a);
+    else
+      check_a_cta<<<1, CK_THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (grid < 1 || a.part == nullptr) return (int)cudaErrorInvalidValue;
   // the grid must be co-resident (a plain launch of too large a grid
   // would hang at the barrier; the cooperative launch refuses it)
   const void* kern = check_kernel(phase_b);
@@ -478,13 +550,21 @@ extern "C" int cdt_check_resident_f32(int phase_b, void* ctas) {
                                  0, (int*)ctas);
 }
 
+extern "C" int cdt_check_probe(void* stream) {
+  cdt::check_probe_kernel<<<1, cdt::CK_THREADS, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// cta: 1 the one-CTA route (`part` and `grid` unused), 0 the cooperative
+// route on `grid` CTAs (`part` its CK_PART x grid partials).
 extern "C" int cdt_check_a_f32(const void* c, const void* beta,
                                const void* drift, const void* adiag,
                                const void* lamw, const void* validf,
                                const void* xwnorm, const void* scal,
                                void* need, void* ub, void* cand, void* bound,
                                void* maxh, void* active, void* part, int nb,
-                               int B, int screen, int grid, void* stream) {
+                               int B, int screen, int grid, int cta,
+                               void* stream) {
   cdt::CheckArgs a{};
   a.c = (const float*)c;
   a.beta = (const float*)beta;
@@ -504,7 +584,7 @@ extern "C" int cdt_check_a_f32(const void* c, const void* beta,
   a.nb = nb;
   a.B = B;
   a.screen = screen;
-  return cdt::launch_check(0, a, grid, (cudaStream_t)stream);
+  return cdt::launch_check(0, a, grid, cta, (cudaStream_t)stream);
 }
 
 extern "C" int cdt_check_b_f32(const void* c, const void* beta,
@@ -513,7 +593,7 @@ extern "C" int cdt_check_b_f32(const void* c, const void* beta,
                                const void* lamw, const void* validf,
                                const void* xwnorm, const void* scal,
                                void* maxh, void* active, void* part, int nb,
-                               int B, int grid, void* stream) {
+                               int B, int grid, int cta, void* stream) {
   cdt::CheckArgs a{};
   a.c = (const float*)c;
   a.beta = (const float*)beta;
@@ -530,5 +610,5 @@ extern "C" int cdt_check_b_f32(const void* c, const void* beta,
   a.part = (float*)part;
   a.nb = nb;
   a.B = B;
-  return cdt::launch_check(1, a, grid, (cudaStream_t)stream);
+  return cdt::launch_check(1, a, grid, cta, (cudaStream_t)stream);
 }

@@ -3,7 +3,8 @@
 // the soft threshold, the restricted gradient sweep's row-chunk dot
 // product c = Xw_b' r, 16-byte loads with a masked scalar fallback, the
 // cached residency query the launchers size their grids by, and the
-// thread-block cluster's barrier, distributed shared memory and launch.
+// thread-block cluster's barrier, distributed shared memory, launch and
+// occupancy query.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -313,6 +314,52 @@ cudaError_t launch_clusters(void (*kern)(Params...), int grid, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, std::forward<Args>(args)...);
+}
+
+// The clusters of `cluster` CTAs of `kern` (`threads` threads, `smem` bytes
+// of dynamic shared memory each) that the current device holds at once
+// (cudaOccupancyMaxActiveClusters), into *count: 0 when no GPC holds one,
+// and a launch of that shape would be refused.  Queried once per (kernel,
+// device, cluster, smem) and kept; the launch planners read it through
+// kernels/_build.py::largest_cluster.
+inline cudaError_t active_clusters(const void* kern, int threads, size_t smem,
+                                   int cluster, int* count) {
+  struct Entry {
+    const void* kern;
+    int dev, cluster;
+    size_t smem;
+    int count;
+  };
+  static std::mutex mu;
+  static Entry cache[128];
+  static int used = 0;
+  if (cluster < 1 || cluster > MAX_CLUSTER) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cluster_ready(kern);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kern == kern && cache[i].dev == dev &&
+        cache[i].cluster == cluster && cache[i].smem == smem) {
+      *count = cache[i].count;
+      return cudaSuccess;
+    }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(count, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (used < 128) cache[used++] = Entry{kern, dev, cluster, smem, *count};
+  return cudaSuccess;
 }
 
 // Elements of T in one 16-byte load.

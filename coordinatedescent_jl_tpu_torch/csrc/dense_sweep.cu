@@ -218,9 +218,23 @@ int dense_sweep(const TX* X, const T* r, T* part, T* out, int nb, int n,
   return (int)cudaGetLastError();
 }
 
+// The clusters of `cluster` slices (CTAs) of a tile, with CTA 0's shared
+// memory for their partials, that the current device holds at once.
+template <typename TX, typename T>
+int sweep_clusters(int cluster, int* count) {
+  constexpr int RG = SW_THREADS / (SW_TILE / vec_of<TX>());
+  const size_t csmem =
+      sizeof(T) * (SW_SLAB + RG * SW_TILE + (size_t)cluster * SW_TILE);
+  return (int)active_clusters((const void*)sweep_kernel<TX, T, true>,
+                              SW_THREADS, csmem, cluster, count);
+}
+
 }  // namespace cdt
 
 #define CDT_DENSE_SWEEP(NAME, TX, T)                                          \
+  extern "C" int NAME##_clusters(int cluster, void* count) {                  \
+    return cdt::sweep_clusters<TX, T>(cluster, (int*)count);                  \
+  }                                                                           \
   extern "C" int NAME(const void* X, const void* r, void* part, void* out,    \
                       int nb, int n, int W, int split, int rows, int grid,    \
                       int cluster, void* stream) {                            \

@@ -60,7 +60,10 @@ each route with 0, 1 and 2 barriers (``probe_coop_b<k>``,
 every CTA's shared memory (``probe_<route>_b1_gram``), and K1 over 8
 blocks with cached Grams at n = 1,000, 2,000 and 4,096 on a 16-CTA
 cluster and on the cooperative route's own plan (``K1n<n>_cluster``,
-``K1n<n>_coop``).  ``--stamps``: K1′'s first
+``K1n<n>_coop``); K3/K4 at that point and at 8 rows on every route the
+tree has (:func:`_check_small`), and where the library has it an empty
+launch of one CTA of the check's 256 threads (``probe_cta``: the one-CTA
+route's floor).  ``--stamps``: K1′'s first
 visit by phase on each route (:func:`stamps_main`).
 """
 
@@ -318,6 +321,7 @@ def small_main():
     import coordinatedescent_jl_tpu_torch as tcd
     from coordinatedescent_jl_tpu_torch.kernels import _build
     from coordinatedescent_jl_tpu_torch.kernels import active_pass as ap
+    from coordinatedescent_jl_tpu_torch.kernels import check
     from coordinatedescent_jl_tpu_torch.kernels import gradient_sweep as gs
     from coordinatedescent_jl_tpu_torch.ops import block_cd
     from coordinatedescent_jl_tpu_torch.profile_paths import (
@@ -421,7 +425,12 @@ def small_main():
                     *an, inner="ista", iters=16, plan=pl), 100)
                 out[f"K1n{nn}_{name}"]["plan"] = pl._asdict()
             del pn, sn, an
+    out.update(_check_small(check, block_cd, prob, st, vp.lam0, nv, dev))
     lib = _build.library()
+    if getattr(lib, "cdt_check_probe", None) is not None:
+        stream = _build.stream(dev)
+        out["probe_cta"] = _ms(lambda: _build.check(
+            lib.cdt_check_probe(stream), "check_probe"), 200)
     if getattr(lib, "cdt_probe_launch", None) is not None and routes:
         stream = _build.stream(dev)
         gram = prob.Kb                   # 64 KB, read by every CTA
@@ -451,6 +460,51 @@ def small_main():
         out["K5ws_S16"] = _ms(lambda: gs.fused_gradient_sweep(
             ws.Xwb, r, plan=pl), 200)
     print(json.dumps(out), flush=True)
+
+
+def _check_small(check, block_cd, prob, st, lam0, nv, dev) -> dict:
+    """K3/K4 at the varying-coefficient point (``K3_vc`` screen off as
+    the scan runs it, ``K3_vc_screen`` on, ``K4_vc``) and at 8 rows (the
+    point's block repeated: ``K3_nb8``, ``K3_nb8_screen``, ``K4_nb8``),
+    each on the route the tree plans; where the tree has the one-CTA route
+    (``CheckPlan.cta``) also the cooperative route forced at one CTA
+    (``_coop``), and each with ``bitwise``: its outputs equal the
+    cooperative route's."""
+    B = prob.lamw.shape[1]
+    c = block_cd._full_gradient_c("wls", prob, st.r, kernels=False)
+    scal = block_cd._check_scalars(lam0, float(nv), torch.dot(st.r, st.r),
+                                   torch.zeros((), device=dev), 1e-7)
+    one = (c, st.beta, torch.full((1,), 1e-3, device=dev), prob.adiag,
+           prob.lamw, prob.valid.float(), prob.xwnorm)
+    routes = hasattr(check.CheckPlan, "cta")
+    out = {}
+    for tag, nb in (("vc", 1), ("nb8", 8)):
+        a = tuple(torch.cat([t] * nb).contiguous() for t in one) + (scal,)
+        _, ub, cand, bound, _, _ = check.check_phase_a(*a, screen=False)
+        b = (a[0], a[1], bound, ub, cand, *a[3:])
+        plans = {"": {}}
+        if routes:
+            plans["_coop"] = {
+                "a": check._plan(False, nb, B, dev.index)._replace(coop=True),
+                "b": check._plan(True, nb, B, dev.index)._replace(coop=True)}
+        got = {}
+        for key, pl in plans.items():
+            kw_a = {"plan": pl["a"]} if pl else {}
+            kw_b = {"plan": pl["b"]} if pl else {}
+            for name, fn in (
+                    (f"K3_{tag}", lambda: check.check_phase_a(
+                        *a, screen=False, **kw_a)),
+                    (f"K3_{tag}_screen", lambda: check.check_phase_a(
+                        *a, screen=True, **kw_a)),
+                    (f"K4_{tag}", lambda: check.check_phase_b(*b, **kw_b))):
+                out[name + key] = _ms(fn, 200)
+                got[name, key] = fn()
+        for (name, key), outs in got.items():
+            if (name, "_coop") in got:
+                out[name + key]["bitwise"] = all(
+                    torch.equal(x, y)
+                    for x, y in zip(outs, got[name, "_coop"]))
+    return out
 
 
 def stamps_main():

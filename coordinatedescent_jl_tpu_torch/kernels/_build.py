@@ -55,13 +55,20 @@ _SIGNATURES = {
     # Xwb, r, order, part, out, n_need, n, B, R, stream
     "cdt_rsweep": [_P] * 5 + [_I] * 4 + [_P],
     # c, beta, drift, adiag, lamw, validf, xwnorm, scal, need, ub, cand,
-    # bound, maxh, active, part, nb, B, screen, grid, stream
-    "cdt_check_a": [_P] * 15 + [_I] * 4 + [_P],
+    # bound, maxh, active, part|0, nb, B, screen, grid, cta, stream
+    "cdt_check_a": [_P] * 15 + [_I] * 5 + [_P],
     # c, beta, bound, ubf, candf, adiag, lamw, validf, xwnorm, scal, maxh,
-    # active, part, nb, B, grid, stream
-    "cdt_check_b": [_P] * 13 + [_I] * 3 + [_P],
+    # active, part|0, nb, B, grid, cta, stream
+    "cdt_check_b": [_P] * 13 + [_I] * 4 + [_P],
     # phase_b, &ctas (int)
     "cdt_check_resident": [_I, _P],
+    # stream (an empty launch of one CTA of the check's threads)
+    "cdt_check_probe": [_P],
+    # kind, smem, cluster, &count (int): K1's cluster occupancy
+    "cdt_active_pass_clusters": [_I, _I, _I, _P],
+    # cluster, &count (int): each K5 instantiation's cluster occupancy
+    **{f"cdt_{k}_{d}_clusters": [_I, _P]
+       for k in ("dense_sweep", "grad64") for d in ("f32", "f64")},
     # X, r, part|0, out, nb, n, W, split, rows, grid, cluster, stream (both
     # K5 instantiations)
     "cdt_dense_sweep": [_P] * 4 + [_I] * 7 + [_P],
@@ -191,6 +198,32 @@ def sm_count(device) -> int:
 def smem_optin(device) -> int:
     """Bytes of shared memory one CTA of ``device`` may opt in to."""
     return _props(device.index).shared_memory_per_block_optin
+
+
+MAX_CLUSTER = 16   # CTAs of the largest (non-portable) cluster, common.cuh
+
+
+def active_clusters(entry: str, index: int, *shape) -> int:
+    """Clusters of a kernel's shape that device ``index`` holds at once:
+    the C entry ``entry`` (a ``*_clusters`` function, which queries
+    ``cudaOccupancyMaxActiveClusters`` once per shape and keeps the
+    answer) called with ``shape``, the cluster's CTAs last."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        check(getattr(library(), entry)(*shape, ctypes.byref(count)), entry)
+    return count.value
+
+
+@functools.lru_cache(maxsize=None)
+def largest_cluster(entry: str, index: int, *shape) -> int:
+    """The most CTAs, at most ``MAX_CLUSTER``, of a cluster of which
+    device ``index`` holds one (:func:`active_clusters` at ``shape``): the
+    launch planners' input, as :func:`sm_count` is.  1 when it holds no
+    cluster of 2."""
+    for cluster in range(MAX_CLUSTER, 1, -1):
+        if active_clusters(entry, index, *shape, cluster) >= 1:
+            return cluster
+    return 1
 
 
 def require(cond: bool, msg: str, *args):

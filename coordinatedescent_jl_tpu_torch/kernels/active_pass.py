@@ -58,7 +58,7 @@ _MAX_B = 128       # widest block the kernel takes (K fits shared memory)
 _AP_THREADS = 512
 _AP_NVEC = 9
 _AP_MIN_ROWS = 32
-_MAX_CLUSTER = 16           # CTAs of the largest cluster (csrc/common.cuh)
+_MAX_CLUSTER = _build.MAX_CLUSTER   # CTAs of the largest cluster
 # the most rows a CTA of the cluster route owns: at 125 and 256 rows (n =
 # 2,000 and 4,096, f32, B = 128) its 16 CTAs measured 2 % and 15 % slower
 # than the cooperative route's CTA an SM (PERF.md §6)
@@ -104,12 +104,14 @@ def _rows(n: int, most: int):
 @functools.lru_cache(maxsize=64)
 def plan_active_pass(n: int, B: int, itemsize: int, sms: int,
                      smem_limit: int = SMEM_OPTIN_H100,
-                     gram: bool = True) -> ActivePlan:
+                     gram: bool = True,
+                     max_cluster: int = _MAX_CLUSTER) -> ActivePlan:
     """K1's launch plan, for a pass with (``gram``) or without a cached
-    Gram.  The cluster route where at most ``_MAX_CLUSTER`` CTAs of
-    ``_AP_MIN_ROWS`` to ``_CLUSTER_MAX_ROWS`` rows keep every row of r and
-    of X_b in shared memory under ``smem_limit``.  Else the cooperative
-    route: one
+    Gram.  The cluster route where at most ``max_cluster`` (the largest
+    cluster the card holds, :func:`card_plan`; at most ``_MAX_CLUSTER``)
+    CTAs of ``_AP_MIN_ROWS`` to ``_CLUSTER_MAX_ROWS`` rows keep every row
+    of r and of X_b in shared memory under ``smem_limit``.  Else the
+    cooperative route: one
     CTA per SM (the Gram alone takes 64-128 KB of shared memory), fewer
     when n gives a CTA under ``_AP_MIN_ROWS`` rows; each keeps its rows of
     r, then its rows of X_b, in shared memory while they fit."""
@@ -117,7 +119,7 @@ def plan_active_pass(n: int, B: int, itemsize: int, sms: int,
     if base > smem_limit:
         raise ValueError(f"active-pass kernel: block width {B} needs "
                          f"{base} bytes of shared memory > {smem_limit}")
-    grid, rows = _rows(n, _MAX_CLUSTER)
+    grid, rows = _rows(n, min(_MAX_CLUSTER, max_cluster))
     smem = _smem(B, itemsize, grid, rows, True, True, True, gram)
     if rows <= _CLUSTER_MAX_ROWS and smem <= smem_limit:
         return ActivePlan(grid, rows, True, True, smem, True)
@@ -127,6 +129,22 @@ def plan_active_pass(n: int, B: int, itemsize: int, sms: int,
     return ActivePlan(grid, rows, keep_x, keep_r,
                       _smem(B, itemsize, grid, rows, keep_x, keep_r, False,
                             gram))
+
+
+@functools.lru_cache(maxsize=64)
+def card_plan(n: int, B: int, dtype, dev, gram: bool = True,
+              kind: str = "ls") -> ActivePlan:
+    """The plan a launch on ``dev`` takes: :func:`plan_active_pass` at
+    the card's SMs, its shared memory a CTA may opt in to, and the largest
+    cluster of the kind's cluster-route kernel of which it holds one at
+    that shared memory (``cudaOccupancyMaxActiveClusters``, once per
+    device: every plan's CTA takes at most that much)."""
+    dt = "f32" if dtype == torch.float32 else "f64"
+    optin = _build.smem_optin(dev)
+    return plan_active_pass(
+        n, B, dtype.itemsize, _build.sm_count(dev), optin, gram,
+        _build.largest_cluster(f"cdt_active_pass_clusters_{dt}", dev.index,
+                               _KINDS[kind], optin))
 
 
 def on_route(plan: ActivePlan, cluster: bool, B: int, itemsize: int,
@@ -213,8 +231,7 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
         corder = corder.to(torch.int64)
     gram = Kb is not None
     if plan is None:
-        plan = plan_active_pass(n, B, dt.itemsize, _build.sm_count(dev),
-                                _build.smem_optin(dev), gram)
+        plan = card_plan(n, B, dt, dev, gram, kind)
     # outputs: beta, r, maxh and rsqr in one allocation
     out = torch.empty((nb * B + n + 2,), dtype=dt, device=dev)
     op, w = out.data_ptr(), dt.itemsize

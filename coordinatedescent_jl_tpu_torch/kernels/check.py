@@ -10,22 +10,29 @@ Both plain twins call the same cores as the plain check
 (``ops/block_cd.py``: ``_gap_safe_core``, ``_stale_core_ls``,
 ``_habs_reduce_core``, ``_ls_candidate``).
 
-Design on the H100 (the CUDA source has the details): one cooperative
-launch per call spreads the block rows over the card, a warp per row and
-16-byte loads, in CTAs of 256 threads laid out by :func:`plan_check`.  The
-screen's global terms (phase A) and the final ``maxh`` are per-CTA
-partials that meet at a grid barrier and are then combined in a fixed
-order, so results are deterministic with no atomics; compiled without
-multiply-add contraction so each elementwise operation rounds as
-PyTorch's does and the masks equal the twins'.  Bounded by latency (a
-launch and one or two grid barriers): a call reads about 2.8 MB at
-p = 100K, 0.8 µs at the card's memory rate.  The JAX package gates the
+Design on the H100 (the CUDA source has the details): past 8 block rows
+one cooperative launch per call spreads the rows over the card, a warp
+per row and 16-byte loads, in CTAs of 256 threads laid out by
+:func:`plan_check`.  The screen's global terms (phase A) and the final
+``maxh`` are per-CTA partials that meet at a grid barrier and are then
+combined in a fixed order, so results are deterministic with no atomics;
+compiled without multiply-add contraction so each elementwise operation
+rounds as PyTorch's does and the masks equal the twins'.  Bounded by
+latency (a launch and one or two grid barriers): a call reads about 2.8 MB
+at p = 100K, 0.8 µs at the card's memory rate.  At most 8 rows (the plan's
+grid is one CTA: the varying-coefficient scan's one block, any small
+solve or working set) take the one-CTA route (``CheckPlan.cta``): the same
+kernel body as a plain launch of one CTA, no grid barrier, no residency
+query and no partials buffer, the screen's terms and ``maxh`` combined in
+shared memory; its layout is the cooperative route's at one CTA, so its
+outputs are that route's bit for bit.  The JAX package gates the
 fused check on VMEM (``fused_check_fits``); the H100 has no such limit at
 these sizes (the grid strides over any number of rows), so the only gate
 here is float32.
 
 Masks are returned as float {0, 1} tensors of shape ``(nb,)``; ``maxh`` is
-a 0-d tensor.  ``LAUNCHES_A``/``LAUNCHES_B`` count kernel launches.
+a 0-d tensor.  ``LAUNCHES_A``/``LAUNCHES_B`` count kernel launches, and
+``LAUNCHES_A_CTA``/``LAUNCHES_B_CTA`` those of them on the one-CTA route.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from ..ops.block_cd import (_gap_safe_core, _habs_reduce_core,
 
 LAUNCHES_A = 0
 LAUNCHES_B = 0
+LAUNCHES_A_CTA = 0
+LAUNCHES_B_CTA = 0
 # the kernels' shape (csrc/check.cu): warps (block rows owned at once) per
 # 256-thread CTA, coordinates of a row one warp loads at once (4 a lane),
 # and float partials per CTA
@@ -55,6 +64,15 @@ class CheckPlan(NamedTuple):
     rows: int    # block rows a warp owns, at most (rows stride the warps)
     keep: bool   # a warp owns one row of one chunk: phase A keeps its
     #              inputs in registers between the screen and the row pass
+    # the cooperative route even at one CTA: a test, ``chip_smoke.py`` or
+    # ``kernel_ab.py`` holds the one-CTA route against it
+    coop: bool = False
+
+    @property
+    def cta(self) -> bool:
+        """The one-CTA route: a plain launch, wherever the grid is one CTA
+        (``nb <= 8``) and the cooperative route is not forced."""
+        return self.grid == 1 and not self.coop
 
 
 @functools.lru_cache(maxsize=64)
@@ -62,7 +80,8 @@ def plan_check(nb: int, B: int, sms: int, resident: int) -> CheckPlan:
     """K3/K4's launch plan: a CTA per 8 block rows (a warp per row), at
     most ``sms * resident`` CTAs (``resident``: the kernel's CTAs one SM
     holds at once, so the cooperative grid is co-resident); past that
-    the rows stride over the warps.  Mirrors ``csrc/check.cu``: the
+    the rows stride over the warps; a grid of one CTA (``nb <= 8``) is the
+    one-CTA route (``CheckPlan.cta``).  Mirrors ``csrc/check.cu``: the
     kernel keeps a row in registers when every warp owns at most one row
     and ``B <= 128``."""
     grid = max(1, min(-(-nb // _CK_WARPS), sms * resident))
@@ -100,14 +119,15 @@ def _check_inputs(name, dev, tensors):
 
 
 def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
-                  screen: bool):
+                  screen: bool, plan: CheckPlan | None = None):
     """One-kernel no-refresh full check.  ``scal`` is the device row
     ``[λ0, n, ‖r‖², r'y, tol]``.  Returns ``(need, use_bound, cand, bound,
-    maxh, active)``."""
+    maxh, active)``.  ``plan`` (default the planner's) lets a test or
+    ``chip_smoke.py`` launch the other route at one CTA."""
     if not c.is_cuda:
         return check_phase_a_plain(c, beta, drift, adiag, lamw, validf,
                                    xwnorm, scal, screen=screen)
-    global LAUNCHES_A
+    global LAUNCHES_A, LAUNCHES_A_CTA
     nb, B = c.shape
     dev = c.device
     sq, row = c.shape, (nb,)
@@ -115,37 +135,42 @@ def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
         ("c", c, sq), ("beta", beta, sq), ("drift", drift, row),
         ("adiag", adiag, sq), ("lamw", lamw, sq), ("validf", validf, sq),
         ("xwnorm", xwnorm, sq), ("scal", scal, (5,))))
-    grid = _plan(False, nb, B, dev.index).grid
+    if plan is None:
+        plan = _plan(False, nb, B, dev.index)
+    cta = plan.cta
     # one allocation: bound, the need / ub / cand / active rows, then maxh
-    # and the grid's partials
+    # and, on the cooperative route, the grid's partials
     nbB = nb * B
-    out = torch.empty((nbB + 4 * nb + 1 + _CK_PART * grid,),
-                      dtype=torch.float32, device=dev)
+    npart = 0 if cta else _CK_PART * plan.grid
+    out = torch.empty((nbB + 4 * nb + 1 + npart,), dtype=torch.float32,
+                      device=dev)
     o = out.data_ptr()
     need, ub, cand, active, maxh = (o + 4 * (nbB + i * nb) for i in range(5))
     err = _build.library().cdt_check_a_f32(
         c.data_ptr(), beta.data_ptr(), drift.data_ptr(), adiag.data_ptr(),
         lamw.data_ptr(), validf.data_ptr(), xwnorm.data_ptr(),
-        scal.data_ptr(), need, ub, cand, o, maxh, active, maxh + 4, nb, B,
-        int(bool(screen)), grid, _build.stream(dev))
+        scal.data_ptr(), need, ub, cand, o, maxh, active,
+        maxh + 4 if npart else None, nb, B, int(bool(screen)), plan.grid,
+        int(cta), _build.stream(dev))
     _build.check(err, "check_a")
     LAUNCHES_A += 1
+    LAUNCHES_A_CTA += cta
     if _build.NAN_CHECK:
         _build.check_nans("check_a", out[:nbB + 4 * nb + 1])
     # the six outputs' views from one call (every view op costs host time)
     bound, need, ub, cand, active, tail = out.split_with_sizes(
-        (nbB, nb, nb, nb, nb, 1 + _CK_PART * grid))
+        (nbB, nb, nb, nb, nb, 1 + npart))
     return need, ub, cand, bound.view(nb, B), tail[0], active
 
 
 def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
-                  xwnorm, scal):
+                  xwnorm, scal, *, plan: CheckPlan | None = None):
     """Post-refresh step re-evaluation + reductions in one kernel.  Returns
-    ``(maxh, active)``."""
+    ``(maxh, active)``.  ``plan`` as :func:`check_phase_a`'s."""
     if not c_new.is_cuda:
         return check_phase_b_plain(c_new, beta, bound, ubf, candf, adiag,
                                    lamw, validf, xwnorm, scal)
-    global LAUNCHES_B
+    global LAUNCHES_B, LAUNCHES_B_CTA
     nb, B = c_new.shape
     dev = c_new.device
     sq, row = c_new.shape, (nb,)
@@ -154,18 +179,22 @@ def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
         ("ubf", ubf, row), ("candf", candf, row), ("adiag", adiag, sq),
         ("lamw", lamw, sq), ("validf", validf, sq), ("xwnorm", xwnorm, sq),
         ("scal", scal, (5,))))
-    grid = _plan(True, nb, B, dev.index).grid
-    # one allocation: active, maxh, then the grid's partials
-    out = torch.empty((nb + 1 + _CK_PART * grid,), dtype=torch.float32,
-                      device=dev)
+    if plan is None:
+        plan = _plan(True, nb, B, dev.index)
+    cta = plan.cta
+    # one allocation: active, maxh, then (cooperative route) the partials
+    npart = 0 if cta else _CK_PART * plan.grid
+    out = torch.empty((nb + 1 + npart,), dtype=torch.float32, device=dev)
     o = out.data_ptr()
     err = _build.library().cdt_check_b_f32(
         c_new.data_ptr(), beta.data_ptr(), bound.data_ptr(), ubf.data_ptr(),
         candf.data_ptr(), adiag.data_ptr(), lamw.data_ptr(),
         validf.data_ptr(), xwnorm.data_ptr(), scal.data_ptr(), o + 4 * nb,
-        o, o + 4 * (nb + 1), nb, B, grid, _build.stream(dev))
+        o, o + 4 * (nb + 1) if npart else None, nb, B, plan.grid,
+        int(cta), _build.stream(dev))
     _build.check(err, "check_b")
     LAUNCHES_B += 1
+    LAUNCHES_B_CTA += cta
     if _build.NAN_CHECK:
         _build.check_nans("check_b", out[:nb + 1])
     return out[nb], out[:nb]

@@ -60,7 +60,7 @@ _SW_TILE = 128
 _SW_CTAS_PER_SM = 16
 _SW_FILL = 4
 _SW_MIN_ROWS = 128
-_MAX_CLUSTER = 16
+_MAX_CLUSTER = _build.MAX_CLUSTER
 _SW_CLUSTER_ROWS = 32
 _SW_CLUSTER_MAX_N = _MAX_CLUSTER * _SW_MIN_ROWS
 # columns per float64 chunk of grad_f64_plain: bounds the f64 copy of X to
@@ -131,28 +131,32 @@ class SweepPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def plan_dense_sweep(nb: int, n: int, W: int, sms: int,
-                     resplit: bool = False) -> SweepPlan:
+                     resplit: bool = False,
+                     max_cluster: int = _MAX_CLUSTER) -> SweepPlan:
     """K5's launch plan for ``nb`` blocks of ``n`` rows and row stride
     ``W`` on a card with ``sms`` multiprocessors: the rows are split only
     when the column tiles alone cannot give ``_SW_FILL`` CTAs per SM (the
     8-tile working set), and never below ``_SW_MIN_ROWS`` rows a slice.
     ``resplit`` (the f32 blocked sweep; the f64 forms keep the sums'
-    order): at most ``_SW_CLUSTER_MAX_N`` rows split into up to
-    ``_MAX_CLUSTER`` slices of ``_SW_CLUSTER_ROWS`` or more.  Where a tile
-    has 2 to ``_MAX_CLUSTER`` slices they are one cluster, and the grid is
-    every item; more slices add their partials in a second launch."""
+    order): at most ``_SW_CLUSTER_MAX_N`` rows split into up to ``most``
+    slices of ``_SW_CLUSTER_ROWS`` or more, ``most`` the smaller of
+    ``_MAX_CLUSTER`` and ``max_cluster`` (the largest cluster the card
+    holds, ``_build.largest_cluster``).  Where a tile has 2 to ``most``
+    slices they are one cluster, and the grid is every item; more slices
+    add their partials in a second launch."""
+    most = min(_MAX_CLUSTER, max_cluster)
     tiles = nb * -(-W // _SW_TILE)
     want = _SW_FILL * sms
     split = 1
     if tiles < want:
         fill = -(-want // tiles)
         if resplit and n <= _SW_CLUSTER_MAX_N:
-            split = max(1, min(_MAX_CLUSTER, fill, -(-n // _SW_CLUSTER_ROWS)))
+            split = max(1, min(most, fill, -(-n // _SW_CLUSTER_ROWS)))
         else:
             split = max(1, min(fill, n // _SW_MIN_ROWS))
     rows = -(-n // split)
     split = -(-n // rows)            # no empty slice
-    if 1 < split <= _MAX_CLUSTER:
+    if 1 < split <= most:
         return SweepPlan(tiles, split, rows, tiles * split, True)
     return SweepPlan(tiles, split, rows,
                      min(tiles * split, _SW_CTAS_PER_SM * sms))
@@ -181,12 +185,24 @@ def _require_sweep_inputs(name, X, r, xdtypes, rdtype, n):
         "on {}", name, n, rdtype, X.device)
 
 
+@functools.lru_cache(maxsize=64)
+def _card_plan(entry: str, nb: int, n: int, W: int, index: int,
+               resplit: bool) -> SweepPlan:
+    """:func:`plan_dense_sweep` on device ``index``: its SMs, and the
+    largest cluster of the instantiation ``entry`` it holds."""
+    return plan_dense_sweep(
+        nb, n, W, _build.sm_count(torch.device("cuda", index)), resplit,
+        _build.largest_cluster(f"{entry}_clusters", index))
+
+
 def sweep_plan(Xwb) -> SweepPlan:
     """The plan :func:`fused_gradient_sweep` launches for the blocked
-    design ``Xwb`` (a CUDA tensor): the f32 sweep re-splits small n."""
+    design ``Xwb`` (a CUDA tensor): the f32 sweep re-splits small n; a
+    cluster is at most the largest the card holds."""
     nb, n, B = Xwb.shape
-    return plan_dense_sweep(nb, n, B, _build.sm_count(Xwb.device),
-                            Xwb.dtype == torch.float32)
+    f32 = Xwb.dtype == torch.float32
+    return _card_plan("cdt_dense_sweep_f32" if f32 else "cdt_dense_sweep_f64",
+                      nb, n, B, Xwb.device.index, f32)
 
 
 def fused_gradient_sweep(Xwb, r, *, plan: SweepPlan | None = None):
@@ -235,8 +251,9 @@ def grad_f64(X, r64, *, plan: SweepPlan | None = None):
     lib = _build.library()
     fn = lib.cdt_grad64_f32 if X.dtype == torch.float32 else \
         lib.cdt_grad64_f64
-    _dense_sweep(fn, X, r64, out, 1, n, p, "grad64",
-                 plan or plan_dense_sweep(1, n, p, _build.sm_count(X.device)))
+    if plan is None:
+        plan = _card_plan(fn.__name__, 1, n, p, X.device.index, False)
+    _dense_sweep(fn, X, r64, out, 1, n, p, "grad64", plan)
     LAUNCHES_F64 += 1
     if _build.NAN_CHECK:
         _build.check_nans("grad64", out)

@@ -180,6 +180,7 @@ def reset_launch_counts():
         by_dtype[0] = by_dtype[1] = 0
     gs.LAUNCHES = gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
     check.LAUNCHES_A = check.LAUNCHES_B = 0
+    check.LAUNCHES_A_CTA = check.LAUNCHES_B_CTA = 0
 
 
 class VcBenchProblem(NamedTuple):

@@ -47,8 +47,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from ..kernels import _build
-from ..kernels.active_pass import (SMEM_OPTIN_H100, fused_active_pass,
-                                   plan_active_pass)
+from ..kernels.active_pass import (SMEM_OPTIN_H100, card_plan,
+                                   fused_active_pass, plan_active_pass)
 from ..ops.block_cd import (_active_pass, _blocks_matvec, _compact_mode,
                             _empty_ws_cache, _full_check, _init_state,
                             _np_dtype,
@@ -519,8 +519,7 @@ def pass_roofline_multi(n: int, p: int, *, block_size: int = 128,
         border = torch.arange(nb, device=dev)
         corder = torch.arange(B, device=dev)
         if dev.type == "cuda":
-            plan = plan_active_pass(n, B, itemsize, _build.sm_count(dev),
-                                    _build.smem_optin(dev))
+            plan = card_plan(n, B, dtype, dev)
             kind = torch.cuda.get_device_name(dev)
         else:
             plan = plan_active_pass(n, B, itemsize, _H100_SMS,

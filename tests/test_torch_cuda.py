@@ -498,6 +498,108 @@ def test_check_kernels_are_one_launch_and_deterministic(dev, screen):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("B", [128, 100, 50, 256])
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("screen", [True, False])
+def test_check_one_cta_route_matches_cooperative_bitwise(dev, screen, nb, B):
+    """At nb <= 8 the plan's grid is one CTA and K3/K4 take the plain
+    one-CTA route.  Against the cooperative route forced at one CTA:
+    bound, need, ub, cand, active and maxh bit for bit (the same layout,
+    and the grid's sums over one CTA leave its value as it is); the
+    cooperative route's masks equal the twins', its bound and maxh within
+    1e-5.  B = 100 ragged, B = 50 scalar loads, B = 256 two chunks a
+    row."""
+    a, c_new = _check_case(dev, nb=nb, B=B)
+    index = a[0].device.index
+    plan_a = check._plan(False, nb, B, index)
+    plan_b = check._plan(True, nb, B, index)
+    assert plan_a.grid == plan_b.grid == 1 and plan_a.cta and plan_b.cta
+    ref = check.check_phase_a(*a, screen=screen,
+                              plan=plan_a._replace(coop=True))
+    twin = check.check_phase_a_plain(*a, screen=screen)
+    for i in (0, 1, 2, 5):
+        assert torch.equal(ref[i], twin[i]), i
+    for i in (3, 4):
+        torch.testing.assert_close(ref[i], twin[i], rtol=1e-5, atol=1e-7)
+    b = (c_new, a[1], ref[3], ref[1], ref[2], a[3], a[4], a[5], a[6], a[7])
+    ref_b = check.check_phase_b(*b, plan=plan_b._replace(coop=True))
+    twin_b = check.check_phase_b_plain(*b)
+    assert torch.equal(ref_b[1], twin_b[1])
+    torch.testing.assert_close(ref_b[0], twin_b[0], rtol=1e-5, atol=1e-7)
+    n_a, n_b = check.LAUNCHES_A_CTA, check.LAUNCHES_B_CTA
+    out = check.check_phase_a(*a, screen=screen)
+    for i, (x, y) in enumerate(zip(out, ref)):
+        assert torch.equal(x, y), i
+    out_b = check.check_phase_b(*b)
+    for i, (x, y) in enumerate(zip(out_b, ref_b)):
+        assert torch.equal(x, y), i
+    assert (check.LAUNCHES_A_CTA, check.LAUNCHES_B_CTA) == (n_a + 1, n_b + 1)
+
+
+def test_check_one_cta_route_refuses_more_rows(dev):
+    """The one-CTA route takes at most 8 rows: a forced launch of 9 is
+    refused, not run another way."""
+    a, _ = _check_case(dev, nb=9)
+    n_a = check.LAUNCHES_A
+    with pytest.raises(RuntimeError, match="check_a failed"):
+        check.check_phase_a(*a, screen=True,
+                            plan=check.CheckPlan(1, 2, False))
+    assert check.LAUNCHES_A == n_a
+
+
+def _cluster_shapes(dev):
+    """Every cluster plan ``chip_smoke.py`` launches: K1 at the
+    varying-coefficient point (n = 500, and 499 for a LOO-CV fit; f32, the
+    three kinds, Gram on and off) and K5's cluster routes (the f32 block
+    at n = 500 in 16 slices, the ``debug_nans`` design's 32 tiles of 2,000
+    rows, the f64 blocked form's 3 slices, ``grad_f64`` at (1,000, 100)).
+    Yields (C entry, its shape arguments, the cluster's CTAs)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for n in (500, 499):
+        for kind in ("ls", "wls", "sqrt"):
+            for gram in (True, False):
+                pl = active_pass.plan_active_pass(n, 128, 4, sms, optin,
+                                                  gram)
+                assert pl.cluster
+                yield ("cdt_active_pass_clusters_f32",
+                       (active_pass._KINDS[kind], pl.smem), pl.grid)
+    for entry, (nb, n, W, resplit) in (
+            ("cdt_dense_sweep_f32", (1, 500, 128, True)),
+            ("cdt_dense_sweep_f32", (32, 2000, 128, True)),
+            ("cdt_dense_sweep_f64", (1, 500, 128, False)),
+            ("cdt_grad64_f32", (1, 1000, 100, False))):
+        pl = gradient_sweep.plan_dense_sweep(nb, n, W, sms, resplit)
+        assert pl.cluster
+        yield f"{entry}_clusters", (), pl.split
+
+
+def test_cluster_plans_fit_the_card(dev):
+    """The card holds at least one cluster of every shape
+    ``chip_smoke.py`` plans (``cudaOccupancyMaxActiveClusters``), and the
+    plans the wrappers take on it (with the largest cluster it holds) are
+    the plans at 16 CTAs: on an H100 the largest cluster is 16."""
+    from coordinatedescent_jl_tpu_torch.kernels import _build
+
+    index = torch.cuda.current_device()
+    for entry, shape, cluster in _cluster_shapes(dev):
+        assert _build.active_clusters(entry, index, *shape, cluster) >= 1, (
+            entry, shape, cluster)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    card = torch.device("cuda", index)
+    k1 = active_pass.card_plan(500, 128, torch.float32, card, True, "wls")
+    k5 = gradient_sweep.sweep_plan(torch.empty((1, 500, 128), device=card))
+    if "H100" in torch.cuda.get_device_name(index):
+        assert k1 == active_pass.plan_active_pass(500, 128, 4, sms, optin)
+        assert k5 == gradient_sweep.plan_dense_sweep(1, 500, 128, sms, True)
+        for kind in range(3):
+            assert _build.largest_cluster(
+                "cdt_active_pass_clusters_f32", index, kind, optin) == 16
+    assert k1.grid <= _build.largest_cluster(
+        "cdt_active_pass_clusters_f32", index, 1, optin)
+
+
 def test_small_n_routes_are_one_kernel_and_no_host_read(dev):
     """At the varying-coefficient point K1 (wls, both inners) and K5 each
     launch one device kernel a call and read nothing to the host.  (After
@@ -519,6 +621,29 @@ def test_small_n_routes_are_one_kernel_and_no_host_read(dev):
     reads, names, _, counted, _ = trace_one_call(
         lambda: gradient_sweep.fused_gradient_sweep(prob.Xwb, st.r))
     assert (reads, len(names), counted) == (0, 1, 1), names
+
+
+def test_check_one_cta_route_is_one_kernel_and_no_host_read(dev):
+    """At one block (the varying-coefficient point's nb) and at 8, K3
+    (screen on and off) and K4 each launch one plain one-CTA kernel a call
+    and read nothing to the host.  (With the file's other one-call traces,
+    after the heavy tests.)"""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    for nb in (1, 8):
+        a, c_new = _check_case(dev, nb=nb)
+        for screen in (True, False):
+            reads, names, _, counted, _ = trace_one_call(
+                lambda: check.check_phase_a(*a, screen=screen))
+            assert (reads, len(names), counted) == (0, 1, 1), names
+            assert "check_a_cta" in names[0], names
+        outa = check.check_phase_a(*a, screen=True)
+        b = (c_new, a[1], outa[3], outa[1], outa[2], a[3], a[4], a[5], a[6],
+             a[7])
+        reads, names, _, counted, _ = trace_one_call(
+            lambda: check.check_phase_b(*b))
+        assert (reads, len(names), counted) == (0, 1, 1), names
+        assert "check_b_cta" in names[0], names
 
 
 def test_lasso_kernels_match_plain_path(dev):

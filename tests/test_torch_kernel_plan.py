@@ -5,7 +5,8 @@ thread-block cluster of at most 16 CTAs, or a cooperative grid) and sizes
 its grid and shared memory; ``kernels/gradient_sweep.py::plan_dense_sweep``
 lays out K5's items, decides when it splits the rows and when a tile's
 slices are one cluster;
-``kernels/check.py::plan_check`` sizes K3/K4's cooperative grid.  All are
+``kernels/check.py::plan_check`` sizes K3/K4's cooperative grid and
+picks their route (one plain CTA at nb <= 8).  All are
 pure Python, so they are held here against hand-worked cases for an H100
 (132 SMs, 232,448 bytes of shared memory a CTA may opt in to).
 """
@@ -193,3 +194,51 @@ def test_dense_sweep_cluster_plan(nb, n, W, resplit, want):
     # a cluster holds at most 16 CTAs, its grid is every item
     if plan.cluster:
         assert 2 <= plan.split <= 16 and plan.grid == plan.tiles * plan.split
+
+
+@pytest.mark.parametrize("B", [100, 128, 256])
+@pytest.mark.parametrize("nb", [1, 2, 3, 5, 8, 9, 16, 782])
+def test_check_route(nb, B):
+    """K3/K4 take the plain one-CTA route wherever the plan's grid is one
+    CTA (nb <= 8, whatever the residency: the varying-coefficient scan's
+    one block of 128 among them), the cooperative route above; the
+    cooperative route forced at one CTA is launched as such."""
+    for resident in (2, 3, 4):
+        plan = check.plan_check(nb, B, SMS, resident)
+        assert plan.cta == (plan.grid == 1) == (nb <= 8)
+        assert not plan._replace(coop=True).cta
+        assert plan._replace(coop=True).grid == plan.grid
+
+
+def test_cluster_plans_on_a_card_of_8_cta_clusters():
+    """A card whose largest cluster is 8 CTAs (``max_cluster``, from its
+    occupancy query) gets plans of at most 8: K1 at the
+    varying-coefficient point takes 8 CTAs of 63 rows, n = 1,024 (128 rows
+    a CTA, over the 64-row cap) the cooperative route; K5's f32 block of
+    500 rows 8 slices of 63, at 2,048 rows 8 of 256, one cluster each;
+    ``grad_f64`` at (1,000, 100) keeps its 7 slices, at 12 slices (n =
+    1,600) the two-kernel route.  At 16 the plans are the H100's."""
+    k1 = active_pass.plan_active_pass(500, 128, 4, SMS, OPTIN, True, 8)
+    assert (k1.grid, k1.rows, k1.cluster) == (8, 63, True)
+    assert k1.smem == active_pass._smem(128, 4, 8, 63, True, True, True,
+                                        True)
+    assert not active_pass.plan_active_pass(1024, 128, 4, SMS, OPTIN, True,
+                                            8).cluster
+    for n, gram in ((500, True), (1024, True), (1008, True), (880, False)):
+        for itemsize in (4, 8):
+            assert active_pass.plan_active_pass(
+                n, 128, itemsize, SMS, OPTIN, gram,
+                16) == active_pass.plan_active_pass(n, 128, itemsize, SMS,
+                                                    OPTIN, gram)
+    sweep = gradient_sweep.plan_dense_sweep
+    assert sweep(1, 500, 128, SMS, True, 8) == gradient_sweep.SweepPlan(
+        1, 8, 63, 8, True)
+    assert sweep(1, 2048, 128, SMS, True, 8) == gradient_sweep.SweepPlan(
+        1, 8, 256, 8, True)
+    assert sweep(1, 1000, 100, SMS, False, 8) == sweep(1, 1000, 100, SMS)
+    wide = sweep(1, 1600, 100, SMS, False, 8)
+    assert (wide.split, wide.cluster) == (12, False)
+    assert sweep(1, 1600, 100, SMS).cluster
+    for args in ((1, 500, 128, SMS, True), (1, 500, 128, SMS, False),
+                 (8, 10_000, 128, SMS, True)):
+        assert sweep(*args, 16) == sweep(*args)
