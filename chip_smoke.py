@@ -37,7 +37,12 @@ Phases, each failing loudly (exit code 1, no result line):
    each one kernel a call with no host read and held bit for bit against
    the cooperative route at one CTA, each with the device time of one call
    on both routes, and the device time of the library call beside K5 there
-   and on the working set;
+   and on the working set; last, at the p = 1M shapes of 4m (a
+   single-device ``lasso`` at n = 1,000, p = 1,000,000, then a state at
+   0.9 of its solution), K5 at (7,813, 1,000, 128), K3 (screen on and off)
+   and K4 at 7,813 rows on the cooperative route, and K1 on its cluster
+   route at n = 1,000 over the 8 blocks that hold most of the solve's
+   support, each one call traced on the route its plan names;
 4. the main paths on the bench problem (dense Gaussian X, n = 10,000,
    p = 100,000, scattered s = 100 support, f32), each run with the launch
    counts set to 0 just before it and read just after:
@@ -128,9 +133,32 @@ Phases, each failing loudly (exit code 1, no result line):
       world of one's supports, ``lasso_lambda_batch`` at 4 λ within 1e-6
       of the single-device ``lasso``, every rank's result the same, K1 and
       K5 launched in each rank; a rank that fails fails the phase.
+   m. the two paths of bench.py no earlier phase runs, at its shapes, on a
+      world of one rank (NCCL): ``lasso_sharded`` at n = 1,000, p =
+      1,000,000 (``bench.p1m_problem``: s = 100 planted, λ = 0.1·λmax,
+      ``opt_tol=1e-6``), its float64 relative gap below 100·opt_tol and
+      no coordinate more than 1e-4 from the single-device ``lasso``'s
+      (phase 3's solve on the same X); the 20-point batched
+      ``lasso_path_sharded``, certified without falling back (their
+      launches at the shapes and routes of phase 3's p = 1M rows, from
+      the wrappers' counts by shape, are those rows' launches, and each
+      must be at least one); then the row tier ``lasso_row_sharded`` at
+      50,000 x 2,000 (``bench.row_problem``, its launches kept apart)
+      within 1e-4 of the single-device ``lasso``.  Times, launches and
+      the phase's peak device memory are logged.
    Every kernel must have launched in the runs that drive it.  (The plain
    runs repeat the kernels' arithmetic in eager PyTorch and are no
    yardstick of speed; 4a's plain scan is the longest of them.)
+5. ``python -m coordinatedescent_jl_tpu_torch.bench`` with
+   ``BENCH_SMALL=1``, each demo of ``coordinatedescent_jl_tpu_torch/
+   examples`` with ``--small`` and ``python -m coordinatedescent_jl_tpu_torch.
+   multiproc_bench --small`` (its card mode: the worlds the cards allow,
+   one card a rank), each a process of its own on the card, all started
+   together: each must exit with 0, and the bench's two lines must carry
+   the small metric's name, every compact key its small mode records
+   (bench.py's list less the roofline, p = 1M and multi-process keys),
+   every ``*_certified`` true and no ``*_error`` key; the scaling line
+   must say ``cuda`` and hold a nonempty solution of the world of one.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 1 without one.
@@ -300,6 +328,7 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     try:
         import coordinatedescent_jl_tpu_torch as tcd
+        from coordinatedescent_jl_tpu_torch import bench as pbench
         from coordinatedescent_jl_tpu_torch.kernels import (_build,
                                                             active_pass,
                                                             check,
@@ -445,6 +474,62 @@ def main():
         if not all(same.values()):
             fail(f"the one-CTA route differs from the cooperative route "
                  f"({tag})")
+
+    def check_coop(tag, what, a_args):
+        """K3 (screen on, reported as ``K3<tag>``, and off) and K4 (on phase
+        A's plain screen-on outputs, ``K4<tag>``) on the cooperative route
+        its plan names: masks equal to the twins', bound and maxh within
+        relative 1e-5, one ``check_a_kernel`` / ``check_b_kernel`` a call
+        and no host read; the bytes are six (nb, B) inputs and the bound
+        out and the per-block rows, about 40 elementwise operations a
+        coordinate in phase A, 20 in phase B."""
+        nonlocal ok
+        nb_k = a_args[0].shape[0]
+        for phase_b in (False, True):
+            if check._plan(phase_b, nb_k, B, dev.index).cta:
+                fail(f"K3/K4 at {nb_k} rows must take the cooperative route")
+        for screen in (True, False):
+            outk = check.check_phase_a(*a_args, screen=screen)
+            outp = check.check_phase_a_plain(*a_args, screen=screen)
+            masks = sum(int((outk[i] != outp[i]).sum()) for i in (0, 1, 2, 5))
+            err = max(maxdiff(outk[3], outp[3]), maxdiff(outk[4], outp[4]))
+            tol = 1e-5 * max(1.0, float(outp[3].abs().max()))
+            ms = cuda_ms(lambda: check.check_phase_a(*a_args, screen=screen),
+                         50)
+            pms = cuda_ms(lambda: check.check_phase_a_plain(*a_args,
+                                                            screen=screen), 20)
+            reads, names, dms = one_call(
+                lambda: check.check_phase_a(*a_args, screen=screen))
+            report(f"K3{tag}" if screen else None, "K3 check_phase_a", err,
+                   tol, ms, pms, f"{what}, screen={screen}; mask mismatches "
+                   f"{masks}; need {int(outp[0].sum())}; one call: device "
+                   f"{dms:.4f} ms, {len(names)} kernel(s), {reads} host reads",
+                   f4 * (7 * nb_k * B + 5 * nb_k + 5), 40 * nb_k * B,
+                   device_ms=dms)
+            ok = ok and masks == 0
+            if reads or len(names) != 1 or "check_a_kernel" not in names[0]:
+                fail(f"check_phase_a at {nb_k} rows must launch one "
+                     f"check_a_kernel and read nothing to the host: {names}")
+            if screen:
+                first = outp
+        b_args = (a_args[0], a_args[1], first[3], first[1], first[2],
+                  *a_args[3:])
+        outk = check.check_phase_b(*b_args)
+        outp = check.check_phase_b_plain(*b_args)
+        masks = int((outk[1] != outp[1]).sum())
+        ms = cuda_ms(lambda: check.check_phase_b(*b_args), 50)
+        pms = cuda_ms(lambda: check.check_phase_b_plain(*b_args), 20)
+        reads, names, dms = one_call(lambda: check.check_phase_b(*b_args))
+        report(f"K4{tag}", "K4 check_phase_b", maxdiff(outk[0], outp[0]),
+               1e-5 * max(1.0, float(outp[0])), ms, pms,
+               f"{what}; mask mismatches {masks}; one call: device {dms:.4f} "
+               f"ms, {len(names)} kernel(s), {reads} host reads",
+               f4 * (7 * nb_k * B + 3 * nb_k + 5), 20 * nb_k * B,
+               device_ms=dms)
+        ok = ok and masks == 0
+        if reads or len(names) != 1 or "check_b_kernel" not in names[0]:
+            fail(f"check_phase_b at {nb_k} rows must launch one "
+                 f"check_b_kernel and read nothing to the host: {names}")
 
     B = 128
     f4 = 4
@@ -760,51 +845,8 @@ def main():
     scal = block_cd._check_scalars(lam0, float(n), rn2, torch.dot(st.r, y),
                                    1e-6)
     validf = full.valid.float()
-    a_args = (c_full, st.beta, drift, full.adiag, full.lamw, validf,
-              full.xwnorm, scal)
-    # bytes: six (nb, B) inputs and the bound out, the per-block rows;
-    # about 40 elementwise operations per coordinate
-    for screen in (True, False):
-        outk = check.check_phase_a(*a_args, screen=screen)
-        outp = check.check_phase_a_plain(*a_args, screen=screen)
-        masks = sum(int((outk[i] != outp[i]).sum()) for i in (0, 1, 2, 5))
-        err = max(maxdiff(outk[3], outp[3]), maxdiff(outk[4], outp[4]))
-        tol = 1e-5 * max(1.0, float(outp[3].abs().max()))
-        ms = cuda_ms(lambda: check.check_phase_a(*a_args, screen=screen), 50)
-        pms = cuda_ms(lambda: check.check_phase_a_plain(*a_args,
-                                                        screen=screen), 20)
-        reads, names, dms = one_call(
-            lambda: check.check_phase_a(*a_args, screen=screen))
-        report("K3" if screen else None, "K3 check_phase_a", err, tol, ms,
-               pms, f"screen={screen}; mask mismatches {masks}; "
-               f"need {int(outp[0].sum())}; one call: device {dms:.4f} ms, "
-               f"{len(names)} kernel(s), {reads} host reads",
-               f4 * (7 * nb_full * B + 5 * nb_full + 5), 40 * nb_full * B,
-               device_ms=dms)
-        ok = ok and masks == 0
-        if reads or len(names) != 1:
-            fail("check_phase_a must launch one kernel and read nothing to "
-                 "the host")
-        if screen:
-            need_a, ub_a, cand_a, bound_a = outp[0], outp[1], outp[2], outp[3]
-    b_args = (c_full, st.beta, bound_a, ub_a, cand_a, full.adiag, full.lamw,
-              validf, full.xwnorm, scal)
-    outk = check.check_phase_b(*b_args)
-    outp = check.check_phase_b_plain(*b_args)
-    masks = int((outk[1] != outp[1]).sum())
-    err = maxdiff(outk[0], outp[0])
-    ms = cuda_ms(lambda: check.check_phase_b(*b_args), 50)
-    pms = cuda_ms(lambda: check.check_phase_b_plain(*b_args), 20)
-    reads, names, dms = one_call(lambda: check.check_phase_b(*b_args))
-    report("K4", "K4 check_phase_b", err, 1e-5 * max(1.0, float(outp[0])),
-           ms, pms, f"mask mismatches {masks}; one call: device {dms:.4f} "
-           f"ms, {len(names)} kernel(s), {reads} host reads",
-           f4 * (7 * nb_full * B + 3 * nb_full + 5), 20 * nb_full * B,
-           device_ms=dms)
-    ok = ok and masks == 0
-    if reads or len(names) != 1:
-        fail("check_phase_b must launch one kernel and read nothing to the "
-             "host")
+    check_coop("", f"{nb_full} rows", (c_full, st.beta, drift, full.adiag,
+                                       full.lamw, validf, full.xwnorm, scal))
     # K3/K4 on the working set's 8 blocks (the lasso's inner solves, screen
     # on): 4 blocks of the planted support and 4 without, gathered from
     # the state above, on their one-CTA route
@@ -815,7 +857,7 @@ def main():
         t[rows8].contiguous() for t in (c_full, st.beta, drift, full.adiag,
                                         full.lamw, validf, full.xwnorm))
         + (scal,), (True, False))
-    del full, st, args, a_args, b_args, c_full, bk, rk, bp, rp, ck, cp
+    del full, st, args, c_full, bk, rk, bp, rp, ck, cp
     torch.cuda.empty_cache()
 
     # K5, float64-accumulating, on the dense design: a float64 residual of
@@ -967,6 +1009,99 @@ def main():
     # and bit for bit against the cooperative route forced at one CTA
     check_one_cta("vc", "one block", a_args, (False,))
     del prob_v, st_v, eX_v, a_args
+    # The kernels at the p = 1M shapes of 4m (bench.py:1098-1193): the
+    # single-device lasso at n = 1,000, p = 1,000,000 (its solution, kept
+    # as x_p1m, is 4m's reference), then, on the blocked design and a state
+    # at 0.9 of its solution, K5 at (7,813, 1,000, 128), K3/K4 at 7,813
+    # rows on the cooperative route, and K1 on its cluster route at n =
+    # 1,000 over the solve's working set; tolerances as above
+    X1, y1, lam1 = pbench.p1m_problem(dev)
+    n1, p1 = X1.shape
+    opts1 = tcd.CDOptions(opt_tol=pbench.OPT_TOL, randomize=False)
+    sol1 = tcd.lasso(X1, y1, lam1, options=opts1)
+    full1 = block_cd.build_blocked("ls", opts1, torch.ones(p1, device=dev),
+                                   X=X1, y=y1)
+    nb1 = full1.lamw.shape[0]
+    b1 = block_cd._to_blocked_beta(sol1.x, B)
+    st1 = block_cd._init_state("ls", full1, (0.9 * b1).contiguous(), None)
+    ck = gs.fused_gradient_sweep(full1.Xwb, st1.r)
+    cp = gs.fused_gradient_sweep_plain(full1.Xwb, st1.r)
+    plan1 = gs.sweep_plan(full1.Xwb)
+    ms = cuda_ms(lambda: gs.fused_gradient_sweep(full1.Xwb, st1.r), 10)
+    pms = cuda_ms(lambda: gs.fused_gradient_sweep_plain(full1.Xwb, st1.r), 10)
+    lms = cuda_ms(lambda: torch.matmul(st1.r, full1.Xwb), 10)
+    reads, names, dms = one_call(
+        lambda: gs.fused_gradient_sweep(full1.Xwb, st1.r))
+    two = plan1.split > 1 and not plan1.cluster
+    report("K5_p1m", "K5 fused_gradient_sweep", maxdiff(ck, cp),
+           1e-5 * float(cp.abs().max()), ms, pms,
+           f"all {nb1} blocks of ({n1}, {B}), plan {tuple(plan1)}; one call: "
+           f"device {dms:.4f} ms, {len(names)} kernel(s), {reads} host reads",
+           f4 * (nb1 * n1 * B + n1 + nb1 * B), 2 * nb1 * n1 * B,
+           library_ms=lms, device_ms=dms)
+    heads = [k.split("(")[0].replace(" ", "") for k in names]
+    if (reads or len(names) != 1 + two or "sweep_kernel" not in heads[0]
+            or heads[0].endswith("true>") != plan1.cluster):
+        fail(f"K5 at {nb1} blocks must launch its plan's route {plan1} and "
+             f"read nothing to the host: {names}, {reads} host reads")
+    del ck, cp
+    # K3/K4 at 7,813 rows: fresh c, a drift on half of the blocks
+    c1 = block_cd._full_gradient_c("ls", full1, st1.r, kernels=False)
+    drift1 = torch.where(torch.rand(nb1, generator=g, device=dev) < 0.5,
+                         torch.rand(nb1, generator=g, device=dev) * 1e-3,
+                         torch.zeros(nb1, device=dev))
+    scal1 = block_cd._check_scalars(lam1, float(n1), torch.dot(st1.r, st1.r),
+                                    torch.dot(st1.r, y1), 1e-6)
+    check_coop("_p1m", f"{nb1} rows at p = {p1}",
+               (c1, st1.beta, drift1, full1.adiag, full1.lamw,
+                full1.valid.float(), full1.xwnorm, scal1))
+    # K1 on its cluster route at n = 1,000: one pass over the solve's working
+    # set, the 8 blocks that hold most of its support, Grams cached
+    blocks8 = torch.sort(torch.argsort((b1 != 0).sum(dim=1), descending=True,
+                                       stable=True)[:8])[0]
+    cols1 = (blocks8[:, None] * B + torch.arange(B, device=dev)).flatten()
+    cols1 = cols1[cols1 < p1]
+    del full1, st1, c1
+    torch.cuda.empty_cache()
+    ws1 = block_cd.build_blocked("ls", opts1.replace(cache_gram=True),
+                                 torch.ones(cols1.numel(), device=dev),
+                                 X=X1[:, cols1].contiguous(), y=y1)
+    bw1 = ws1.lamw.shape[0]
+    st_w = block_cd._init_state("ls", ws1, block_cd._to_blocked_beta(
+        0.9 * sol1.x[cols1], B).contiguous(), None)
+    plan_k1 = active_pass.card_plan(n1, B, torch.float32, dev, True, "ls")
+    if not plan_k1.cluster:
+        fail(f"K1 at n = {n1} must take the cluster route: {plan_k1}")
+    args = (ws1, st_w.beta, st_w.r, torch.ones(bw1, dtype=torch.bool,
+                                               device=dev), lam1, float(n1),
+            torch.arange(bw1, device=dev), corder)
+    kw = dict(kind="ls", inner="ista", iters=16, rsqr=st_w.rsqr)
+    bk, rk, mk, _ = active_pass.fused_active_pass(*args, **kw)
+    bp_, rp, mp, _ = active_pass.fused_active_pass_plain(*args, **kw)
+    errr = maxdiff(rk, rp)
+    ms = cuda_ms(lambda: active_pass.fused_active_pass(*args, **kw), 20)
+    pms = cuda_ms(lambda: active_pass.fused_active_pass_plain(*args, **kw),
+                  10)
+    reads, names, dms = one_call(
+        lambda: active_pass.fused_active_pass(*args, **kw))
+    report("K1_n1000", "K1 fused_active_pass", max(maxdiff(bk, bp_),
+                                                   maxdiff(mk, mp)), 1e-4,
+           ms, pms, f"{bw1} blocks of the p = {p1} solve's working set at n "
+           f"= {n1}, cluster route ({plan_k1.grid} CTAs of {plan_k1.rows} "
+           f"rows, {plan_k1.smem} B of shared memory), Gram cached, ista; r "
+           f"err {errr:.2e} (tol 1.0e-03); nnz {int((bk != 0).sum())}; one "
+           f"call: device {dms:.4f} ms, {len(names)} kernel(s), {reads} host "
+           f"reads", f4 * (bw1 * n1 * B + bw1 * B * B + 3 * bw1 * B + 2 * n1),
+           bw1 * (4 * n1 * B + 16 * 2 * B * B), device_ms=dms)
+    ok = ok and errr <= 1e-3
+    head = names[0].split("(")[0].replace(" ", "") if names else ""
+    if reads or len(names) != 1 or not head.endswith("true>"):
+        fail(f"K1 at n = {n1} must launch one kernel on the cluster route "
+             f"and read nothing to the host: {names}, {reads} host reads")
+    x_p1m = sol1.x
+    del ws1, st_w, args, bk, rk, bp_, rp, sol1, X1, y1
+    torch.cuda.empty_cache()
+
     log(f"one-call traces: {len(RETAKEN)}, retaken {sum(RETAKEN)} (the "
         "tracer dropped a launch the wrapper counted)")
     if not ok:
@@ -976,8 +1111,8 @@ def main():
     def counts():
         # every wrapper's count, and K3's / K4's launches on the one-CTA
         # route (the working sets' checks)
-        return {**launch_counts(), "K3_ws": check.LAUNCHES_A_CTA,
-                "K4_ws": check.LAUNCHES_B_CTA}
+        return {**launch_counts(), "K3_ws": check.cta_launches("a"),
+                "K4_ws": check.cta_launches("b")}
 
     def reset_counts():
         reset_launch_counts()
@@ -1696,6 +1831,125 @@ def main():
     log(f"phase 4l (h's group run apart) on {card}: "
         f"{time.perf_counter() - t_4l:.1f} s; times {l_times}")
 
+    # 4m. the two paths bench.py runs that no earlier phase does, at its
+    # shapes, on a world of one (NCCL): the feature-sharded p = 1M solve
+    # and path (bench.py:1098-1193) and the row tier at 50,000 x 2,000
+    # (bench.py:1062-1091)
+    t_4m = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pdist.initialize_distributed(backend="nccl", store=dist.HashStore(),
+                                 num_processes=1, process_id=0, timeout=600)
+    fmesh = pdist.feature_mesh()
+    dist.all_reduce(torch.zeros(1, device=dev),
+                    group=fmesh.get_group("feature"))
+    X1, y1, lam1 = pbench.p1m_problem(dev)
+    n1, p1 = X1.shape
+    nb_m = -(-p1 // B)
+    opts1 = tcd.CDOptions(opt_tol=pbench.OPT_TOL, randomize=False)
+    m_launches = dict.fromkeys(counts(), 0)
+    # the p = 1M runs' launches at the kernel rows' shapes and routes alone
+    # (the wrappers' counts by shape): K5 over all nb_m blocks of n1 rows,
+    # K1 (ls, f32) at n1 rows on its cluster route, K3/K4 at nb_m rows on
+    # the cooperative route
+    p1m_launches = dict.fromkeys(("K5_p1m", "K1_n1000", "K3_p1m", "K4_p1m"),
+                                 0)
+
+    def run_m(name, fn, need, p1m=True):
+        reset_counts()
+        out, t = wall(fn)
+        launches = counts()
+        require_launches(name, launches, need)
+        add(launches)
+        shaped = {}
+        if p1m:
+            for k, v in launches.items():
+                m_launches[k] += v
+            shaped = {
+                "K5_p1m": gs.LAUNCHES_DENSE_SHAPE[nb_m, n1],
+                "K1_n1000": active_pass.LAUNCHES_SHAPE["ls", False, n1, True],
+                "K3_p1m": check.LAUNCHES_SHAPE["a", nb_m, False],
+                "K4_p1m": check.LAUNCHES_SHAPE["b", nb_m, False]}
+            for k, v in shaped.items():
+                p1m_launches[k] += v
+        log(f"4m {name}: {t:.3f} s on {card}; launches {launches}; at the "
+            f"p = 1M rows' shapes {shaped}; host reads "
+            f"{host.COUNTS['host_reads']} over {host.COUNTS['epochs']} "
+            f"epochs")
+        return out
+
+    sol1 = run_m(f"lasso_sharded (n = {n1}, p = {p1})",
+                 lambda: par.lasso_sharded(X1, y1, lam1, fmesh,
+                                           options=opts1), k_ls)
+    gap1, primal1 = tcd.lasso_duality_gap_f64(X1, y1, sol1.x, lam1)
+    # the single-device lasso on the same X: phase 3's solve
+    bad = support_mismatch(sol1.x, x_p1m, supp_tol)
+    d1 = maxdiff(sol1.x, x_p1m)
+    log(f"4m p = {p1}: rel gap {gap1 / primal1:.3e} (tol "
+        f"{100 * pbench.OPT_TOL:.0e}); nnz {int((sol1.x != 0).sum())}; vs the "
+        f"single-device lasso of phase 3: nnz {int((x_p1m != 0).sum())}, "
+        f"support differing above {supp_tol:g} {bad}, max |diff| {d1:.3e} "
+        f"(tol 1e-4)")
+    if not gap1 / primal1 < 100 * pbench.OPT_TOL:
+        fail("4m: the p = 1M sharded solve's relative gap is not below "
+             "100 opt_tol")
+    if bad or not d1 <= 1e-4:
+        fail("4m: the p = 1M sharded solve is not the single-device lasso")
+    del x_p1m
+    lams1 = np.asarray(pbench.lam_max(X1, y1)
+                       * np.logspace(-0.05, -1.3, 20), np.float32)
+    st_m = {}
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        path1 = run_m("lasso_path_sharded (20 points, batched)",
+                      lambda: par.lasso_path_sharded(
+                          X1, y1, lams1, fmesh, options=opts1,
+                          standardize_X=False, path_batch=20,
+                          coarse_stride=19, stats=st_m), k_ls)
+    fell = [str(w.message) for w in wl
+            if issubclass(w.category, RuntimeWarning)]
+    log(f"4m path stats {st_m}; nnz at its end "
+        f"{int((path1.beta_path[-1] != 0).sum())}")
+    if fell or not st_m.get("batched_certified"):
+        fail(f"4m: the p = 1M batched path fell back: {st_m} {fell}")
+    if (tuple(path1.beta_path.shape) != (20, p1)
+            or not bool(torch.isfinite(path1.beta_path).all())):
+        fail("4m: the p = 1M path is not 20 finite points")
+    del path1
+
+    del sol1, X1, y1
+    torch.cuda.empty_cache()
+
+    missing = [k for k, v in p1m_launches.items() if not v]
+    if missing:
+        fail(f"4m: the p = 1M runs never launched {missing} at their rows' "
+             f"shapes and routes: {p1m_launches}")
+
+    # the row tier at bench.py's shape (its launches stay out of the p = 1M
+    # rows' counts)
+    Xr, yr, lam_r = pbench.row_problem(dev)
+    sol_r = run_m(f"lasso_row_sharded (n = {Xr.shape[0]}, p = {Xr.shape[1]})",
+                  lambda: par.lasso_row_sharded(Xr, yr, lam_r,
+                                                pdist.obs_mesh(),
+                                                options=opts1), ("K5",),
+                  p1m=False)
+    ref_r = tcd.lasso(Xr, yr, lam_r, options=opts1)
+    bad = support_mismatch(sol_r.x, ref_r.x, supp_tol)
+    d_r = maxdiff(sol_r.x, ref_r.x)
+    log(f"4m row tier vs the single-device lasso: nnz "
+        f"{int((sol_r.x != 0).sum())} vs {int((ref_r.x != 0).sum())}, "
+        f"support differing above {supp_tol:g} {bad}, max |diff| {d_r:.3e} "
+        f"(tol 1e-4)")
+    if bad or not d_r <= 1e-4:
+        fail("4m: the row tier is not the single-device lasso")
+    del Xr, yr, sol_r, ref_r
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 4m on {card}: {time.perf_counter() - t_4m:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        f"GiB; launches of the p = 1M runs {m_launches}, of them at the "
+        f"kernel rows' shapes {p1m_launches}")
+
     # 4h. the group Lasso (bench.py:613-672): warm solves at
     # lam (1 + 1e-7 rep), the faster of two, then the plain run and the
     # polish of the last solution
@@ -1969,6 +2223,72 @@ def main():
     vc_launches = {"K1wls_vc": launches_j["K1wls"], "K3_vc": launches_j["K3"],
                    "K4_vc": launches_j["K4"], "K5_vc": launches_j["K5"]}
 
+    # 5. the port's bench in small mode, the four demos and the scaling
+    # measurement's card mode (a world of one, NCCL), each a process of its
+    # own on this card, run together; any failure fails the run
+    t_5 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BENCH_SMALL="1", PYTHONPATH=os.pathsep.join(
+        [root] + [v for v in [os.environ.get("PYTHONPATH")] if v]))
+    mods = ["coordinatedescent_jl_tpu_torch.bench"] + [
+        f"coordinatedescent_jl_tpu_torch.examples.{e}" for e in (
+            "atoms_demo", "lasso_path_demo", "multichip_demo",
+            "production_recipes")] + [
+        "coordinatedescent_jl_tpu_torch.multiproc_bench"]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", m] + ([] if m.endswith(".bench")
+                                     else ["--small"]),
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for m in mods]
+    outs = []
+    try:
+        for m, pr in zip(mods, procs):
+            out, err = pr.communicate(timeout=600)
+            outs.append(out)
+            log(f"5 {m}: exit code {pr.returncode}, "
+                f"{time.perf_counter() - t_5:.1f} s after the start")
+            if pr.returncode:
+                print(err[-4000:], file=sys.stderr)
+                fail(f"5: {m} exited with {pr.returncode}")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("{")]
+    full_b, compact_b = (json.loads(ln) for ln in lines[-2:])
+    details = compact_b["details"]
+    # small mode skips the roofline, p = 1M and the multi-process sections
+    want = [k for k in pbench.COMPACT_KEYS
+            if not ("p1m" in k or k.startswith(("pass_roofline",
+                                                 "multiproc")))]
+    missing = [k for k in want if k not in details]
+    uncertified = [k for k, v in details.items()
+                   if k.endswith("_certified") and v is not True]
+    errors = [k for k in full_b["full_details"] if k.endswith("_error")]
+    log(f"5 bench (BENCH_SMALL=1): {compact_b['metric']} value "
+        f"{compact_b['value']} s, vs_baseline {compact_b['vs_baseline']}; "
+        f"{len(details)} compact keys, missing {missing}, not certified "
+        f"{uncertified}, errors {errors}")
+    log(f"5 bench details: {json.dumps(details)}")
+    if (compact_b["metric"] != "lasso_path_wall_time_small"
+            or full_b["metric"] != compact_b["metric"] or missing
+            or uncertified or errors):
+        fail("5: the bench's small run lacks a key, a certificate or ran "
+             "into an error")
+    for m, out in zip(mods[1:-1], outs[1:-1]):
+        log(f"5 {m.rsplit('.', 1)[1]} --small: " + " | ".join(
+            out.strip().splitlines()[:3]))
+    mp = json.loads([ln for ln in outs[-1].splitlines()
+                     if ln.startswith("{")][-1])
+    log(f"5 multiproc_bench --small on the card: {json.dumps(mp)}")
+    if (mp["device"] != "cuda" or "1" not in mp["curve"]
+            or not mp["curve"]["1"]["nnz"] or not mp["nnz_agree"]
+            or any(r["max_abs_diff_vs_1"] > 1e-4
+                   for r in mp["curve"].values())):
+        fail("5: multiproc_bench's card mode gave no solution on the card")
+    log(f"phase 5: {time.perf_counter() - t_5:.1f} s")
+
     src = "coordinatedescent_jl_tpu_torch/csrc/"
     meta = {
         "K1": ("fused_active_pass", "active_pass.cu",
@@ -2009,10 +2329,22 @@ def main():
         "K4_ws": ("check_phase_b (one CTA: the working set of at most 8 "
                   "blocks)", "check.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_check.py:149"),
+        "K5_p1m": ("fused_gradient_sweep (7,813 blocks of (1,000, 128): "
+                   "p = 1M)", "dense_sweep.cu",
+                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
+        "K1_n1000": ("fused_active_pass (n = 1,000: the cluster route, the "
+                     "p = 1M solve's working set)", "active_pass.cu",
+                     "coordinatedescent_jl_tpu/ops/pallas_block.py:339"),
+        "K3_p1m": ("check_phase_a (7,813 rows: p = 1M, screen on)",
+                   "check.cu",
+                   "coordinatedescent_jl_tpu/ops/pallas_check.py:108"),
+        "K4_p1m": ("check_phase_b (7,813 rows: p = 1M)", "check.cu",
+                   "coordinatedescent_jl_tpu/ops/pallas_check.py:149"),
     }
     log(f"launches over the main-path runs: {total}; the 4j scan's: "
-        f"{vc_launches}; the one-CTA route's in the 4a scan: {ws_launches}")
-    launched = {**total, **vc_launches, **ws_launches}
+        f"{vc_launches}; the one-CTA route's in the 4a scan: {ws_launches}; "
+        f"4m's at the p = 1M shapes: {p1m_launches}")
+    launched = {**total, **vc_launches, **ws_launches, **p1m_launches}
     kernels = [{"name": meta[k][0], "route": "cuda", "source": src + meta[k][1],
                 "replaces": meta[k][2], "launches": launched[k], **rec[k]}
                for k in meta]

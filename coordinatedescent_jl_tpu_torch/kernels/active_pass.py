@@ -33,12 +33,14 @@ and rows.  Per visit it is bounded by the barrier's latency, the Gram's
 read from L2 and the solve's chain of steps.
 
 ``LAUNCHES_KIND[kind][dtype is float64]`` counts the wrapper calls that
-launched the kernel (float64: the polishes' inner solves).  The plain twin
-never counts.
+launched the kernel (float64: the polishes' inner solves), and
+``LAUNCHES_SHAPE[(kind, dtype is float64, n, cluster route)]`` the same
+launches by rows and route.  The plain twin never counts.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -50,6 +52,7 @@ from ..ops.prox import sqrt_candidate
 from ..utils import host
 
 LAUNCHES_KIND = {"ls": [0, 0], "wls": [0, 0], "sqrt": [0, 0]}
+LAUNCHES_SHAPE = collections.Counter()
 _KINDS = {"ls": 0, "wls": 1, "sqrt": 2}   # csrc/active_pass.cu's KIND_*
 _MAX_B = 128       # widest block the kernel takes (K fits shared memory)
 # the kernel's shape (csrc/active_pass.cu): threads per CTA, B-long vectors
@@ -265,6 +268,7 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
              _build.stream(dev))
     _build.check(err, "active_pass")
     LAUNCHES_KIND[kind][dt == torch.float64] += 1
+    LAUNCHES_SHAPE[kind, dt == torch.float64, n, plan.cluster] += 1
     if _build.NAN_CHECK:
         _build.check_nans("active_pass",
                           out[:nb * B + n + 1 + (kind == "sqrt")])

@@ -32,11 +32,13 @@ here is float32.
 
 Masks are returned as float {0, 1} tensors of shape ``(nb,)``; ``maxh`` is
 a 0-d tensor.  ``LAUNCHES_A``/``LAUNCHES_B`` count kernel launches, and
-``LAUNCHES_A_CTA``/``LAUNCHES_B_CTA`` those of them on the one-CTA route.
+``LAUNCHES_SHAPE[("a" or "b", nb, one-CTA route)]`` the same launches by
+rows and route (:func:`cta_launches` sums those on the one-CTA route).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -49,14 +51,20 @@ from ..ops.block_cd import (_gap_safe_core, _habs_reduce_core,
 
 LAUNCHES_A = 0
 LAUNCHES_B = 0
-LAUNCHES_A_CTA = 0
-LAUNCHES_B_CTA = 0
+LAUNCHES_SHAPE = collections.Counter()
 # the kernels' shape (csrc/check.cu): warps (block rows owned at once) per
 # 256-thread CTA, coordinates of a row one warp loads at once (4 a lane),
 # and float partials per CTA
 _CK_WARPS = 8
 _CK_CHUNK = 128
 _CK_PART = 4
+
+
+def cta_launches(phase: str) -> int:
+    """The launches of ``phase`` (``"a"`` or ``"b"``) on the one-CTA
+    route."""
+    return sum(v for (ph, _, cta), v in LAUNCHES_SHAPE.items()
+               if ph == phase and cta)
 
 
 class CheckPlan(NamedTuple):
@@ -127,7 +135,7 @@ def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
     if not c.is_cuda:
         return check_phase_a_plain(c, beta, drift, adiag, lamw, validf,
                                    xwnorm, scal, screen=screen)
-    global LAUNCHES_A, LAUNCHES_A_CTA
+    global LAUNCHES_A
     nb, B = c.shape
     dev = c.device
     sq, row = c.shape, (nb,)
@@ -154,7 +162,7 @@ def check_phase_a(c, beta, drift, adiag, lamw, validf, xwnorm, scal, *,
         int(cta), _build.stream(dev))
     _build.check(err, "check_a")
     LAUNCHES_A += 1
-    LAUNCHES_A_CTA += cta
+    LAUNCHES_SHAPE["a", nb, cta] += 1
     if _build.NAN_CHECK:
         _build.check_nans("check_a", out[:nbB + 4 * nb + 1])
     # the six outputs' views from one call (every view op costs host time)
@@ -170,7 +178,7 @@ def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
     if not c_new.is_cuda:
         return check_phase_b_plain(c_new, beta, bound, ubf, candf, adiag,
                                    lamw, validf, xwnorm, scal)
-    global LAUNCHES_B, LAUNCHES_B_CTA
+    global LAUNCHES_B
     nb, B = c_new.shape
     dev = c_new.device
     sq, row = c_new.shape, (nb,)
@@ -194,7 +202,7 @@ def check_phase_b(c_new, beta, bound, ubf, candf, adiag, lamw, validf,
         int(cta), _build.stream(dev))
     _build.check(err, "check_b")
     LAUNCHES_B += 1
-    LAUNCHES_B_CTA += cta
+    LAUNCHES_SHAPE["b", nb, cta] += 1
     if _build.NAN_CHECK:
         _build.check_nans("check_b", out[:nb + 1])
     return out[nb], out[:nb]

@@ -32,11 +32,13 @@ stay in shared memory and CTA 0 adds them in order (one launch).  The
 in order in a second launch.
 
 ``LAUNCHES`` (K2), ``LAUNCHES_DENSE`` (K5 blocked) and ``LAUNCHES_F64``
-(K5 f64) count the wrapper calls that launched a kernel.
+(K5 f64) count the wrapper calls that launched a kernel, and
+``LAUNCHES_DENSE_SHAPE[(nb, n)]`` K5's blocked launches by blocks and rows.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -48,6 +50,7 @@ from ..utils import host
 LAUNCHES = 0
 LAUNCHES_DENSE = 0
 LAUNCHES_F64 = 0
+LAUNCHES_DENSE_SHAPE = collections.Counter()
 _ROW_CHUNK = 256   # K2: rows per partial-sum CTA
 # K5's plan (csrc/dense_sweep.cu): columns per work item, CTAs (of 128
 # threads) per SM that the persistent grid may hold, the CTAs per SM that
@@ -223,6 +226,7 @@ def fused_gradient_sweep(Xwb, r, *, plan: SweepPlan | None = None):
     _dense_sweep(fn, Xwb, r, out, nb, n, B, "dense_sweep",
                  plan or sweep_plan(Xwb))
     LAUNCHES_DENSE += 1
+    LAUNCHES_DENSE_SHAPE[nb, n] += 1
     if _build.NAN_CHECK:
         _build.check_nans("dense_sweep", out)
     return out

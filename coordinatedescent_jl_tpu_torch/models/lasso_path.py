@@ -227,7 +227,11 @@ def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
     programs of that many λ points with the carry handed on by the host,
     for a runtime that bounds one program's time; here the scan is a host
     loop of short kernels already, the ``max_hat_s`` stop is in it, and
-    the result is the same bit for bit with or without the option.
+    the result is the same bit for bit with or without the option.  The
+    JAX package's segment loop behind it
+    (``ops/batched_certify.py::run_chunked_segments``, called at
+    ``models/lasso_path.py:321-327`` there) went with ``scan_chunk`` and
+    has no counterpart here.
 
     ``stats``, if a dict, receives ``used_batched``, ``batched_certified``
     and ``stall_escaped_lanes`` (as in the JAX package), and

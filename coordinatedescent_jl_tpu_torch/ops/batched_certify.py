@@ -10,6 +10,9 @@ them outside any Pallas kernel) and must run with full-f32 matmuls
 certify sweep and no lane certifies at ``opt_tol = 1e-6``.
 ``union_block_fista``'s ``lax.scan`` loops are host loops of small
 products (8 sweeps × blocks × ``block_iters`` FISTA steps per round).
+The JAX module's ``run_chunked_segments`` (its :161, the host segment
+loop of every ``scan_chunk`` entry point) is not ported: it went with
+``scan_chunk``, which the port takes and ignores.
 """
 
 from __future__ import annotations

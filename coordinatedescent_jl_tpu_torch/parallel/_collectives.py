@@ -16,12 +16,31 @@ group must make the same calls in the same order, as every shard of a
   back), so a world of several ranks on one card, where NCCL refuses two
   ranks on one device, runs the same collectives.  NCCL groups take the
   card's tensors directly.
+- ``COUNTS`` counts this process's collectives by kind (calls and the
+  bytes put in), the counterpart of the collective schedule the JAX
+  package's ``tools/multiproc_bench.py`` read from the compiled program;
+  ``reset()`` sets them to 0.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+# this process's collectives since the last reset(), by kind: calls, and
+# the bytes of the tensor each call put in (a broadcast object: calls only)
+COUNTS = {"all_reduce": [0, 0], "all_gather": [0, 0], "broadcast": [0, 0]}
+
+
+def reset():
+    for v in COUNTS.values():
+        v[0] = v[1] = 0
+
+
+def _count(kind: str, t=None):
+    COUNTS[kind][0] += 1
+    if t is not None:
+        COUNTS[kind][1] += t.numel() * t.element_size()
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -40,6 +59,7 @@ def _staged(t, group) -> bool:
 
 def _all_reduce(t, group, op):
     out = t.detach().reshape(-1).clone()
+    _count("all_reduce", out)
     if _staged(out, group):
         host = out.cpu()
         dist.all_reduce(host, op=op, group=group)
@@ -63,6 +83,7 @@ def all_gather(t, group):
     """``t`` of every rank of the group, stacked on a new leading axis in
     group-rank order: ``(D, *t.shape)``."""
     x = t.detach().contiguous()
+    _count("all_gather", x)
     staged = _staged(x, group)
     if staged:
         x = x.cpu()
@@ -74,6 +95,7 @@ def all_gather(t, group):
 
 def broadcast_object(obj, group):
     """``obj`` of the group's first rank, on every rank of the group."""
+    _count("broadcast")
     box = [obj]
     kw = {}
     if dist.get_backend(group) == "nccl":

@@ -23,7 +23,9 @@ What differs from the JAX module:
   one all_reduce.
 - Dropped: ``_feat_max``'s all_gather workaround (``all_reduce(MAX)``)
   and the host-chunked scan behind ``lasso_path_row_sharded(scan_chunk=)``
-  (taken, checked and ignored: the scan is a host loop already).
+  with its segment loop (``ops/batched_certify.py::run_chunked_segments``,
+  row_sharded.py:610-622 there; ``scan_chunk`` is taken, checked and
+  ignored: the scan is a host loop already).
 """
 
 from __future__ import annotations

@@ -77,7 +77,8 @@ and ``path_batch=128, coarse_stride=99``), ``par_sqrt``, ``par_scaled``,
 ``par_feasible`` (the levels and options of ``sqrt``, ``scaled`` and
 ``feasible`` above), ``par_trace`` (``lasso_sharded_with_trace`` at
 0.05·λmax·(1 + 2e-7)); then ``par_group`` (``group_lasso_sharded`` on the
-group problem).
+group problem).  Each of these records also holds ``collectives``: the
+run's collectives by kind, calls and bytes (``parallel/_collectives.py``).
 
     python -m coordinatedescent_jl_tpu_torch.profile_paths --trace-probe 1500
 
@@ -180,7 +181,9 @@ def reset_launch_counts():
         by_dtype[0] = by_dtype[1] = 0
     gs.LAUNCHES = gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
     check.LAUNCHES_A = check.LAUNCHES_B = 0
-    check.LAUNCHES_A_CTA = check.LAUNCHES_B_CTA = 0
+    for by_shape in (active_pass.LAUNCHES_SHAPE, check.LAUNCHES_SHAPE,
+                     gs.LAUNCHES_DENSE_SHAPE):
+        by_shape.clear()
 
 
 class VcBenchProblem(NamedTuple):
@@ -348,14 +351,19 @@ def _run(name, fn, extra=dict, traced=None):
     counts, then once under the profiler (or ``traced``, a shorter part of
     it); print the record (``extra()`` adds fields read after the timed
     run)."""
+    from .parallel import _collectives
     from .utils import host
 
     fn()                                          # warm-up
     reset_launch_counts()
     host.reset()
+    _collectives.reset()
     _, wall = _timed(fn)
     rec = {"path": name, "wall_s": wall, **dict(host.COUNTS),
            "launches": launch_counts(), **extra()}
+    if any(c for c, _ in _collectives.COUNTS.values()):
+        rec["collectives"] = {k: {"calls": c, "bytes": b} for k, (c, b)
+                              in _collectives.COUNTS.items()}
     rec.update(_trace(traced or fn))
     print(json.dumps(rec), flush=True)
 

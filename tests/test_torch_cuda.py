@@ -526,14 +526,15 @@ def test_check_one_cta_route_matches_cooperative_bitwise(dev, screen, nb, B):
     twin_b = check.check_phase_b_plain(*b)
     assert torch.equal(ref_b[1], twin_b[1])
     torch.testing.assert_close(ref_b[0], twin_b[0], rtol=1e-5, atol=1e-7)
-    n_a, n_b = check.LAUNCHES_A_CTA, check.LAUNCHES_B_CTA
+    n_a, n_b = check.cta_launches("a"), check.cta_launches("b")
     out = check.check_phase_a(*a, screen=screen)
     for i, (x, y) in enumerate(zip(out, ref)):
         assert torch.equal(x, y), i
     out_b = check.check_phase_b(*b)
     for i, (x, y) in enumerate(zip(out_b, ref_b)):
         assert torch.equal(x, y), i
-    assert (check.LAUNCHES_A_CTA, check.LAUNCHES_B_CTA) == (n_a + 1, n_b + 1)
+    assert (check.cta_launches("a"),
+            check.cta_launches("b")) == (n_a + 1, n_b + 1)
 
 
 def test_check_one_cta_route_refuses_more_rows(dev):
@@ -644,6 +645,128 @@ def test_check_one_cta_route_is_one_kernel_and_no_host_read(dev):
             lambda: check.check_phase_b(*b))
         assert (reads, len(names), counted) == (0, 1, 1), names
         assert "check_b_cta" in names[0], names
+
+
+# ---- the p = 1M shapes of bench.py:1098-1193 (n = 1,000, 7,813 blocks of
+# 128), with the file's other one-call traces: after the heavy tests of the
+# kinds, before the solves below
+
+
+def test_dense_sweep_at_the_p1m_shape(dev):
+    """K5 at (7,813, 1,000, 128) f32 (the blocked p = 1M design): within
+    1e-5 of max|c| of the twin, one call its plan's route (one kernel, or
+    two where the rows split outside a cluster) and no host read."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    Xwb = torch.randn((7813, 1000, 128), generator=g, device=dev)
+    r = torch.randn(1000, generator=g, device=dev)
+    ck = gradient_sweep.fused_gradient_sweep(Xwb, r)
+    cp = gradient_sweep.fused_gradient_sweep_plain(Xwb, r)
+    assert float((ck - cp).abs().max()) <= 1e-5 * float(cp.abs().max())
+    plan = gradient_sweep.sweep_plan(Xwb)
+    reads, names, _, counted, _ = trace_one_call(
+        lambda: gradient_sweep.fused_gradient_sweep(Xwb, r))
+    two = plan.split > 1 and not plan.cluster
+    assert (reads, len(names), counted) == (0, 1 + two, 1), names
+    head = names[0].split("(")[0].replace(" ", "")
+    assert "sweep_kernel" in head and head.endswith("true>") == plan.cluster
+
+
+def test_active_pass_cluster_route_at_n_1000(dev):
+    """K1′ at n = 1,000 (the p = 1M solve's rows): the cluster route of 16
+    CTAs of 63 rows, 8 blocks with cached Grams, ls, f32, FISTA, against
+    the twin and bit for bit against the cooperative route at the same
+    CTAs and rows; one traced call is one cluster-route kernel and no host
+    read."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    prob, st = _problem(dev, torch.float32, n=1000, p=1000, gram=True)
+    nb = prob.lamw.shape[0]
+    plan = active_pass.card_plan(1000, 128, torch.float32, dev, True, "ls")
+    assert plan.cluster and (plan.grid, plan.rows) == (16, 63), plan
+    args = (prob, st.beta, st.r, torch.ones(nb, dtype=torch.bool, device=dev),
+            0.05, 1000.0, torch.arange(nb, device=dev),
+            torch.arange(128, device=dev))
+    kw = dict(kind="ls", inner="ista", iters=16, rsqr=st.rsqr)
+    bk, rk, mk, _ = active_pass.fused_active_pass(*args, **kw)
+    bp, rp, mp, _ = active_pass.fused_active_pass_plain(*args, **kw)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(bk, bp, atol=tol, rtol=0)
+    torch.testing.assert_close(rk, rp, atol=10 * tol, rtol=0)
+    torch.testing.assert_close(mk, mp, atol=tol, rtol=0)
+    coop = active_pass.fused_active_pass(
+        *args, **kw, plan=active_pass.on_route(plan, False, 128, 4))
+    assert all(torch.equal(a, c) for a, c in zip((bk, rk, mk), coop[:3]))
+    reads, names, _, counted, _ = trace_one_call(
+        lambda: active_pass.fused_active_pass(*args, **kw))
+    assert (reads, len(names), counted) == (0, 1, 1), names
+    assert names[0].split("(")[0].replace(" ", "").endswith("true>"), names
+
+
+def test_check_kernels_at_7813_rows_are_the_cooperative_route(dev):
+    """K3 (screen on and off) and K4 at 7,813 rows (the p = 1M check):
+    the twins' masks, and one traced call is one cooperative kernel
+    (``check_a_kernel`` / ``check_b_kernel``) and no host read."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    a, c_new = _check_case(dev, nb=7813)
+    assert not check._plan(False, 7813, 128, dev.index or 0).cta
+    for screen in (True, False):
+        outk = check.check_phase_a(*a, screen=screen)
+        outp = check.check_phase_a_plain(*a, screen=screen)
+        for i in (0, 1, 2, 5):
+            assert torch.equal(outk[i], outp[i]), i
+        reads, names, _, counted, _ = trace_one_call(
+            lambda: check.check_phase_a(*a, screen=screen))
+        assert (reads, len(names), counted) == (0, 1, 1), names
+        assert "check_a_kernel" in names[0], names
+    b = (c_new, a[1], outp[3], outp[1], outp[2], a[3], a[4], a[5], a[6],
+         a[7])
+    mk, ak = check.check_phase_b(*b)
+    mp, ap = check.check_phase_b_plain(*b)
+    assert torch.equal(ak, ap)
+    torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-7)
+    reads, names, _, counted, _ = trace_one_call(lambda: check.check_phase_b(*b))
+    assert (reads, len(names), counted) == (0, 1, 1), names
+    assert "check_b_kernel" in names[0], names
+
+
+def test_launch_counts_by_shape(dev):
+    """The wrappers' counts by shape and route (chip_smoke.py reads 4m's
+    p = 1M rows from them): one launch each of K5, K3, K4 and K1 adds one
+    under its key and nothing elsewhere; ``reset_launch_counts`` clears
+    them."""
+    from coordinatedescent_jl_tpu_torch.profile_paths import (
+        reset_launch_counts)
+
+    reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(0)
+    Xwb = torch.randn((3, 200, 128), generator=g, device=dev)
+    gradient_sweep.fused_gradient_sweep(Xwb, torch.randn(200, generator=g,
+                                                         device=dev))
+    assert dict(gradient_sweep.LAUNCHES_DENSE_SHAPE) == {(3, 200): 1}
+    a, c_new = _check_case(dev, nb=20)
+    out = check.check_phase_a(*a, screen=True)
+    check.check_phase_b(c_new, a[1], out[3], out[1], out[2], a[3], a[4],
+                        a[5], a[6], a[7])
+    index = a[0].device.index
+    assert dict(check.LAUNCHES_SHAPE) == {
+        ("a", 20, check._plan(False, 20, 128, index).cta): 1,
+        ("b", 20, check._plan(True, 20, 128, index).cta): 1}
+    prob, st = _problem(dev, torch.float32, n=1000, p=300, gram=True)
+    nb = prob.lamw.shape[0]
+    active_pass.fused_active_pass(
+        prob, st.beta, st.r, torch.ones(nb, dtype=torch.bool, device=dev),
+        0.05, 1000.0, torch.arange(nb, device=dev),
+        torch.arange(128, device=dev), kind="ls", inner="ista", iters=4,
+        rsqr=st.rsqr)
+    plan = active_pass.card_plan(1000, 128, torch.float32, dev, True, "ls")
+    assert dict(active_pass.LAUNCHES_SHAPE) == {
+        ("ls", False, 1000, plan.cluster): 1}
+    reset_launch_counts()
+    assert not (gradient_sweep.LAUNCHES_DENSE_SHAPE or check.LAUNCHES_SHAPE
+                or active_pass.LAUNCHES_SHAPE)
 
 
 def test_lasso_kernels_match_plain_path(dev):
@@ -1293,3 +1416,15 @@ def test_sharded_design_exchange_two_gloo_ranks_on_the_card(dev, tmp_path):
         assert np.array_equal(r[0]["x"], r[1]["x"])
         assert np.array_equal(r[0]["x"], ranks[0][0]["x"])
     assert np.count_nonzero(ranks[0][0]["x"]) > 0
+
+
+def test_multiproc_bench_card_mode_world_of_one(dev):
+    """``multiproc_bench``'s default mode: one NCCL rank a card; a world of
+    one at a small shape solves on the card and counts its collectives."""
+    from coordinatedescent_jl_tpu_torch import multiproc_bench
+
+    out = multiproc_bench.run(n=300, p=1024, s=5, worlds=(1,), reps=1,
+                              timeout=300)
+    assert out["device"] == "cuda" and out["curve"]["1"]["nnz"] > 0
+    assert "efficiency" not in out
+    assert out["curve"]["1"]["collectives"]["all_reduce"]["calls"] > 0
