@@ -89,6 +89,14 @@ def _digest(out) -> str:
     return h.hexdigest()[:16]
 
 
+def _program_range(name: str) -> bool:
+    """A device-side copy of the port's own profiler ranges
+    (``utils/host.py``'s ``cdt:`` spans and ``cdt#`` marks), not a
+    kernel; named here since the tree under test may predate them."""
+    return name.startswith("cdt#") or (name.startswith("cdt:")
+                                       and not name.startswith("cdt::"))
+
+
 def _short(name: str) -> str:
     """A device kernel's name without its template arguments' noise."""
     return name.split("(")[0].replace("void ", "")[:80]
@@ -121,7 +129,8 @@ def _ms(fn, reps: int, rounds: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not _program_range(e.name)]
     by = {}
     for e in kern:
         by[_short(e.name)] = (by.get(_short(e.name), 0.0)

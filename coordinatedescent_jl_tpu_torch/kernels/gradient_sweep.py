@@ -244,9 +244,16 @@ def grad_f64(X, r64, *, plan: SweepPlan | None = None):
     ``(n, p)`` design ``X`` (float32 or float64) and a float64 ``r``.  CUDA
     tensors launch K5's f64-accumulating instantiation (or raise); CPU
     tensors run the plain twin.  ``plan`` as :func:`fused_gradient_sweep`'s
-    (default: :func:`plan_dense_sweep`'s slices, never re-split)."""
-    if not X.is_cuda:
-        return grad_f64_plain(X, r64)
+    (default: :func:`plan_dense_sweep`'s slices, never re-split).  Each
+    call is marked ``k5f64`` with its shape."""
+    n, p = X.shape
+    with host.mark("k5f64", n=n, p=p, x_item=X.element_size()):
+        if not X.is_cuda:
+            return grad_f64_plain(X, r64)
+        return _grad_f64_card(X, r64, plan)
+
+
+def _grad_f64_card(X, r64, plan):
     global LAUNCHES_F64
     n, p = X.shape
     _require_sweep_inputs("grad_f64", X, r64,

@@ -42,6 +42,7 @@ class LassoSolution(NamedTuple):
     sigma: Optional[torch.Tensor]
 
 
+@host.spanned("est.lasso")
 def lasso(X, y, lam, weights=None, options: CDOptions = CDOptions(), *,
           seed: int = 0, device=None) -> LassoSolution:
     """(Weighted) Lasso ``min ‖y−Xβ‖²/(2n) + λ Σ ω_j |β_j|``; σ is the
@@ -70,6 +71,7 @@ def _check_init(init_procedure: str):
                          "'screening' | 'init_std' | 'warm_start'")
 
 
+@host.spanned("est.sqrt_lasso")
 def sqrt_lasso(X, y, lam, weights=None, options: CDOptions = CDOptions(), *,
                standardize_X: bool = True, seed: int = 0,
                device=None) -> LassoSolution:
@@ -136,6 +138,7 @@ def _scaled_lasso_core(X, y, lam: float, lamw, beta0, key,
     return _unblock(st.beta, beta0.shape[0]), st.r, sig_used
 
 
+@host.spanned("est.scaled_lasso")
 def scaled_lasso(X, y, lam, weights=None,
                  options: IterLassoOptions = IterLassoOptions(), *,
                  beta0=None, seed: int = 0, device=None) -> LassoSolution:
@@ -212,6 +215,7 @@ def _feasible_lasso_core(X, y, lam0: float, beta0, key,
     return _unblock(st.beta, p), st.r, gam
 
 
+@host.spanned("est.feasible_lasso")
 def feasible_lasso(X, y, lam0, options: IterLassoOptions = IterLassoOptions(),
                    *, beta0=None, seed: int = 0, device=None) -> LassoSolution:
     """Feasible (heteroscedastic) Lasso: re-estimate the penalty loadings

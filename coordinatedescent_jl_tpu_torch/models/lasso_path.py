@@ -105,35 +105,37 @@ def _refine_chunk(X, y, lamw, adiag, xnorm, lam_k, B0, frozen,
     rounds = 0
     while (rounds < 2 * opts.compact_rounds
            and not host.item(torch.all(cert))):
-        hi = 2.0 * torch.amax(torch.where(cert[:, None], zero, H)) + 1.0
-        pri = union_priority(B, H, cert, hi)
-        # lax.top_k breaks ties toward the lower index; so does the first
-        # C of a stable descending sort (many columns have priority 0)
-        top = torch.sort(pri, descending=True, stable=True)[1][:C]
-        idx = torch.sort(top)[0]
-        if Cp != C:   # pad slots: zero columns, pinned at zero below
-            idx = torch.cat([idx, torch.full((Cp - C,), p, dtype=idx.dtype,
-                                             device=idx.device)])
-        Xs = _take_cols(X, idx, C, 0.0)                          # (n, Cp)
-        Ks = torch.matmul(Xs.T, Xs)                              # (Cp, Cp)
-        Bs0 = _take_cols(B, idx, C, 0.0)
-        thr_full = _take_cols(thrw, idx, C, big)
-        cs0 = torch.matmul(R, Xs)                                # Xs'R
-        # a profiler span (a no-op unless a profiler runs): the round's
-        # eager FISTA launches, read by profile_paths.py
-        with torch.profiler.record_function("union_block_fista"):
-            bs = union_block_fista(Ks, thr_full, Bs0, cs0, cert, opts)
-        R = R - torch.matmul(bs - Bs0, Xs.T)
-        B = B.clone()
-        B[:, idx[:C]] = bs[:, :C]
-        H = certify(B, R)
-        mx = torch.amax(H, dim=1)
-        cert, best, stall, esc = stall_escape_update(
-            cert, best, stall, esc, mx, patience, tol, frozen)
+        with host.span("path.refine_round"):
+            hi = 2.0 * torch.amax(torch.where(cert[:, None], zero, H)) + 1.0
+            pri = union_priority(B, H, cert, hi)
+            # lax.top_k breaks ties toward the lower index; so does the
+            # first C of a stable descending sort (many columns have
+            # priority 0)
+            top = torch.sort(pri, descending=True, stable=True)[1][:C]
+            idx = torch.sort(top)[0]
+            if Cp != C:   # pad slots: zero columns, pinned at zero below
+                idx = torch.cat([idx, torch.full((Cp - C,), p,
+                                                 dtype=idx.dtype,
+                                                 device=idx.device)])
+            Xs = _take_cols(X, idx, C, 0.0)                      # (n, Cp)
+            Ks = torch.matmul(Xs.T, Xs)                          # (Cp, Cp)
+            Bs0 = _take_cols(B, idx, C, 0.0)
+            thr_full = _take_cols(thrw, idx, C, big)
+            cs0 = torch.matmul(R, Xs)                            # Xs'R
+            with host.span("path.union_block_fista"):
+                bs = union_block_fista(Ks, thr_full, Bs0, cs0, cert, opts)
+            R = R - torch.matmul(bs - Bs0, Xs.T)
+            B = B.clone()
+            B[:, idx[:C]] = bs[:, :C]
+            H = certify(B, R)
+            mx = torch.amax(H, dim=1)
+            cert, best, stall, esc = stall_escape_update(
+                cert, best, stall, esc, mx, patience, tol, frozen)
         rounds += 1
     return B, cert, esc, rounds
 
 
+@host.spanned("path.batched")
 def _lasso_path_batched_core(X, y, lam_t, lamw, key, max_hat_s,
                              opts: CDOptions, stride: int, batch: int):
     """Batched λ path: a coarse sequential scan over every ``stride``-th
@@ -156,8 +158,9 @@ def _lasso_path_batched_core(X, y, lam_t, lamw, key, max_hat_s,
         cidx = np.append(cidx, g - 1)
     rest = np.setdiff1d(np.arange(g), cidx)
     lam_dev = lam_t.to(dev)
-    betas_c, valids_c = _lasso_path_core(X, y, lam_t[cidx].tolist(), lamw,
-                                            key, max_hat_s, opts)
+    with host.span("path.coarse_scan"):
+        betas_c, valids_c = _lasso_path_core(X, y, lam_t[cidx].tolist(),
+                                             lamw, key, max_hat_s, opts)
     valids_c = torch.tensor(valids_c, device=dev)
     if rest.size:
         # one read of X, no (n, p) temporary
@@ -178,9 +181,12 @@ def _lasso_path_batched_core(X, y, lam_t, lamw, key, max_hat_s,
         # frozen, and truncated by the prefix rule below
         frozen = ~(valids_c[seg_t] & valids_c[seg_t + 1])
         k = min(batch, int(rest.size))
-        parts = [_refine_chunk(X, y, lamw, adiag, xnorm, lam_r[i:i + k],
-                               starts[i:i + k], frozen[i:i + k], opts)
-                 for i in range(0, int(rest.size), k)]
+        parts = []
+        for i in range(0, int(rest.size), k):
+            with host.span("path.refine"):
+                parts.append(_refine_chunk(X, y, lamw, adiag, xnorm,
+                                           lam_r[i:i + k], starts[i:i + k],
+                                           frozen[i:i + k], opts))
         refined = torch.cat([part[0] for part in parts])
         certs = torch.cat([part[1] for part in parts])
         escs = torch.cat([part[2] for part in parts])
@@ -199,6 +205,7 @@ def _lasso_path_batched_core(X, y, lam_t, lamw, key, max_hat_s,
     return betas, valids, all_cert, n_escaped, rounds
 
 
+@host.spanned("est.lasso_path")
 def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
                max_hat_s: float = math.inf, standardize_X: bool = True,
                path_batch: int | None = None,
@@ -274,8 +281,10 @@ def lasso_path(X, y, lam_path, options: CDOptions = CDOptions(), *,
                     "scan (consider a larger options.compact_size or a "
                     "smaller path_batch)", RuntimeWarning)
         if not batched_ok:
-            betas, valids = _lasso_path_core(X, y, lam_t.tolist(), lamw, key,
-                                             float(max_hat_s), options)
+            with host.span("path.scan"):
+                betas, valids = _lasso_path_core(X, y, lam_t.tolist(), lamw,
+                                                 key, float(max_hat_s),
+                                                 options)
     if stats is not None:
         stats["used_batched"] = used_batched
         stats["batched_certified"] = batched_ok

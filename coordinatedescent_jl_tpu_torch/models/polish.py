@@ -170,6 +170,7 @@ def _scatter(beta_s, idx_np, p: int):
     return beta_np
 
 
+@host.spanned("polish.lasso")
 def polish_lasso(X, y, beta, lam0, weights=None, *,
                  target_rel_gap: float = 1e-7, max_rounds: int = 6,
                  support_cap: int = 4096, col_chunk: int = 4096,
@@ -196,9 +197,10 @@ def polish_lasso(X, y, beta, lam0, weights=None, *,
     y2 = float(yn @ yn)
 
     def certify(r64, beta_full):
-        g_np = host_f64(grad_f64(X, r64))
-        gap, primal = fenchel_gap_f64(host_f64(r64), g_np, beta_full, lam0,
-                                      w_np, n, yn, y2=y2)
+        with host.span("polish.certify"):
+            g_np = host_f64(grad_f64(X, r64))
+            gap, primal = fenchel_gap_f64(host_f64(r64), g_np, beta_full,
+                                          lam0, w_np, n, yn, y2=y2)
         return g_np, gap, primal
 
     sup = np.nonzero(beta_np)[0]
@@ -222,9 +224,10 @@ def polish_lasso(X, y, beta, lam0, weights=None, *,
         if sup.size > C:
             C = min(p, -(-sup.size // 128) * 128)
         idx_np, beta_s0 = _working_set(sup, beta_np, C, p)
-        beta_s, r64, _, _ = _restricted_cd_f64(
-            X, y64, lamw, torch.as_tensor(idx_np, device=dev), lam0,
-            torch.as_tensor(beta_s0, device=dev), tol_inner)
+        with host.span("polish.restricted_solve"):
+            beta_s, r64, _, _ = _restricted_cd_f64(
+                X, y64, lamw, torch.as_tensor(idx_np, device=dev), lam0,
+                torch.as_tensor(beta_s0, device=dev), tol_inner)
         beta_np = _scatter(beta_s, idx_np, p)
         g_np, gap, primal = certify(r64, beta_np)
         viol = np.maximum(np.abs(g_np) / n - lam0 * w_np, 0.0)
@@ -274,13 +277,15 @@ def _sqrt_cert(X, r64, beta_np, lam0, w_np, sup):
     """Compensated sqrt-KKT certificate of a (β, exact r64) pair (the
     formulas of ``sqrt_lasso_kkt_compensated``).  Returns ``(kkt_rel, ‖r‖,
     g, t)``."""
-    r_np = host_f64(r64)
-    rn = float(np.sqrt(r_np @ r_np))
-    t = np.maximum(lam0 * rn * w_np, 1e-300)
-    g_np = host_f64(grad_f64(X, r64))
-    return _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np), rn, g_np, t
+    with host.span("polish.certify"):
+        r_np = host_f64(r64)
+        rn = float(np.sqrt(r_np @ r_np))
+        t = np.maximum(lam0 * rn * w_np, 1e-300)
+        g_np = host_f64(grad_f64(X, r64))
+        return _sqrt_kkt_rel_from_grad(g_np, t, sup, beta_np), rn, g_np, t
 
 
+@host.spanned("polish.sqrt_lasso")
 def polish_sqrt_lasso(X, y, beta, lam0, weights=None, *,
                       target_kkt_rel: float = 1e-7, max_rounds: int = 6,
                       support_cap: int = 4096, col_chunk: int = 4096,
@@ -318,9 +323,10 @@ def polish_sqrt_lasso(X, y, beta, lam0, weights=None, *,
         if sup.size > C:
             C = min(p, -(-sup.size // 128) * 128)
         idx_np, beta_s0 = _working_set(sup, beta_np, C, p)
-        beta_s, r64, _, _ = _restricted_cd_f64(
-            X, y64, lamw, torch.as_tensor(idx_np, device=dev), lam0,
-            torch.as_tensor(beta_s0, device=dev), tol_inner, kind="sqrt")
+        with host.span("polish.restricted_solve"):
+            beta_s, r64, _, _ = _restricted_cd_f64(
+                X, y64, lamw, torch.as_tensor(idx_np, device=dev), lam0,
+                torch.as_tensor(beta_s0, device=dev), tol_inner, kind="sqrt")
         beta_np = _scatter(beta_s, idx_np, p)
         sup_now = np.nonzero(beta_np)[0]
         kkt, rn, g_np, t = _sqrt_cert(X, r64, beta_np, lam0, w_np, sup_now)
@@ -386,6 +392,7 @@ def _restricted_set(X, y64, lamw, beta_np):
     return prob, st, Xs, idx_np, sup
 
 
+@host.spanned("polish.scaled_lasso")
 def polish_scaled_lasso(X, y, beta, lam, weights=None, *,
                         target_rel_gap: float = 1e-7,
                         sigma_rtol: float = 1e-7,
@@ -436,8 +443,9 @@ def polish_scaled_lasso(X, y, beta, lam, weights=None, *,
         sp = hp = None
         sig_i = signew
         for _ in range(40):
-            st, beta_s, r64, _, _ = _restricted_sweeps(
-                "ls", prob, st, Xs, y64, lam * sig_i, tol_in)
+            with host.span("polish.restricted_solve"):
+                st, beta_s, r64, _, _ = _restricted_sweeps(
+                    "ls", prob, st, Xs, y64, lam * sig_i, tol_in)
             so = math.sqrt(host.item(torch.dot(r64, r64)) / n)
             hi = so - sig_i
             if abs(hi) / max(sig_i, 1e-300) <= 0.1 * sigma_rtol:
@@ -484,6 +492,7 @@ def _ws_loadings(Xs, r64):
     return torch.sqrt((r64 * r64) @ Xs.square() / Xs.shape[0])
 
 
+@host.spanned("polish.feasible_lasso")
 def polish_feasible_lasso(X, y, beta, lam0, *, target_rel_gap: float = 1e-7,
                           gamma_rtol: float = 1e-7,
                           max_loading_rounds: int = 12,
@@ -537,8 +546,9 @@ def polish_feasible_lasso(X, y, beta, lam0, *, target_rel_gap: float = 1e-7,
         tol_in = 1e-10 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
         gmax = max(float(np.max(gam)), 1e-300)
         for _ in range(40):
-            st, beta_s, r64, _, _ = _restricted_sweeps(
-                "ls", prob, st, Xs, y64, lam0, tol_in)
+            with host.span("polish.restricted_solve"):
+                st, beta_s, r64, _, _ = _restricted_sweeps(
+                    "ls", prob, st, Xs, y64, lam0, tol_in)
             gS = _ws_loadings(Xs, r64)
             dS = host.item(torch.max(torch.abs(gS - prob.lamw.reshape(-1))
                                      [:sup.size])) / gmax
@@ -646,6 +656,7 @@ def _group_bcd_host(K, c, t_sel, G, b0, tol, max_sweeps=400):
     return beta
 
 
+@host.spanned("polish.group_lasso")
 def polish_group_lasso(X, y, beta, lam0, group_size: int, weights=None, *,
                        target_kkt_rel: float = 1e-7, max_rounds: int = 6,
                        group_cap: int = 512, col_chunk: int = 4096,
@@ -684,7 +695,8 @@ def polish_group_lasso(X, y, beta, lam0, group_size: int, weights=None, *,
     tol_inner = 1e-11 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
     while True:
         if selg.size > group_cap:
-            kkt, _, _ = _group_kkt_pieces(X, y, beta_np, t, G)
+            with host.span("polish.certify"):
+                kkt, _, _ = _group_kkt_pieces(X, y, beta_np, t, G)
             break
         if selg.size:
             # the selected groups' columns, a whole number of groups so the
@@ -692,16 +704,19 @@ def polish_group_lasso(X, y, beta, lam0, group_size: int, weights=None, *,
             # missing columns are zero slots
             cols = (selg[:, None] * G + np.arange(G)[None, :]).reshape(-1)
             idx_np = np.where(cols < p, cols, p).astype(np.int64)
-            K_np, c_np = _gather_gram_f64(X, y,
-                                          torch.as_tensor(idx_np, device=dev))
             ok = idx_np < p
             b0 = np.where(ok, beta_np[np.minimum(idx_np, p - 1)], 0.0)
-            beta_sel = _group_bcd_host(K_np, c_np, t[selg], G, b0, tol_inner)
+            with host.span("polish.restricted_solve"):
+                K_np, c_np = _gather_gram_f64(
+                    X, y, torch.as_tensor(idx_np, device=dev))
+                beta_sel = _group_bcd_host(K_np, c_np, t[selg], G, b0,
+                                           tol_inner)
             beta_np = np.zeros((p,), np.float64)
             beta_np[idx_np[ok]] = beta_sel[ok]
         # an empty set (cold start, or λ ≥ λmax) certifies β = 0 directly:
         # the roll-up seeds the first working set
-        kkt, off_excess, _ = _group_kkt_pieces(X, y, beta_np, t, G)
+        with host.span("polish.certify"):
+            kkt, off_excess, _ = _group_kkt_pieces(X, y, beta_np, t, G)
         rounds += 1
         if kkt <= target_kkt_rel:
             converged = True

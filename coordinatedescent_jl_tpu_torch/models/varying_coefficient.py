@@ -432,7 +432,8 @@ class _VcBatchOps:
         """Certify/refine rounds to the engine's KKT criterion (noise floor,
         and at float32 the per-lane stall escape), one counted host read a
         round.  Returns ``(B, R, cert, escaped)``; ``escaped`` marks the
-        lanes accepted through the escape (never at float64)."""
+        lanes accepted through the escape (never at float64).  The rounds
+        run are kept in ``self.rounds``."""
         opts = self.opts
         tol = opts.opt_tol
         dev = B0.device
@@ -450,14 +451,16 @@ class _VcBatchOps:
         rounds = 0
         while (rounds < 2 * opts.compact_rounds
                and not host.item(torch.all(cert))):
-            B = self.fista_phase(B, cert, thrw)
-            # the residual afresh each round: an incrementally kept R would
-            # carry the float32 drift the certificate measures
-            R = self.residual(B)
-            mx = torch.amax(self.certify(B, R, thrw), dim=1)
-            cert, best, stall, esc = stall_escape_update(
-                cert, best, stall, esc, mx, patience, tol)
+            with host.span("vc.refine_round"):
+                B = self.fista_phase(B, cert, thrw)
+                # the residual afresh each round: an incrementally kept R
+                # would carry the float32 drift the certificate measures
+                R = self.residual(B)
+                mx = torch.amax(self.certify(B, R, thrw), dim=1)
+                cert, best, stall, esc = stall_escape_update(
+                    cert, best, stall, esc, mx, patience, tol)
             rounds += 1
+        self.rounds = rounds
         return B, R, cert, esc
 
 
@@ -468,6 +471,7 @@ def _thr_scale(lam0: float, n: int, dtype) -> float:
     return float(npdt(lam0) * npdt(n))
 
 
+@host.spanned("vc.batched")
 def _locpolyl1_batched_core(X, z, y, zgrid_h, zgrid, h: float, lam0: float,
                             seed: int, degree: int, kernel_type,
                             opts: CDOptions, refit: bool, stride: int,
@@ -477,8 +481,9 @@ def _locpolyl1_batched_core(X, z, y, zgrid_h, zgrid, h: float, lam0: float,
     lanes from starts interpolated between the bracketing anchors (see the
     JAX ``_locpolyl1_batched_core`` for why the scheme is sound); the
     chunks run one after another.  ``zgrid_h`` the grid as host floats,
-    ``zgrid`` as a tensor.  Returns ``(out, out_r, all_cert, n_escaped)``;
-    when ``all_cert`` is False the caller must fall back to the scan."""
+    ``zgrid`` as a tensor.  Returns ``(out, out_r, all_cert, n_escaped,
+    rounds)``, ``rounds`` the refine rounds of all chunks; when
+    ``all_cert`` is False the caller must fall back to the scan."""
     n, p = X.shape
     q1 = degree + 1
     ep = p * q1
@@ -489,8 +494,10 @@ def _locpolyl1_batched_core(X, z, y, zgrid_h, zgrid, h: float, lam0: float,
     if cidx[-1] != g - 1:
         cidx = np.append(cidx, g - 1)
     rest = np.setdiff1d(np.arange(g), cidx)
-    out_c, _ = _locpolyl1_core(X, z, y, [zgrid_h[i] for i in cidx], h, lam0,
-                               seed, degree, kernel_type, opts, False)
+    with host.span("vc.anchors"):
+        out_c, _ = _locpolyl1_core(X, z, y, [zgrid_h[i] for i in cidx], h,
+                                   lam0, seed, degree, kernel_type, opts,
+                                   False)
     betas_c = out_c.T                                       # (g_c, ep)
     if rest.size:
         seg = np.searchsorted(cidx, rest) - 1
@@ -504,11 +511,14 @@ def _locpolyl1_batched_core(X, z, y, zgrid_h, zgrid, h: float, lam0: float,
                   + a[:, None] * betas_c[seg_t + 1])
         thr = _thr_scale(lam0, n, X.dtype)
         k = min(batch, int(rest.size))
+        rounds = 0
         parts = []
         for i in range(0, int(rest.size), k):
-            ops = _VcBatchOps(X, z, y, kernel, z_r[i:i + k], degree, opts)
-            B, _, cert, esc = ops.solve(starts[i:i + k], ops.lamw * thr)
+            with host.span("vc.refine"):
+                ops = _VcBatchOps(X, z, y, kernel, z_r[i:i + k], degree, opts)
+                B, _, cert, esc = ops.solve(starts[i:i + k], ops.lamw * thr)
             parts.append((B, cert, esc))
+            rounds += ops.rounds
         certs = torch.cat([part[1] for part in parts])
         escs = torch.cat([part[2] for part in parts])
         all_cert, n_escaped = host.tolist(torch.stack([
@@ -519,22 +529,24 @@ def _locpolyl1_batched_core(X, z, y, zgrid_h, zgrid, h: float, lam0: float,
         betas[torch.as_tensor(rest, device=dev)] = torch.cat(
             [part[0] for part in parts])
     else:
-        betas, all_cert, n_escaped = betas_c, True, 0
+        betas, all_cert, n_escaped, rounds = betas_c, True, 0, 0
     if refit:
         kr = min(batch, g)
         out_r = []
-        for i in range(0, g, kr):
-            z0 = zgrid[i:i + kr]
-            w = evaluate(kernel, z[None, :], z0[:, None])
-            dpow = _powers(z[None, :] - z0[:, None], q1)
-            out_r.append(_batched_masked_refit(X, y, w, dpow,
-                                               betas[i:i + kr])[0])
+        with host.span("vc.refit"):
+            for i in range(0, g, kr):
+                z0 = zgrid[i:i + kr]
+                w = evaluate(kernel, z[None, :], z0[:, None])
+                dpow = _powers(z[None, :] - z0[:, None], q1)
+                out_r.append(_batched_masked_refit(X, y, w, dpow,
+                                                   betas[i:i + kr])[0])
         out_r = torch.cat(out_r)
     else:
         out_r = torch.zeros_like(betas)
-    return betas.T, out_r.T, bool(all_cert), int(n_escaped)
+    return betas.T, out_r.T, bool(all_cert), int(n_escaped), rounds
 
 
+@host.spanned("est.locpolyl1")
 def locpolyl1(X, z, y, zgrid, degree: int, kernel: SmoothingKernel, lam0,
               refit: bool = True, options: CDOptions = CDOptions(), *,
               grid_batch: int | None = None,
@@ -560,7 +572,8 @@ def locpolyl1(X, z, y, zgrid, degree: int, kernel: SmoothingKernel, lam0,
     (``>= 1``) and otherwise ignored (see the module docstring).
 
     ``stats``, if a dict, receives ``used_batched``, ``batched_certified``
-    and ``stall_escaped_lanes``, as in the JAX package.
+    and ``stall_escaped_lanes``, as in the JAX package, and
+    ``refine_rounds``, the batched execution's certify/refine rounds.
     """
     dev = target_device(device)
     X = on_device(X, dev)
@@ -583,16 +596,18 @@ def locpolyl1(X, z, y, zgrid, degree: int, kernel: SmoothingKernel, lam0,
         raise ValueError("scan_chunk must be >= 1")
     if stats is not None:
         stats.update(used_batched=False, batched_certified=False,
-                     stall_escaped_lanes=0)
+                     stall_escaped_lanes=0, refine_rounds=0)
     zg_h = host.tolist(zg)
     with full_f32_matmuls():
         if grid_batch and L > max(2, coarse_stride):
             if stats is not None:
                 # the attempt ran: used_batched stays True on a fallback
                 stats["used_batched"] = True
-            out, out_r, all_cert, n_esc = _locpolyl1_batched_core(
+            out, out_r, all_cert, n_esc, rounds = _locpolyl1_batched_core(
                 X, z, y, zg_h, zg, h, lam, seed, degree, type(kernel), opts,
                 refit, int(coarse_stride), int(grid_batch))
+            if stats is not None:
+                stats["refine_rounds"] = rounds
             if all_cert:
                 if stats is not None:
                     stats.update(batched_certified=True,
@@ -603,8 +618,9 @@ def locpolyl1(X, z, y, zgrid, degree: int, kernel: SmoothingKernel, lam0,
                 "certify every grid point; falling back to the sequential "
                 "scan (consider a larger options.compact_size or a smaller "
                 "grid_batch)", RuntimeWarning)
-        return _locpolyl1_core(X, z, y, zg_h, h, lam, seed, degree,
-                               type(kernel), opts, refit)
+        with host.span("vc.scan"):
+            return _locpolyl1_core(X, z, y, zg_h, h, lam, seed, degree,
+                                   type(kernel), opts, refit)
 
 
 def refit_locpolyl1(X, z, y, z0, degree: int, kernel: SmoothingKernel,

@@ -139,19 +139,36 @@ class CDState(NamedTuple):
 
 
 def _pad_to_blocks(v, B, fill=0.0):
+    """``v`` with its last dimension padded to a multiple of ``B``; the
+    padding of a design (2-D) is marked as a copy."""
     p = v.shape[-1]
     P = -(-p // B) * B
-    if P != p:
-        v = torch.nn.functional.pad(v, (0, P - p), value=fill)
-    return v
+    if P == p:
+        return v
+    if v.dim() != 2:
+        return torch.nn.functional.pad(v, (0, P - p), value=fill)
+    with host.mark("design_copy", bytes=v.shape[0] * P * v.element_size()):
+        return torch.nn.functional.pad(v, (0, P - p), value=fill)
 
 
 def _blockify_cols(X, B):
-    """(n, P) → (nb, n, B) contiguous column blocks."""
+    """(n, P) → (nb, n, B) contiguous column blocks (a copy, marked as
+    such, unless the blocks are already laid out: one block)."""
     n, P = X.shape
-    return X.reshape(n, P // B, B).permute(1, 0, 2).contiguous()
+    Xb = X.reshape(n, P // B, B).permute(1, 0, 2)
+    if Xb.is_contiguous():
+        return Xb
+    with host.mark("design_copy", bytes=X.numel() * X.element_size()):
+        return Xb.contiguous()
 
 
+def _weighted_rows(Xp, w):
+    """``diag(w)·X``, the wls design's copy (marked)."""
+    with host.mark("design_copy", bytes=Xp.numel() * Xp.element_size()):
+        return Xp * w[:, None]
+
+
+@host.spanned("cd.build_blocked")
 def build_blocked(kind: str, opts: CDOptions, lamw_full, *, X=None, y=None,
                   w=None, A=None, q=None):
     """Assemble the blocked problem: ``X``, ``y`` (and the row weights ``w``
@@ -177,7 +194,7 @@ def build_blocked(kind: str, opts: CDOptions, lamw_full, *, X=None, y=None,
         Xb = _blockify_cols(Xp, B)
         nb = Xb.shape[0]
         if kind == "wls":
-            Xwb = _blockify_cols(Xp * w[:, None], B)
+            Xwb = _blockify_cols(_weighted_rows(Xp, w), B)
             adiag = torch.sum(Xwb * Xb, dim=1)             # Σ w X²
             xwnorm = torch.sqrt(torch.sum(Xwb * Xwb, dim=1))   # ‖w·X_j‖
         else:
@@ -842,20 +859,23 @@ def _solve_at_lambda_ws(kind, opts: CDOptions, prob: BlockedProblem, lam0,
     while not st.done and st.it < opts.max_iter:
         host.COUNTS["epochs"] += 1
         was_full = st.conv
-        if was_full:
-            s2, maxh = _full_check(kind, prob, st, lam0, n_scale,
-                                   opts.opt_tol, opts, xc=xc)
-        elif nc:
-            s2, maxh, cache = _compact_pass(kind, prob, st, lam0, n_scale,
-                                            opts, nc, cache, xc=xc)
-        else:
-            if xc is not None:
-                xc.add_blocks(st.active,
-                              prob.y.shape[0] * prob.lamw.shape[1])
-            s2, maxh = _active_pass(kind, prob, st, lam0, n_scale,
-                                    opts.randomize, opts)
-        if isinstance(maxh, torch.Tensor):
-            maxh = host.item(maxh)
+        with host.span("cd.full_check" if was_full else
+                       "cd.compact_pass" if nc else "cd.active_pass"):
+            if was_full:
+                s2, maxh = _full_check(kind, prob, st, lam0, n_scale,
+                                       opts.opt_tol, opts, xc=xc)
+            elif nc:
+                s2, maxh, cache = _compact_pass(kind, prob, st, lam0,
+                                                n_scale, opts, nc, cache,
+                                                xc=xc)
+            else:
+                if xc is not None:
+                    xc.add_blocks(st.active,
+                                  prob.y.shape[0] * prob.lamw.shape[1])
+                s2, maxh = _active_pass(kind, prob, st, lam0, n_scale,
+                                        opts.randomize, opts)
+            if isinstance(maxh, torch.Tensor):
+                maxh = host.item(maxh)
         conv = maxh < tol
         if was_full:
             stall = 0 if maxh < best else stall + 1
@@ -898,6 +918,7 @@ def _lambda_max(kind, prob: BlockedProblem, st: CDState, n_scale,
     return torch.max(t)
 
 
+@host.spanned("cd.solve")
 def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
                   beta0_b, key, count_x: bool = False):
     """Warm start from ``beta0`` or zero-start with log-spaced
@@ -918,9 +939,10 @@ def solve_blocked(kind: str, opts: CDOptions, prob: BlockedProblem, lam0,
 
     st = _init_state(kind, prob, torch.zeros_like(beta0_b), key)
     npdt = _np_dtype(dtype)
-    lammax = npdt.type(host.item(_lambda_max(
-        kind, prob, st, n_scale,
-        kind != "quad" and use_kernels(opts, st.beta))))
+    with host.span("cd.lambda_max"):
+        lammax = npdt.type(host.item(_lambda_max(
+            kind, prob, st, n_scale,
+            kind != "quad" and use_kernels(opts, st.beta))))
     # log-spaced schedule, num_steps + 1 points inclusive, in dtype
     lams = np.exp(np.linspace(np.log(lammax), np.log(npdt.type(lam0)),
                               opts.num_steps + 1).astype(npdt)).tolist()

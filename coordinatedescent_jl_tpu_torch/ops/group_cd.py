@@ -39,7 +39,8 @@ import torch
 
 from .block_cd import (_blockify_cols, _block_grams, _blocks_matvec, _eps,
                        _full_gradient_c, _np_dtype, _pad_to_blocks,
-                       _to_blocked_beta, full_f32_matmuls, noise_floor_mask)
+                       _to_blocked_beta, _weighted_rows, full_f32_matmuls,
+                       noise_floor_mask)
 from .losses import LeastSquaresLoss, SqrtLassoLoss, WeightedLSLoss
 from .prox import ProxL1Group, group_soft_threshold
 from ..utils import host
@@ -83,6 +84,7 @@ def _block_width(G: int) -> int:
     return G * max(1, 128 // G)
 
 
+@host.spanned("group.build")
 def _build_group_problem(X, y, lamw_g, G: int, w=None) -> GroupProblem:
     """Blocks of whole groups, zero-padded to ``nb·B`` columns (a ragged
     tail group and whole padded groups alike); padded groups take penalty
@@ -94,7 +96,7 @@ def _build_group_problem(X, y, lamw_g, G: int, w=None) -> GroupProblem:
     Xp = _pad_to_blocks(X, B)
     Xb = _blockify_cols(Xp, B)
     nb = Xb.shape[0]
-    Xwb = Xb if w is None else _blockify_cols(Xp * w[:, None], B)
+    Xwb = Xb if w is None else _blockify_cols(_weighted_rows(Xp, w), B)
     del Xp
     valid = (torch.arange(nb * B, device=X.device) < p).reshape(nb, B)
     Kb = _block_grams(Xwb, Xb)
@@ -234,13 +236,15 @@ def _group_solve_at_lambda(opts: CDOptions, prob: GroupProblem, lam0,
     while not st.done and st.it < opts.max_iter:
         host.COUNTS["epochs"] += 1
         was_full = st.conv
-        if was_full:
-            s2, maxh = _group_full_check(prob, st, lam0, n_scale,
-                                         opts.opt_tol, kernels)
-        else:
-            s2, maxh = _group_active_pass(prob, st, lam0, n_scale,
-                                          opts.randomize, coefs)
-        maxh = host.item(maxh)
+        with host.span("group.full_check" if was_full
+                       else "group.active_pass"):
+            if was_full:
+                s2, maxh = _group_full_check(prob, st, lam0, n_scale,
+                                             opts.opt_tol, kernels)
+            else:
+                s2, maxh = _group_active_pass(prob, st, lam0, n_scale,
+                                              opts.randomize, coefs)
+            maxh = host.item(maxh)
         conv = maxh < tol
         if was_full:
             stall = 0 if maxh < best else stall + 1
@@ -268,6 +272,7 @@ def _group_init(prob: GroupProblem, beta_g, key) -> GroupState:
                       key=key, it=0, conv=True, done=False)
 
 
+@host.spanned("group.solve")
 def _group_cd_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
                    opts: CDOptions, w=None):
     """The ls / wls solve: warm from ``beta0``, or zero-start with
@@ -288,8 +293,9 @@ def _group_cd_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
         st = _group_init(prob, torch.zeros((nb, B), dtype=dtype,
                                            device=X.device), key)
         npdt = _np_dtype(dtype)
-        lammax = npdt.type(host.item(_group_lambda_max(prob, st, n_scale,
-                                                       kernels)))
+        with host.span("group.lambda_max"):
+            lammax = npdt.type(host.item(_group_lambda_max(prob, st, n_scale,
+                                                           kernels)))
         # log-spaced schedule, num_steps + 1 points inclusive, in dtype
         lams = np.exp(np.linspace(np.log(lammax), np.log(npdt.type(lam0)),
                                   opts.num_steps + 1).astype(npdt)).tolist()
@@ -299,6 +305,7 @@ def _group_cd_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
     return st.beta.reshape(-1)[:p], st.r
 
 
+@host.spanned("group.solve")
 def _group_sqrt_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
                      opts: CDOptions):
     """Group atoms × sqrt-lasso loss, ``min ‖y − Xβ‖₂ + λ0 Σ_g ω_g‖β_g‖``,
@@ -381,6 +388,7 @@ def group_coordinate_descent(beta0, loss, penalty: ProxL1Group,
         return _group_cd_core(X, y, lam0, lamw_g, beta0, key, G, options, w)
 
 
+@host.spanned("est.group_lasso")
 def group_lasso(X, y, lam, group_size: int, weights=None,
                 options: CDOptions = CDOptions(), *, seed: int = 0,
                 device=None):

@@ -875,7 +875,7 @@ def _refine_chunk_sharded(Xl, y, lamwl, adiag, xnorm, lam_k, B0, frozen,
                                torch.full_like(thr_full, big))
         Ks = torch.matmul(Xs.T, Xs)
         cs0 = torch.matmul(R, Xs)
-        with torch.profiler.record_function("union_block_fista"):
+        with host.span("sharded.union_block_fista"):
             bs = union_block_fista(Ks, thr_full, Bs0, cs0, cert, opts)
         # Xs is replicated: the residual update needs no collective
         R = R - torch.matmul(bs - Bs0, Xs.T)

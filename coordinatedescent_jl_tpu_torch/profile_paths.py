@@ -100,9 +100,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .utils import host
 from .utils.options import CDOptions
 
-_SPAN = "union_block_fista"   # lasso_path._refine_chunk's profiler span
+# lasso_path._refine_chunk's profiler span (utils/host.py)
+_SPAN = host.SPAN_PREFIX + "path.union_block_fista"
 
 
 class BenchProblem(NamedTuple):
@@ -234,8 +236,6 @@ def trace_one_call(fn, retakes: int = 10):
     or more kernels than its wrappers counted, still shows as such."""
     from torch.profiler import ProfilerActivity, profile
 
-    from .utils import host
-
     fn()
     for retaken in range(retakes + 1):
         torch.cuda.synchronize()
@@ -246,7 +246,8 @@ def trace_one_call(fn, retakes: int = 10):
             torch.cuda.synchronize()
         counted = sum(launch_counts().values()) - before
         kern = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not host.is_program_range(e.name)]
         if len(kern) >= counted:
             break
     return (host.COUNTS["host_reads"] - reads, [e.name for e in kern],
@@ -313,10 +314,10 @@ def _trace(fn, top: int = 8):
                              ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(fn)
     evs = prof.events()
-    # the span's device-side annotation is a range, not a kernel
+    # the spans' and marks' device-side annotations are ranges, not kernels
     dev_evs = [e for e in evs
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name != _SPAN]
+               and not host.is_program_range(e.name)]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in dev_evs:
         by_name[e.name][0] += 1

@@ -283,6 +283,8 @@ def test_locpolyl1_grid_batch_matches_scan_and_jax(degree, kind, h):
         jo, jr = cd.locpolyl1(X, z, y, zg, degree, jk(h), 0.05,
                               options=opts, grid_batch=8, coarse_stride=7,
                               stats=jst)
+    # refine_rounds is the port's own count (tests/test_torch_spans.py)
+    assert isinstance(st.pop("refine_rounds"), int)
     assert st == jst == {"used_batched": True, "batched_certified": True,
                          "stall_escaped_lanes": 0}
     close(bo, so, atol=1e-7)
@@ -302,7 +304,7 @@ def test_grid_batch_default_and_scan_chunk():
     o1, r1 = tcd.locpolyl1(X, z, y, zg, 1, kern, 0.05, options=TOPTS,
                            stats=st, **CPU)
     assert st == {"used_batched": False, "batched_certified": False,
-                  "stall_escaped_lanes": 0}
+                  "stall_escaped_lanes": 0, "refine_rounds": 0}
     for ch in (1, 5, 50):
         o2, r2 = tcd.locpolyl1(X, z, y, zg, 1, kern, 0.05, options=TOPTS,
                                scan_chunk=ch, **CPU)
