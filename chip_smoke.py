@@ -56,7 +56,9 @@ Phases, each failing loudly (exit code 1, no result line):
    b. the batched path (``path_batch=128, coarse_stride=99``, bench.py's
       headline configuration): it must certify without falling back, every
       point must agree in support with the scan of 4a, and the plain run
-      with it;
+      with it; the kernel run launches the union-fista kernel once a
+      refine round; then that kernel alone at the round's shape against
+      its plain twin, with both times and its bound;
    c. the time to the 1e-7 gap: a warm ``lasso`` at 0.05·λmax (default
       options, as bench.py) then ``polish_lasso`` of its solution, which
       must converge to a relative gap <= 1e-7; the two are counted apart,
@@ -332,9 +334,11 @@ def main():
         from coordinatedescent_jl_tpu_torch.kernels import (_build,
                                                             active_pass,
                                                             check,
-                                                            gradient_sweep)
+                                                            gradient_sweep,
+                                                            union_fista)
         from coordinatedescent_jl_tpu_torch.models import polish as pol
-        from coordinatedescent_jl_tpu_torch.ops import block_cd
+        from coordinatedescent_jl_tpu_torch.ops import (batched_certify,
+                                                        block_cd)
         from coordinatedescent_jl_tpu_torch.profile_paths import (
             bench_problem, group_bench_problem, launch_counts,
             reset_launch_counts, vc_bench_problem)
@@ -1227,7 +1231,12 @@ def main():
     (pb, st_b), t_batched = wall(lambda: batched(opts))
     launches = counts()
     reads = dict(host.COUNTS)
-    require_launches("batched path", launches, ("K1", "K3", "K4", "K5"))
+    require_launches("batched path", launches, ("K1", "K3", "K4", "K5",
+                                                "union_fista"))
+    if launches["union_fista"] != st_b["refine_rounds"]:
+        fail(f"the batched path launched union_fista "
+             f"{launches['union_fista']} times in {st_b['refine_rounds']} "
+             "refine rounds")
     add(launches)
     bad = support_mismatch(pb.beta_path, path.beta_path, supp_tol)
     dmax = maxdiff(pb.beta_path, path.beta_path)
@@ -1252,6 +1261,51 @@ def main():
     scan_betas = path.beta_path          # held against the resumable path (4k)
     del pb, pbp, path
     torch.cuda.empty_cache()
+
+    # the batched path's refine round at its shape (98 lanes, Cp = 1,024,
+    # blocks of 128, 16 steps, 8 sweeps) over 1,024 of the design's
+    # columns, the lanes' residuals Gaussian: the union-fista kernel
+    # against its plain twin, within 1e-4 of max |bs| (sums in another
+    # order than cuBLAS's, through 1,024 dependent steps)
+    gu = torch.Generator(device=dev).manual_seed(18)
+    ku, Cu, Bu = L - 2, 1024, opts.block_size
+    Xu = X[:, :Cu].contiguous()
+    Ru = torch.randn((ku, n), generator=gu, device=dev)
+    csu = Ru @ Xu
+    Bsu = torch.randn((ku, Cu), generator=gu, device=dev) * (
+        torch.rand((ku, Cu), generator=gu, device=dev) < 0.05)
+    thru = torch.quantile(csu.abs(), 0.9, dim=1, keepdim=True) * (
+        0.5 + torch.rand((ku, Cu), generator=gu, device=dev))
+    certu = torch.arange(ku, device=dev) % 8 == 7
+    uargs = (Xu.T @ Xu, thru, Bsu, csu, certu)
+    del Xu, Ru
+
+    def uf_kernel():
+        return union_fista.fused_union_fista(*uargs, opts)
+
+    def uf_plain():
+        return batched_certify.union_block_fista_plain(*uargs, opts)
+
+    out_u, ref_u = uf_kernel(), uf_plain()
+    if not torch.equal(out_u[certu], Bsu[certu]):
+        fail("union_fista: a certified lane is not Bs0 bit for bit")
+    ms = cuda_ms(uf_kernel, 20)
+    pms = cuda_ms(uf_plain, 3)
+    # a one-call trace this late in the process may hold no kernel (see
+    # phase 3): the device time is then not measured
+    _, names, dms = one_call(uf_kernel)
+    dms = dms if names else None
+    ncb = Cu // Bu
+    report("union_fista", "union-fista round", maxdiff(out_u, ref_u),
+           1e-4 * float(ref_u.abs().max()), ms, pms,
+           f"k={ku}, Cp={Cu}, B={Bu}, {opts.block_iters} steps, 8 sweeps; "
+           "device " + ("not measured" if dms is None else f"{dms:.4f} ms"),
+           4 * (Cu * Cu + 4 * ku * Cu),
+           2 * ku * 8 * ncb * (opts.block_iters * Bu * Bu + Bu * Cu),
+           device_ms=dms)
+    if not ok:
+        fail("union_fista disagrees with its plain twin")
+    del uargs, out_u, ref_u, Bsu, csu, thru, certu
 
     # 4c. time to the 1e-7 gap (bench.py:300-320): a warm single solve with
     # the default options, then the polish of its own output
@@ -2312,6 +2366,10 @@ def main():
                "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
         "K5f64": ("grad_f64", "dense_sweep.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
+        "union_fista": ("fused_union_fista (the batched path's refine "
+                        "round)", "union_fista.cu",
+                        "none: coordinatedescent_jl_tpu/ops/"
+                        "batched_certify.py:union_block_fista is a lax.scan"),
         "K1wls_vc": ("fused_active_pass (wls, n = 500: the small-n regime, "
                      "one cluster)",
                      "active_pass.cu",

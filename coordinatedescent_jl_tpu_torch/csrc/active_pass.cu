@@ -184,51 +184,6 @@ __host__ __device__ inline ApLayout ap_layout(int B, int rows, int keep_x,
   return L;
 }
 
-// The FISTA product over one warp's 8 coordinates k = 8 w + c (c < 8):
-// lane L holds K[4 L + i, 8 w + c] (i < 4) in registers for the whole
-// solve and reads v[4 L .. 4 L + 3] (one 16-byte load in float: every
-// lane a distinct address), forms its 8 partial sums, and the warp adds
-// them by a reduce-scatter in a fixed order (xor 16, 8, 4 halve the
-// coordinates, xor 2, 1 finish the sums): lane L ends with the total of
-// coordinate 8 w + L / 4, as do the other 3 lanes of its quad.
-template <typename T>
-__device__ __forceinline__ T warp_cols(T (&p)[8]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int h = 4, m = 16; h >= 1; h >>= 1, m >>= 1) {
-    const bool up = lane & m;
-#pragma unroll
-    for (int i = 0; i < h; ++i) {
-      const T send = up ? p[i] : p[i + h];
-      const T keep = up ? p[i + h] : p[i];
-      p[i] = keep + __shfl_xor_sync(FULL, send, m);
-    }
-  }
-  T s = p[0];
-  s += __shfl_xor_sync(FULL, s, 2);
-  s += __shfl_xor_sync(FULL, s, 1);
-  return s;
-}
-
-// sum over l of v[l] K[l, k] for this thread's coordinate (see warp_cols)
-template <typename T>
-__device__ __forceinline__ T warp_dot(const T* v, const T (&kc)[4][8]) {
-  const int lane = threadIdx.x & 31;
-  T w[4];
-#pragma unroll
-  for (int i = 0; i < 4; i += vec_of<T>())
-    *reinterpret_cast<uint4*>(w + i) =
-        *reinterpret_cast<const uint4*>(v + 4 * lane + i);
-  T p[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    p[c] = w[0] * kc[0][c];
-#pragma unroll
-    for (int i = 1; i < 4; ++i) p[c] += w[i] * kc[i][c];
-  }
-  return warp_cols(p);
-}
-
 // dst[grow(l) + k] = src[l B + k] for the B x B Gram at src, with batches of
 // AP_GBATCH loads in flight per thread, 16 bytes each when `vec` (src 16-byte
 // aligned and B a multiple of 16 / sizeof(T), so that no load crosses a

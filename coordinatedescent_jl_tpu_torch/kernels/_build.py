@@ -73,6 +73,9 @@ _SIGNATURES = {
     # K5 instantiations)
     "cdt_dense_sweep": [_P] * 4 + [_I] * 7 + [_P],
     "cdt_grad64": [_P] * 4 + [_I] * 7 + [_P],
+    # Ks, thr, Bs0, cs0, cert, mom, out, k, Cp, B, iters, n_sweeps, vec,
+    # smem, stream
+    "cdt_union_fista": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -8,8 +8,11 @@ The products here are plain ``torch.matmul`` (the JAX package computes
 them outside any Pallas kernel) and must run with full-f32 matmuls
 (``block_cd.full_f32_matmuls``): TF32 puts ~1e-3 relative error into the
 certify sweep and no lane certifies at ``opt_tol = 1e-6``.
-``union_block_fista``'s ``lax.scan`` loops are host loops of small
-products (8 sweeps × blocks × ``block_iters`` FISTA steps per round).
+``union_block_fista``'s ``lax.scan`` loops (8 sweeps × blocks ×
+``block_iters`` FISTA steps per round) are one launch of a hand-written
+CUDA kernel on the card (``kernels/union_fista.py``); its plain twin,
+:func:`union_block_fista_plain`, runs them as host loops of small eager
+products.
 The JAX module's ``run_chunked_segments`` (its :161, the host segment
 loop of every ``scan_chunk`` entry point) is not ported: it went with
 ``scan_chunk``, which the port takes and ignores.
@@ -17,12 +20,14 @@ loop of every ``scan_chunk`` entry point) is not ported: it went with
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .block_cd import _np_dtype, noise_floor_mask
 from .prox import soft_threshold
-from ..utils.options import CDOptions
+from ..utils.options import CDOptions, use_kernels
 
 
 def kkt_violation_lanes(B, R, thrw, X, adiag, xnorm):
@@ -64,20 +69,43 @@ def union_block_fista(Ks, thr_full, Bs0, cs0, cert, opts: CDOptions,
     per-block Gershgorin majorizers and cross-block gradient maintenance.
     ``Bs0``/``cs0`` are ``(k, Cp)`` lane coefficients and gradients
     ``Xs'R``; certified lanes (``cert``) are frozen.  Returns the refined
-    coefficients.  The FISTA momentum sequence is the same for every step
-    and block, so it is computed once on the host in the working dtype."""
+    coefficients.  Under the mode rule (``utils.options.use_kernels``) one
+    launch of the hand-written kernel
+    (``kernels/union_fista.py::fused_union_fista``), else the plain twin
+    :func:`union_block_fista_plain`."""
+    if use_kernels(opts, Bs0):
+        from ..kernels.union_fista import fused_union_fista
+        return fused_union_fista(Ks, thr_full, Bs0, cs0, cert, opts,
+                                 n_sweeps)
+    return union_block_fista_plain(Ks, thr_full, Bs0, cs0, cert, opts,
+                                   n_sweeps)
+
+
+@functools.lru_cache(maxsize=64)
+def fista_momentum(block_iters: int, dtype: torch.dtype) -> tuple:
+    """The FISTA momentum coefficients ``(t_k − 1) / t_{k+1}`` of
+    ``block_iters`` steps, computed on the host in ``dtype`` (the same for
+    every block and sweep of a round)."""
+    npdt = _np_dtype(dtype).type
+    coefs, t = [], npdt(1)
+    for _ in range(block_iters):
+        t_new = npdt(0.5) * (npdt(1) + np.sqrt(npdt(1) + npdt(4) * t * t))
+        coefs.append(float((t - npdt(1)) / t_new))
+        t = t_new
+    return tuple(coefs)
+
+
+def union_block_fista_plain(Ks, thr_full, Bs0, cs0, cert, opts: CDOptions,
+                            n_sweeps: int = 8):
+    """Plain twin of :func:`union_block_fista`: the JAX ``lax.scan`` loops
+    as host loops of eager products, ~13 launches a FISTA step."""
     Cp = Ks.shape[0]
     Bb = int(opts.block_size)
     ncb = Cp // Bb
     Kdiag = [Ks[o:o + Bb, o:o + Bb] for o in range(0, Cp, Bb)]
     Lb = torch.clamp_min(torch.stack([
         torch.amax(torch.sum(torch.abs(K), dim=1)) for K in Kdiag]), 1e-30)
-    npdt = _np_dtype(Bs0.dtype).type
-    coefs, t = [], npdt(1)
-    for _ in range(opts.block_iters):
-        t_new = npdt(0.5) * (npdt(1) + np.sqrt(npdt(1) + npdt(4) * t * t))
-        coefs.append(float((t - npdt(1)) / t_new))
-        t = t_new
+    coefs = fista_momentum(int(opts.block_iters), Bs0.dtype)
     frozen = cert[:, None]
     bs, cs = Bs0.clone(), cs0
     for _ in range(n_sweeps):

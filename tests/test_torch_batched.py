@@ -168,9 +168,9 @@ def test_union_priority_matches_jax():
                                atol=1e-12)
 
 
-def test_union_block_fista_matches_jax():
+def _union_case(dtype=np.float64):
     """Three 16-wide blocks with one padded slot (threshold finfo.max/8),
-    a certified (frozen) lane, and the cross-block gradient updates."""
+    a certified (frozen) lane; ``(Ks, thr, Bs0, cs0, cert)``."""
     rng = np.random.default_rng(7)
     n, Cp, k = 50, 48, 5
     Xs = rng.standard_normal((n, Cp))
@@ -180,9 +180,17 @@ def test_union_block_fista_matches_jax():
     Bs0 = rng.standard_normal((k, Cp)) * (rng.random((k, Cp)) < 0.3)
     Bs0[:, -1] = 0.0
     thr = rng.random((k, Cp)) * 30
-    thr[:, -1] = np.finfo(np.float64).max / 8
     cs0 = R @ Xs
+    Ks, thr, Bs0, cs0 = (a.astype(dtype) for a in (Ks, thr, Bs0, cs0))
+    thr[:, -1] = np.finfo(dtype).max / 8
     cert = np.array([False, True, False, False, False])
+    return Ks, thr, Bs0, cs0, cert
+
+
+def test_union_block_fista_matches_jax():
+    """Three 16-wide blocks with one padded slot (threshold finfo.max/8),
+    a certified (frozen) lane, and the cross-block gradient updates."""
+    Ks, thr, Bs0, cs0, cert = _union_case()
     opts = cd.CDOptions(block_size=16, block_iters=7)
     ref = jbc.union_block_fista(jnp.asarray(Ks), jnp.asarray(thr),
                                 jnp.asarray(Bs0), jnp.asarray(cs0),
@@ -192,6 +200,66 @@ def test_union_block_fista_matches_jax():
                                 options_from_jax(opts), n_sweeps=3)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-12)
     np.testing.assert_array_equal(out.numpy()[1], Bs0[1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_union_block_fista_cpu_runs_the_plain_twin(dtype):
+    """CPU tensors take the plain twin, through the dispatcher and through
+    the kernel's wrapper alike (bit for bit, no launch counted); the twin
+    keeps the frozen lane at ``Bs0`` and the padded slot at 0."""
+    from coordinatedescent_jl_tpu_torch.kernels import union_fista
+
+    args = [torch.as_tensor(a) for a in _union_case(dtype)]
+    opts = tcd.CDOptions(block_size=16, block_iters=7)
+    before = union_fista.LAUNCHES
+    plain = tbc.union_block_fista_plain(*args, opts, n_sweeps=3)
+    for out in (tbc.union_block_fista(*args, opts, n_sweeps=3),
+                union_fista.fused_union_fista(*args, opts, n_sweeps=3)):
+        assert out.dtype == plain.dtype and torch.equal(out, plain)
+    assert union_fista.LAUNCHES == before
+    assert torch.equal(plain[1], args[2][1])
+    assert not torch.equal(plain[0], args[2][0])      # the others moved
+    assert torch.all(plain[:, -1] == 0)
+
+
+@pytest.mark.parametrize("case", ["wide_block", "ragged", "strided",
+                                  "dtype", "cert"])
+def test_union_fista_wrapper_refuses_other_inputs(case):
+    """The kernel's input check: blocks of at most 128 that divide ``Cp``,
+    float32/float64 throughout, contiguous, a bool ``cert``."""
+    from coordinatedescent_jl_tpu_torch.kernels import union_fista
+
+    Ks, thr, Bs0, cs0, cert = (torch.as_tensor(a) for a in _union_case())
+    B = 16
+    if case == "wide_block":
+        B = 256
+        Ks = torch.zeros((256, 256), dtype=Ks.dtype)
+        thr, Bs0, cs0 = (torch.zeros((5, 256), dtype=Ks.dtype)
+                         for _ in range(3))
+    elif case == "ragged":
+        B = 32                                        # 48 % 32 != 0
+    elif case == "strided":
+        cs0 = torch.zeros((48, 5), dtype=Ks.dtype).T
+    elif case == "dtype":
+        thr = thr.to(torch.float32)
+    else:
+        cert = cert.to(torch.int32)
+    union_fista.require_inputs(*(torch.as_tensor(a) for a in
+                                 _union_case()), 16)
+    with pytest.raises(ValueError, match="union-fista kernel"):
+        union_fista.require_inputs(Ks, thr, Bs0, cs0, cert, B)
+
+
+def test_union_fista_shared_memory_at_the_path_shape():
+    """The CTA's shared memory at the batched path's ``Cp = 1,024``, blocks
+    of 128 and 16 steps: the lane's three ``Cp`` vectors and fixed
+    buffers, under the default 48 KB in both dtypes."""
+    from coordinatedescent_jl_tpu_torch.kernels import union_fista
+
+    assert union_fista.smem_bytes(1024, 128, 16, 4) == 4 * 5560
+    assert union_fista.smem_bytes(1024, 128, 16, 8) == 8 * 5560
+    assert union_fista.smem_bytes(48, 16, 7, 4) == 4 * (3 * 48 + 384 + 2048
+                                                       + 4 + 8 + 32)
 
 
 def test_stall_escape_update_matches_jax():

@@ -19,8 +19,9 @@ from coordinatedescent_jl_tpu_torch import (  # noqa: E402
     CDOptions, lasso, lasso_duality_gap_compensated, lasso_path,
     polish_lasso)
 from coordinatedescent_jl_tpu_torch.kernels import (  # noqa: E402
-    active_pass, check, gradient_sweep)
-from coordinatedescent_jl_tpu_torch.ops import block_cd  # noqa: E402
+    active_pass, check, gradient_sweep, union_fista)
+from coordinatedescent_jl_tpu_torch.ops import (  # noqa: E402
+    batched_certify, block_cd)
 
 pytestmark = pytest.mark.cuda
 
@@ -853,6 +854,7 @@ def test_batched_path_kernels_match_scan(dev):
     lams = lam_max * np.geomspace(0.5, 0.05, 20)
     opts = CDOptions(opt_tol=1e-6, randomize=False, compact_size=256)
     n0 = gradient_sweep.LAUNCHES_DENSE
+    u0 = union_fista.LAUNCHES
     st = {}
     with warnings.catch_warnings():
         warnings.simplefilter("error", RuntimeWarning)
@@ -862,6 +864,9 @@ def test_batched_path_kernels_match_scan(dev):
                         standardize_X=False, path_batch=128)
     assert st["used_batched"] and st["batched_certified"]
     assert gradient_sweep.LAUNCHES_DENSE > n0
+    # one union-fista launch a refine round, none from the plain run
+    assert st["refine_rounds"] >= 1
+    assert union_fista.LAUNCHES - u0 == st["refine_rounds"]
     ps = lasso_path(X, y, lams, options=opts, standardize_X=False,
                     path_batch=0)
     for other in (ps.beta_path, pp.beta_path):
@@ -870,6 +875,90 @@ def test_batched_path_kernels_match_scan(dev):
                                           > 1e-4)
         assert int(differ.sum()) == 0
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def _union_round(dev, dtype, k, Cp, B, n, seed=0):
+    """Lanes of one refine round over a union Gram of real Gaussian
+    columns: ``(Ks, thr, Bs0, cs0, cert)``, the last column a padded slot
+    (zero column, threshold ``finfo.max / 8``, coefficient 0), every 4th
+    lane certified, thresholds at each lane's 70-95 % quantile of |cs0| so
+    that a few percent of the coordinates enter."""
+    rng = np.random.default_rng(seed)
+    Xs = rng.standard_normal((n, Cp))
+    Xs[:, -1] = 0.0
+    R = rng.standard_normal((k, n))
+    Bs0 = rng.standard_normal((k, Cp)) * (rng.random((k, Cp)) < 0.05)
+    Bs0[:, -1] = 0.0
+    cs0 = R @ Xs
+    q = [np.quantile(np.abs(c[:-1]), u)
+         for c, u in zip(cs0, rng.uniform(0.7, 0.95, k))]
+    thr = np.asarray(q)[:, None] * (0.5 + rng.random((k, Cp)))
+    thr[:, -1] = torch.finfo(dtype).max / 8
+    cert = np.arange(k) % 4 == 1
+    t = [torch.as_tensor(a, dtype=dtype, device=dev)
+         for a in (Xs.T @ Xs, thr, Bs0, cs0)]
+    return (*t, torch.as_tensor(cert, device=dev))
+
+
+# (k, Cp, block, n, block_iters, sweeps): the CPU tests' case, and the
+# batched path's round in the lasso_path100 cell (98 lanes, compact_size
+# 1,024, blocks of 128, 16 steps, 8 sweeps) on n = 10,000 rows
+UNION_CASES = {"unit": (5, 48, 16, 50, 7, 3),
+               "cell": (98, 1024, 128, 10_000, 16, 8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(UNION_CASES))
+def test_union_fista_kernel_matches_twin(dev, dtype, case):
+    """The union-block FISTA kernel against its plain twin, on the card.
+    f64 within 1e-10 of max |bs|: the sums run in another order than
+    cuBLAS's, over 3-8 sweeps of dependent steps.  f32 within 1e-4 of max
+    |bs|: the same, at float32's rounding.  Certified lanes are ``Bs0``
+    bit for bit, the padded slot stays 0, one launch a call."""
+    k, Cp, B, n, iters, sweeps = UNION_CASES[case]
+    args = _union_round(dev, dtype, k, Cp, B, n)
+    opts = CDOptions(block_size=B, block_iters=iters)
+    before = union_fista.LAUNCHES
+    out = union_fista.fused_union_fista(*args, opts, n_sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert union_fista.LAUNCHES == before + 1
+    ref = batched_certify.union_block_fista_plain(*args, opts,
+                                                  n_sweeps=sweeps)
+    Bs0, cert = args[2], args[4]
+    assert torch.equal(out[cert], Bs0[cert])
+    assert torch.all(out[:, -1] == 0)
+    moved = ~cert & torch.any(ref != Bs0, dim=1)
+    assert bool(torch.all(moved == ~cert))
+    tol = (1e-10 if dtype == torch.float64 else 1e-4) * float(
+        ref.abs().max())
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    # the dispatcher takes the kernel under the mode rule, the twin with
+    # use_pallas=False
+    out2 = batched_certify.union_block_fista(*args, opts, n_sweeps=sweeps)
+    assert union_fista.LAUNCHES == before + 2 and torch.equal(out2, out)
+    batched_certify.union_block_fista(*args, opts.replace(use_pallas=False),
+                                      n_sweeps=sweeps)
+    assert union_fista.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("case", ["wide_block", "ragged", "strided"])
+def test_union_fista_kernel_refuses_other_shapes(dev, case):
+    """A block wider than 128, a ``Cp`` the block does not divide, and a
+    non-contiguous input raise before any launch."""
+    Ks, thr, Bs0, cs0, cert = _union_round(dev, torch.float32, 4, 256, 128,
+                                           300)
+    B = 128
+    if case == "wide_block":
+        B = 256
+    elif case == "ragged":
+        B = 96
+    else:
+        cs0 = cs0.T.contiguous().T
+    before = union_fista.LAUNCHES
+    with pytest.raises(ValueError, match="union-fista kernel"):
+        union_fista.fused_union_fista(Ks, thr, Bs0, cs0, cert,
+                                      CDOptions(block_size=B), n_sweeps=2)
+    assert union_fista.LAUNCHES == before
 
 
 def test_refit_lasso_path_runs_on_the_card(dev):
