@@ -36,6 +36,13 @@ read from L2 and the solve's chain of steps.
 launched the kernel (float64: the polishes' inner solves), and
 ``LAUNCHES_SHAPE[(kind, dtype is float64, n, cluster route)]`` the same
 launches by rows and route.  The plain twin never counts.
+
+While a profiler runs, each launch sits in the mark ``cdt#k1 n= B= iters=
+gram= x_item=`` (``utils/host.py``): ``iters`` the FISTA steps a block (0
+for the exact scan), ``gram`` whether the Grams are cached.  The mark
+keeps the ``active`` mask, and the blocks the pass visits (the active
+ones) are counted after the entry point returns, under ``k1`` in
+``cdt#counted``: no read during the solve.
 """
 
 from __future__ import annotations
@@ -256,16 +263,19 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
     lib = _build.library()
     fn = lib.cdt_active_pass_f32 if dt == torch.float32 else \
         lib.cdt_active_pass_f64
-    err = fn(Xb.data_ptr(), Xwb.data_ptr(),
-             None if Kb is None else Kb.data_ptr(),
-             prob.lamw.data_ptr(), border.data_ptr(), active.data_ptr(),
-             corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(),
-             rsqr.data_ptr(), op, op + nb * B * w, op + (nb * B + n) * w,
-             op + (nb * B + n + 1) * w, *part,
-             nb, n, B, plan.grid, plan.rows, int(plan.keep_x),
-             int(plan.keep_r), plan.smem, int(plan.cluster), _KINDS[kind],
-             int(inner == "ista"), int(iters), float(lam0), float(n_scale),
-             _build.stream(dev))
+    with host.mark("k1", later=active, n=n, B=B,
+                   iters=iters if inner == "ista" else 0, gram=int(gram),
+                   x_item=w):
+        err = fn(Xb.data_ptr(), Xwb.data_ptr(),
+                 None if Kb is None else Kb.data_ptr(),
+                 prob.lamw.data_ptr(), border.data_ptr(), active.data_ptr(),
+                 corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(),
+                 rsqr.data_ptr(), op, op + nb * B * w, op + (nb * B + n) * w,
+                 op + (nb * B + n + 1) * w, *part,
+                 nb, n, B, plan.grid, plan.rows, int(plan.keep_x),
+                 int(plan.keep_r), plan.smem, int(plan.cluster),
+                 _KINDS[kind], int(inner == "ista"), int(iters),
+                 float(lam0), float(n_scale), _build.stream(dev))
     _build.check(err, "active_pass")
     LAUNCHES_KIND[kind][dt == torch.float64] += 1
     LAUNCHES_SHAPE[kind, dt == torch.float64, n, plan.cluster] += 1

@@ -110,8 +110,11 @@ def _refine_chunk(X, y, lamw, adiag, xnorm, lam_k, B0, frozen,
             pri = union_priority(B, H, cert, hi)
             # lax.top_k breaks ties toward the lower index; so does the
             # first C of a stable descending sort (many columns have
-            # priority 0)
-            top = torch.sort(pri, descending=True, stable=True)[1][:C]
+            # priority 0).  The mark counts, later, the columns the union
+            # wants: a support column of an uncertified lane, or a
+            # violation above the noise floor
+            with host.mark("union", later=pri, cap=C):
+                top = torch.sort(pri, descending=True, stable=True)[1][:C]
             idx = torch.sort(top)[0]
             if Cp != C:   # pad slots: zero columns, pinned at zero below
                 idx = torch.cat([idx, torch.full((Cp - C,), p,

@@ -58,7 +58,21 @@ Marks are ranges around one launch or one copy that carry its shape, as
   instantiation on the card);
 - ``cdt#design_copy bytes=``: one copy of a design that a problem's
   set-up makes (a padding, a blockify, the weighted ``X·w``), with the
-  bytes it writes.
+  bytes it writes;
+- ``cdt#k1 n= B= iters= gram= x_item=``: one launch of the fused active
+  pass (``kernels/active_pass.py``); the blocks it visits are counted
+  later, under ``k1``;
+- ``cdt#union cap=``: one refine round's union selection
+  (``models/lasso_path.py::_refine_chunk``), with the union's capacity
+  ``compact_size``; the columns of positive union priority are counted
+  later, under ``union``;
+- ``cdt#counted <kind>=c,c,...``: what the marks above count later.  A
+  mark given ``later=flags`` keeps a reference to ``flags`` (a device
+  tensor nothing writes again) and adds no operation and no read there.
+  When the outermost :func:`spanned` call returns, the positive entries of
+  every kept tensor are counted together (a few operations and one read a
+  shape, not among the counted reads), and this range carries the counts,
+  each kind's in the order of its marks.
 """
 
 from __future__ import annotations
@@ -120,26 +134,72 @@ def span(name: str):
     return _range(SPAN_PREFIX + name)
 
 
+# the marks' tensors counted when the outermost spanned call returns, and
+# how many spanned calls are open under the profiler
+_LATER: list = []
+_DEPTH = [0]
+
+
 def spanned(name: str):
     """A decorator: each call of the function inside :func:`span`
-    ``(name)``."""
+    ``(name)``; under a profiler the outermost such call counts what the
+    marks inside it kept (``cdt#counted``) once its range has closed."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
-            with span(name):
+            if not profiling():
                 return fn(*args, **kwargs)
+            _DEPTH[0] += 1
+            try:
+                with _range(SPAN_PREFIX + name):
+                    return fn(*args, **kwargs)
+            finally:
+                _DEPTH[0] -= 1
+                if not _DEPTH[0]:
+                    _count_kept()
         return call
     return wrap
 
 
-def mark(kind: str, **attrs):
+def mark(kind: str, later=None, **attrs):
     """A context manager around one launch or one copy: the profiler range
     ``cdt#<kind> k=v ...`` while a profiler runs, a shared no-op
-    otherwise."""
+    otherwise.  ``later``: a 1-D device tensor whose positive entries the
+    range ``cdt#counted`` reports under ``kind`` when the outermost spanned
+    call returns (at once outside any)."""
     if not profiling():
         return _OFF
+    if later is not None:
+        _LATER.append((kind, later))
+        if not _DEPTH[0]:
+            _count_kept()
     return _range(MARK_PREFIX + kind
                   + "".join(f" {k}={v}" for k, v in attrs.items()))
+
+
+def _count_kept():
+    """Count the positive entries of the kept tensors, those of one shape
+    in one concatenation (a profiler records each operation on a tensor:
+    one a shape, not one a tensor), and open ``cdt#counted`` with the
+    counts."""
+    kept = _LATER[:]
+    _LATER.clear()
+    if not kept or not profiling():
+        return
+    shapes: dict = {}
+    for i, (_, t) in enumerate(kept):
+        shapes.setdefault((t.shape[0], t.dtype, t.device), []).append(i)
+    count = [0] * len(kept)
+    for (m, _, _), idx in shapes.items():
+        flags = torch.cat([kept[i][1] for i in idx]).view(len(idx), m) > 0
+        for i, c in zip(idx, torch.sum(flags, dim=1).tolist()):
+            count[i] = c
+    by_kind: dict = {}
+    for (kind, _), c in zip(kept, count):
+        by_kind.setdefault(kind, []).append(str(c))
+    with _range(MARK_PREFIX + "counted" + "".join(
+            f" {k}={','.join(v)}" for k, v in by_kind.items())):
+        pass
 
 
 def is_program_range(name: str) -> bool:
