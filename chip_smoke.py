@@ -80,8 +80,11 @@ Phases, each failing loudly (exit code 1, no result line):
       (``profile_paths.group_bench_problem``), ``group_lasso`` at
       0.3·group-λmax with ``opt_tol=1e-6, randomize=False``, kernels and
       plain: the same group support, no coordinate apart by more than
-      1e-4, K5 launched and no other kernel, the plain run launching
-      nothing; ``group_lasso_kkt_compensated`` of the solution;
+      1e-4, K5 and GP launched and no other kernel, GP once an active
+      pass, the plain run launching nothing; one active pass at that
+      shape from 0.9 x the solution, GP against its plain twin (the same
+      groups, β and r within 1e-5 relative), both times and its bound;
+      ``group_lasso_kkt_compensated`` of the solution;
       ``polish_group_lasso`` to a compensated per-group relative KKT
       <= 1e-7, converged, with K5's float64 form launched;
    i. ``symmetric_coordinate_descent`` at p = 128 (q = 8,256 packed
@@ -116,7 +119,7 @@ Phases, each failing loudly (exit code 1, no result line):
       iters 16 and 1 (at most 1.05 of the measured peak);
       ``scaled_lasso_with_trace`` at 4e's level (σ within 1e-6 relative of
       4e's); inside h, ``group_solve_with_trace`` on h's problem (h's
-      group support, K5 launched); ``debug_nans`` at n = 2,000, p = 4,096
+      group support, K5 and GP launched, no other kernel); ``debug_nans`` at n = 2,000, p = 4,096
       (a NaN in r raises out of K5 and out of K1, a clean ``lasso``
       passes, the mode is off afterwards).
    l. the multi-device tiers (``parallel/``): (a) a world of one rank on
@@ -129,7 +132,7 @@ Phases, each failing loudly (exit code 1, no result line):
       ``lasso_path_resumable_sharded`` over 20 points interrupted at 10 and
       resumed bit for bit; inside h, ``group_lasso_sharded`` with h's group
       support; each launches K1 (in its form) and K5, the f32 ls runs K3
-      and K4, the group run K5 only; (b) two Gloo ranks spawned on this
+      and K4, the group run K5 and GP only; (b) two Gloo ranks spawned on this
       card (time-sliced: no scaling), at p = 20,000: ``lasso_sharded``, a
       20-point ``lasso_path_sharded`` and ``lasso_row_sharded`` in the
       world of one's supports, ``lasso_lambda_batch`` at 4 λ within 1e-6
@@ -335,10 +338,11 @@ def main():
                                                             active_pass,
                                                             check,
                                                             gradient_sweep,
+                                                            group_pass,
                                                             union_fista)
         from coordinatedescent_jl_tpu_torch.models import polish as pol
         from coordinatedescent_jl_tpu_torch.ops import (batched_certify,
-                                                        block_cd)
+                                                        block_cd, group_cd)
         from coordinatedescent_jl_tpu_torch.profile_paths import (
             bench_problem, group_bench_problem, launch_counts,
             reset_launch_counts, vc_bench_problem)
@@ -2018,10 +2022,29 @@ def main():
                                                 options=gp.opts))
         t_h = min(t_h, t)
     launches_h, reads_h = counts(), dict(host.COUNTS)
-    require_launches("group_lasso", launches_h, ("K5",),
-                     never=[k for k in launches_h if k != "K5"])
+    require_launches("group_lasso", launches_h, ("K5", "GP"),
+                     never=[k for k in launches_h if k not in ("K5", "GP")])
     add(launches_h)
     finite("group_lasso", sol_h.x, Xg.shape[1])
+    # one GP launch an active pass: the engine's passes counted apart
+    passes = [0]
+    pass_fn = group_cd._group_active_pass
+
+    def counted_pass(*a, **kw):
+        passes[0] += 1
+        return pass_fn(*a, **kw)
+
+    group_cd._group_active_pass = counted_pass
+    try:
+        reset_counts()
+        tcd.group_lasso(Xg, yg, lam_h, Gg, options=gp.opts)
+    finally:
+        group_cd._group_active_pass = pass_fn
+    n_gp = counts()["GP"]
+    log(f"group_lasso: {passes[0]} active passes, GP launched {n_gp} times")
+    if not passes[0] or n_gp != passes[0]:
+        fail(f"group_lasso: GP launched {n_gp} times in {passes[0]} active "
+             "passes")
     reset_counts()
     sol_hp, t_hp = wall(lambda: tcd.group_lasso(
         Xg, yg, lam_h, Gg, options=gp.opts.replace(use_pallas=False)))
@@ -2045,13 +2068,63 @@ def main():
     if not kkt_h <= 1e-3:
         fail(f"group_lasso: compensated relative KKT {kkt_h:.3e} above 1e-3")
     del sol_hp
+    # one active pass at the cell's shape (n = 10,000, B = 128, G = 8) from
+    # 0.9 x the solution: GP against its plain twin (the same groups, within
+    # 1e-5 of max |beta| and of max |r|), both times and its bound
+    ng_h = -(-Xg.shape[1] // Gg)
+    prob_h = group_cd._build_group_problem(
+        Xg, yg, torch.ones((ng_h,), device=dev), Gg)
+    nb_h, B_h = prob_h.valid.shape
+    beta_h = torch.nn.functional.pad(0.9 * sol_h.x, (0, nb_h * B_h
+                                                     - Xg.shape[1]))
+    st_h = group_cd._group_init(prob_h, beta_h.reshape(nb_h, B_h), None)
+    coefs_h = group_cd._fista_coefs(gp.opts.block_iters, torch.float32)
+    n_h = float(Xg.shape[0])
+    order_h = torch.arange(nb_h, device=dev)
+
+    def gp_kernel():
+        return group_pass.fused_group_pass(prob_h, st_h.beta, st_h.r,
+                                           st_h.active, lam_h, n_h, order_h,
+                                           coefs_h)
+
+    def gp_plain():
+        s2, mh = group_cd._group_active_pass_plain(prob_h, st_h, lam_h, n_h,
+                                                   False, coefs_h)
+        return s2.beta, s2.r, mh
+
+    (bk_h, rk_h, mk_h), (bp_h, rp_h, mp_h) = gp_kernel(), gp_plain()
+    a_h = int(host.item(torch.sum(st_h.active)))
+    zk = torch.any(bk_h.reshape(-1, Gg) != 0, dim=1)
+    zp = torch.any(bp_h.reshape(-1, Gg) != 0, dim=1)
+    err_b = maxdiff(bk_h, bp_h) / max(float(bp_h.abs().max()), 1e-30)
+    err_r = maxdiff(rk_h, rp_h) / max(float(rp_h.abs().max()), 1e-30)
+    ms = cuda_ms(gp_kernel, 20)
+    pms = cuda_ms(gp_plain, 3)
+    _, names, dms = one_call(gp_kernel)
+    dms = dms if names else None
+    it_h = len(coefs_h)
+    report("GP", "group pass", max(err_b, err_r), 1e-5, ms, pms,
+           f"n={Xg.shape[0]}, B={B_h}, G={Gg}, {a_h} of {nb_h} blocks "
+           f"active, {it_h} steps; relative to max |beta|, max |r|; maxh "
+           f"{float(mk_h):.4e} vs {float(mp_h):.4e}; device (with the "
+           "threshold table's three elementwise ops) "
+           + ("not measured" if dms is None else f"{dms:.4f} ms"),
+           4 * (a_h * (Xg.shape[0] * B_h + B_h * B_h) + 2 * nb_h * B_h
+                + 2 * Xg.shape[0]),
+           a_h * (4 * Xg.shape[0] * B_h + 2 * (it_h + 1) * B_h * B_h),
+           device_ms=dms)
+    if not ok or not torch.equal(zk, zp):
+        fail("group_pass disagrees with its plain twin")
+    del prob_h, st_h, beta_h, bk_h, rk_h, bp_h, rp_h
+    torch.cuda.empty_cache()
     # 4k, inside 4h: the per-epoch group trace on 4h's problem (K5 its full
     # sweeps and certificates)
     reset_counts()
     (b_gt, tr_g), t_gt = wall(lambda: tcd.group_solve_with_trace(
         Xg, yg, lam_h, Gg, options=gp.opts))
     launches_gt = counts()
-    require_launches("group_solve_with_trace", launches_gt, ("K5",))
+    require_launches("group_solve_with_trace", launches_gt, ("K5", "GP"),
+                     never=[k for k in launches_gt if k not in ("K5", "GP")])
     add(launches_gt)
     grp_t = torch.nonzero(torch.any(b_gt.reshape(-1, Gg) != 0,
                                     dim=1)).flatten()
@@ -2070,8 +2143,8 @@ def main():
     sol_gl, t_gl = wall(lambda: par.group_lasso_sharded(
         Xg, yg, lam_h, Gg, pdist.feature_mesh(), options=gp.opts))
     launches_gl = counts()
-    require_launches("group_lasso_sharded", launches_gl, ("K5",),
-                     never=[k for k in launches_gl if k != "K5"])
+    require_launches("group_lasso_sharded", launches_gl, ("K5", "GP"),
+                     never=[k for k in launches_gl if k not in ("K5", "GP")])
     add(launches_gl)
     grp_l = torch.nonzero(torch.any(sol_gl.x.reshape(-1, Gg) != 0,
                                     dim=1)).flatten()
@@ -2370,6 +2443,10 @@ def main():
                         "round)", "union_fista.cu",
                         "none: coordinatedescent_jl_tpu/ops/"
                         "batched_certify.py:union_block_fista is a lax.scan"),
+        "GP": ("fused_group_pass (the group engine's active pass)",
+               "group_pass.cu",
+               "none: coordinatedescent_jl_tpu/ops/group_cd.py's visit runs "
+               "outside Pallas"),
         "K1wls_vc": ("fused_active_pass (wls, n = 500: the small-n regime, "
                      "one cluster)",
                      "active_pass.cu",

@@ -76,6 +76,10 @@ _SIGNATURES = {
     # Ks, thr, Bs0, cs0, cert, mom, out, k, Cp, B, iters, n_sweeps, vec,
     # smem, stream
     "cdt_union_fista": [_P] * 7 + [_I] * 7 + [_P],
+    # X, Xw, Kb, Lb, thr, valid, border, active, mom, beta_in, r_in,
+    # beta_out, r_out, maxh, part_c, nb, n, B, G, grid, rows, keep_x,
+    # keep_r, iters, wls, smem, stream
+    "cdt_group_pass": [_P] * 15 + [_I] * 11 + [_P],
 }
 
 _lib = None

@@ -16,16 +16,20 @@ by the order-independent group-KKT full sweep.
 What differs from the JAX engine:
 
 - Control flow runs on the host, as in ``ops/block_cd.py``: the epoch loop
-  reads ``maxh`` once an epoch, an active pass reads the active mask once
-  and loops over the active blocks only, the sqrt kind's MM loop reads its
-  certificate once a round; every read is counted (``utils/host.py``).
+  reads ``maxh`` once an epoch, the plain active pass reads the active mask
+  once and loops over the active blocks only, the sqrt kind's MM loop reads
+  its certificate once a round; every read is counted (``utils/host.py``).
 - The FISTA momentum coefficients ``(t_k − 1)/t_{k+1}`` depend on no data:
   they are computed once on the host in the solve's dtype, so a visit reads
   nothing to the host.
 - The full sweeps ``c = Xw'r`` (the full check and ``λmax``) go through the
   dense sweep kernel K5 (``kernels/gradient_sweep.py``) when the kernels
-  are on, else its plain twin; the block visit is plain PyTorch (the JAX
-  engine runs it outside any Pallas kernel too).
+  are on, else its plain twin.  An active pass is one launch of the group
+  pass kernel GP (``kernels/group_pass.py``) when the kernels are on and a
+  block has at most 128 lanes, which walks the visit order on the device
+  and reads nothing to the host; else the plain twin
+  ``_group_active_pass_plain``, a host loop of eager visits (the JAX
+  engine runs its visit outside any Pallas kernel).
 - Visit orders for ``randomize=True`` come from a ``torch.Generator``.
 """
 
@@ -43,6 +47,7 @@ from .block_cd import (_blockify_cols, _block_grams, _blocks_matvec, _eps,
                        noise_floor_mask)
 from .losses import LeastSquaresLoss, SqrtLassoLoss, WeightedLSLoss
 from .prox import ProxL1Group, group_soft_threshold
+from ..kernels import group_pass
 from ..utils import host
 from ..utils.helpers import on_device, sample_std, target_device
 from ..utils.options import CDOptions, use_kernels
@@ -160,9 +165,31 @@ def _block_visit(K, c0, beta0, L, thr, k: int, G: int, coefs):
 
 
 def _group_active_pass(prob: GroupProblem, st: GroupState, lam0, n_scale,
-                       randomize: bool, coefs):
-    """One Gauss-Seidel pass over the active blocks, ``k`` groups a visit.
-    Reads the active mask to the host once; the visits read nothing."""
+                       randomize: bool, coefs, kernels: bool = False):
+    """One Gauss-Seidel pass over the active blocks, ``k`` groups a visit:
+    one launch of the group pass kernel when ``kernels`` (the mode rule's
+    answer, ``use_kernels``) and a block has at most 128 lanes, reading
+    nothing to the host; else :func:`_group_active_pass_plain`.  Both draw
+    the randomized order from ``st.key`` alike."""
+    nb, B = prob.valid.shape
+    if not kernels or B > group_pass.MAX_B:
+        return _group_active_pass_plain(prob, st, lam0, n_scale, randomize,
+                                        coefs)
+    dev = st.beta.device
+    order = (torch.randperm(nb, generator=st.key).to(dev) if randomize
+             else torch.arange(nb, device=dev))
+    beta, r, maxh = group_pass.fused_group_pass(prob, st.beta, st.r,
+                                                st.active, lam0, n_scale,
+                                                order, coefs)
+    return st._replace(beta=beta, r=r,
+                       active=torch.any(beta != 0, dim=1)), maxh
+
+
+def _group_active_pass_plain(prob: GroupProblem, st: GroupState, lam0,
+                             n_scale, randomize: bool, coefs):
+    """The plain twin of the group pass kernel: a host loop over the active
+    blocks.  Reads the active mask to the host once; the visits read
+    nothing."""
     nb, B = prob.valid.shape
     k = prob.lamw.shape[1]
     G = B // k
@@ -243,7 +270,7 @@ def _group_solve_at_lambda(opts: CDOptions, prob: GroupProblem, lam0,
                                              opts.opt_tol, kernels)
             else:
                 s2, maxh = _group_active_pass(prob, st, lam0, n_scale,
-                                              opts.randomize, coefs)
+                                              opts.randomize, coefs, kernels)
             maxh = host.item(maxh)
         conv = maxh < tol
         if was_full:

@@ -1,12 +1,12 @@
 """Feature-sharded group-coordinate descent (counterpart of
 ``coordinatedescent_jl_tpu/parallel/sharded_group.py``): whole groups
 partitioned over ``mesh[axis]``, ``y`` and the residual replicated, exact
-group-block CD within a shard (the port's plain ``_group_active_pass``,
-as in ``ops/group_cd.py``), block-Jacobi across shards merged by one
-residual psum, the step safeguarded (``t = 1`` against ``t = 1/D`` on the
-global group-lasso objective) with the exact group-sparsity snap, and
-convergence declared by the group-KKT full sweep (K5 on the card) with
-its certificate max-reduced.  Host control flow as in ``sharded_cd.py``;
+group-block CD within a shard (the port's ``_group_active_pass``, as in
+``ops/group_cd.py``: the group pass kernel on the card), block-Jacobi
+across shards merged by one residual psum, the step safeguarded (``t = 1``
+against ``t = 1/D`` on the global group-lasso objective) with the exact
+group-sparsity snap, and convergence declared by the group-KKT full sweep
+(K5 on the card) with its certificate max-reduced.  Host control flow as in ``sharded_cd.py``;
 ``_pmax_scalar``'s all_gather workaround is dropped there too.
 """
 
@@ -40,12 +40,15 @@ def _group_norms(beta, k: int, G: int):
 
 
 def _sharded_group_active_pass(prob, st: GroupState, lam0, n_scale,
-                               randomize, coefs, sh: Shard, w, opt_tol):
+                               randomize, coefs, kernels: bool, sh: Shard, w,
+                               opt_tol):
     """One concurrent pass: exact sequential group-block CD within each
-    shard against the replicated residual, block-Jacobi across shards,
-    one residual psum + objective safeguard + exact group-zero snap."""
+    shard against the replicated residual (the group pass kernel when
+    ``kernels``), block-Jacobi across shards, one residual psum + objective
+    safeguard + exact group-zero snap."""
     r0, beta0 = st.r, st.beta
-    st2, maxh = _group_active_pass(prob, st, lam0, n_scale, randomize, coefs)
+    st2, maxh = _group_active_pass(prob, st, lam0, n_scale, randomize, coefs,
+                                   kernels)
     dbeta = st2.beta - beta0
     dr = psum(st2.r - r0, sh.group)
     maxh = pmax(maxh, sh.group)
@@ -104,8 +107,8 @@ def _sharded_group_solve_at_lambda(opts: CDOptions, prob, lam0,
             maxh = pmax(maxh, sh.group)
         else:
             s2, maxh = _sharded_group_active_pass(
-                prob, st, lam0, n_scale, opts.randomize, coefs, sh, w,
-                opts.opt_tol)
+                prob, st, lam0, n_scale, opts.randomize, coefs, kernels, sh,
+                w, opts.opt_tol)
         maxh = host.item(maxh)
         conv = maxh < tol
         if was_full:

@@ -165,7 +165,7 @@ def group_bench_problem(dev, n: int = 10_000, p: int = 100_000, G: int = 8,
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counter, by the names ``chip_smoke.py``
     reports them under."""
-    from .kernels import active_pass, check, union_fista
+    from .kernels import active_pass, check, group_pass, union_fista
     from .kernels import gradient_sweep as gs
 
     k1 = active_pass.LAUNCHES_KIND
@@ -173,11 +173,11 @@ def launch_counts() -> dict:
             "K1sqrt": k1["sqrt"][0], "K1sqrt_f64": k1["sqrt"][1],
             "K2": gs.LAUNCHES, "K3": check.LAUNCHES_A, "K4": check.LAUNCHES_B,
             "K5": gs.LAUNCHES_DENSE, "K5f64": gs.LAUNCHES_F64,
-            "union_fista": union_fista.LAUNCHES}
+            "union_fista": union_fista.LAUNCHES, "GP": group_pass.LAUNCHES}
 
 
 def reset_launch_counts():
-    from .kernels import active_pass, check, union_fista
+    from .kernels import active_pass, check, group_pass, union_fista
     from .kernels import gradient_sweep as gs
 
     for by_dtype in active_pass.LAUNCHES_KIND.values():
@@ -185,6 +185,7 @@ def reset_launch_counts():
     gs.LAUNCHES = gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
     check.LAUNCHES_A = check.LAUNCHES_B = 0
     union_fista.LAUNCHES = 0
+    group_pass.LAUNCHES = 0
     for by_shape in (active_pass.LAUNCHES_SHAPE, check.LAUNCHES_SHAPE,
                      gs.LAUNCHES_DENSE_SHAPE):
         by_shape.clear()

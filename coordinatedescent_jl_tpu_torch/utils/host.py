@@ -62,6 +62,9 @@ Marks are ranges around one launch or one copy that carry its shape, as
 - ``cdt#k1 n= B= iters= gram= x_item=``: one launch of the fused active
   pass (``kernels/active_pass.py``); the blocks it visits are counted
   later, under ``k1``;
+- ``cdt#group_pass n= B= G= iters= x_item=``: one launch of the group
+  engine's active pass (``kernels/group_pass.py``), ``iters`` the FISTA
+  steps a visit;
 - ``cdt#union cap=``: one refine round's union selection
   (``models/lasso_path.py::_refine_chunk``), with the union's capacity
   ``compact_size``; the columns of positive union priority are counted
@@ -72,7 +75,9 @@ Marks are ranges around one launch or one copy that carry its shape, as
   When the outermost :func:`spanned` call returns, the positive entries of
   every kept tensor are counted together (a few operations and one read a
   shape, not among the counted reads), and this range carries the counts,
-  each kind's in the order of its marks.
+  each kind's in the order of its marks.  Outside any spanned call a mark
+  keeps nothing: a bare launch under a profiler stays one launch with no
+  read, and no count.
 """
 
 from __future__ import annotations
@@ -166,13 +171,12 @@ def mark(kind: str, later=None, **attrs):
     ``cdt#<kind> k=v ...`` while a profiler runs, a shared no-op
     otherwise.  ``later``: a 1-D device tensor whose positive entries the
     range ``cdt#counted`` reports under ``kind`` when the outermost spanned
-    call returns (at once outside any)."""
+    call returns (kept only inside one: outside, counting would add
+    operations and a read to the launch)."""
     if not profiling():
         return _OFF
-    if later is not None:
+    if later is not None and _DEPTH[0]:
         _LATER.append((kind, later))
-        if not _DEPTH[0]:
-            _count_kept()
     return _range(MARK_PREFIX + kind
                   + "".join(f" {k}={v}" for k, v in attrs.items()))
 

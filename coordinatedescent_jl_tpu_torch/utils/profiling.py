@@ -400,7 +400,8 @@ def group_solve_with_trace(X, y, lam, group_size: int, weights=None,
                            device=None):
     """Group-lasso solve instrumented per epoch (the group engine's
     full-sweep / active-pass alternation, ``ops/group_cd.py``; the full
-    sweeps on K5 when the kernels are on).  The certificate is the max
+    sweeps on K5 and the passes on the group pass kernel when the kernels
+    are on).  The certificate is the max
     group-KKT violation ``max_g max(‖X_g'r‖₂/(n·ω_g) − λ, 0)``, its
     ``X'r`` the dense sweep's (K5 on the card; never ``torch.einsum``,
     which copies the blocked design).  Returns ``(beta, EpochTrace)``."""
@@ -435,7 +436,8 @@ def group_solve_with_trace(X, y, lam, group_size: int, weights=None,
                                              options.opt_tol, kernels)
             else:
                 st, maxh = _group_active_pass(prob, st, lam, n_scale,
-                                              options.randomize, coefs)
+                                              options.randomize, coefs,
+                                              kernels)
             return maxh
 
         def record(maxh):

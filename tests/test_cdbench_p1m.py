@@ -232,9 +232,8 @@ def test_k1_mark_only_under_a_profiler(fake_k1, recorded, no_ranges):
     reads = host.COUNTS["host_reads"]
     _, names = recorded(launch)
     assert len(calls) == 2
-    # outside any entry point the visited blocks are counted at once
-    assert names == ["cdt#counted k1=2",
-                     "cdt#k1 n=40 B=128 iters=16 gram=1 x_item=4"]
+    # outside any entry point the mark keeps nothing: no count, no read
+    assert names == ["cdt#k1 n=40 B=128 iters=16 gram=1 x_item=4"]
     assert host.COUNTS["host_reads"] == reads
 
 

@@ -1028,9 +1028,10 @@ def _launches():
 def test_group_engine_kernels_match_plain(dev, G):
     """The group engine on the card: its full sweeps launch K5 at block
     width B = 125, 128 and 130 (K5 held against its twin at that width
-    too), never K1-K4; the plain run (``use_pallas=False``) launches
-    nothing and reaches the same group support; p = 3127 leaves a ragged
-    tail group."""
+    too), its active passes the group pass kernel GP where B <= 128 (G = 5
+    and 8; at G = 130 the plain twin), never K1-K4; the plain run
+    (``use_pallas=False``) launches nothing and reaches the same group
+    support; p = 3127 leaves a ragged tail group."""
     from coordinatedescent_jl_tpu_torch import group_lasso
     from coordinatedescent_jl_tpu_torch.ops import group_cd
 
@@ -1053,8 +1054,9 @@ def test_group_engine_kernels_match_plain(dev, G):
     sol_p = group_lasso(X, y, lam, G, options=opts.replace(use_pallas=False))
     after = _launches()
     ran = {k: mid[k] - before[k] for k in mid}
-    assert ran["K5"] > 0, ran
-    assert all(v == 0 for k, v in ran.items() if k != "K5"), ran
+    launched = ("K5", "GP") if B <= 128 else ("K5",)
+    assert all(ran[k] > 0 for k in launched), ran
+    assert all(v == 0 for k, v in ran.items() if k not in launched), ran
     assert after == mid
     a, b = sol.x, sol_p.x
     assert a.is_cuda and a.dtype == torch.float32
@@ -1062,6 +1064,126 @@ def test_group_engine_kernels_match_plain(dev, G):
     assert int((((a != 0) != (b != 0)) & big).sum()) == 0
     assert int((a != 0).sum()) >= G
     torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def _group_pass_case(dev, dtype, G, kind, seed=0, p=None, zero_weight=False,
+                     none_active=False):
+    """A group problem and a mid-solve state for one active pass: n = 300,
+    five blocks of B = k·G lanes (``p`` columns: a ragged tail group where
+    G does not divide it), random group weights (one set to 0 with
+    ``zero_weight``), about a third of the groups non-zero, every block
+    but one active (none with ``none_active``), λ0 at 0.2 of the group
+    λmax.  Returns ``(prob, st, lam0, n_scale)``."""
+    from coordinatedescent_jl_tpu_torch.ops import group_cd
+
+    rng = np.random.default_rng(seed)
+    n, B = 300, group_cd._block_width(G)
+    p = 5 * B if p is None else p
+    ng = -(-p // G)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    X = rng.standard_normal((n, p))
+    y = X[:, :3 * G] @ rng.standard_normal(3 * G) + rng.standard_normal(n)
+    lamw = 0.5 + rng.random(ng)
+    if zero_weight:
+        lamw[1] = 0.0
+    w = t(0.5 + rng.random(n)) if kind == "wls" else None
+    prob = group_cd._build_group_problem(t(X), t(y), t(lamw), G, w)
+    nb, Bp = prob.valid.shape
+    on = np.repeat(rng.random(nb * Bp // G) < 0.35, G)
+    beta = t(rng.standard_normal(nb * Bp) * on).reshape(nb, Bp) * prob.valid
+    st = group_cd._group_init(prob, beta.contiguous(),
+                              torch.Generator().manual_seed(seed))
+    act = torch.ones(nb, dtype=torch.bool, device=dev)
+    act[2] = False
+    if none_active:
+        act[:] = False
+    st = st._replace(active=act)
+    n_scale = (torch.sqrt(torch.clamp_min(torch.dot(st.r, st.r), 1e-30))
+               if kind == "sqrt" else float(n))
+    c = group_cd._full_sweep(prob, prob.y, False)
+    cg = torch.where(prob.valid, c, 0.0).reshape(nb, Bp // G, G)
+    lmax = torch.linalg.vector_norm(cg, dim=2) / (
+        n_scale * torch.clamp_min(prob.lamw, 1e-30))
+    return prob, st, 0.2 * float(lmax.max()), n_scale
+
+
+def _hold_group_pass(prob, st, lam0, n_scale, randomize, G):
+    """The engine's kernel pass against ``_group_active_pass_plain`` on the
+    same state and the same draws of the order: one launch, no host read,
+    the same zero / non-zero groups, β, r and maxh within the dtype's
+    tolerance of each one's largest magnitude (float32 1e-5: sums in
+    another order through 16 dependent steps; float64 1e-12), and a second
+    launch on the same inputs bit for bit the first."""
+    from coordinatedescent_jl_tpu_torch.kernels import group_pass
+    from coordinatedescent_jl_tpu_torch.ops import group_cd
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    dtype = st.beta.dtype
+    coefs = group_cd._fista_coefs(16, dtype)
+    seed_state = st.key.get_state()
+    launches, reads = group_pass.LAUNCHES, host.COUNTS["host_reads"]
+    sk, mk = group_cd._group_active_pass(prob, st, lam0, n_scale, randomize,
+                                         coefs, True)
+    assert group_pass.LAUNCHES == launches + 1
+    assert host.COUNTS["host_reads"] == reads
+    st.key.set_state(seed_state)
+    sp, mp = group_cd._group_active_pass_plain(prob, st, lam0, n_scale,
+                                               randomize, coefs)
+    st.key.set_state(seed_state)
+    sk2, mk2 = group_cd._group_active_pass(prob, st, lam0, n_scale,
+                                           randomize, coefs, True)
+    assert (torch.equal(sk.beta, sk2.beta) and torch.equal(sk.r, sk2.r)
+            and torch.equal(mk, mk2))
+    assert sk.beta.is_cuda and sk.beta.dtype == dtype
+
+    def groups(b):
+        return torch.any(b.reshape(-1, G) != 0, dim=1)
+
+    assert torch.equal(groups(sk.beta), groups(sp.beta))
+    assert torch.equal(sk.active, sp.active)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    bmax = float(sp.beta.abs().max())
+    for a, b in ((sk.beta, sp.beta), (sk.r, sp.r), (mk, mp)):
+        scale = bmax if a is mk else float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=tol * max(scale, 1e-30))
+    return sk, sp, mk
+
+
+@pytest.mark.parametrize("randomize", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ls", "wls", "sqrt"])
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 16, 128])
+def test_group_pass_kernel_matches_twin(dev, G, kind, dtype, randomize):
+    """GP against the plain twin at every group width the kernel takes:
+    groups within a warp's coordinates (G = 1, 4, 8: the shuffle norm) and
+    across warps (G = 5, 16, 128: the shared-memory norm; B = 125 at G =
+    5), each kind, both dtypes, the order drawn or in sequence."""
+    prob, st, lam0, n_scale = _group_pass_case(dev, dtype, G, kind, seed=G)
+    sk, _, _ = _hold_group_pass(prob, st, lam0, n_scale, randomize, G)
+    assert not torch.equal(sk.beta, st.beta)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["zero_weight", "ragged_tail", "no_active"])
+def test_group_pass_kernel_edge_cases(dev, case, dtype):
+    """GP against the plain twin with a zero-weight group (its prox the
+    identity), with a ragged tail group (p = 5·125 − 3 at G = 5: the last
+    group holds 2 real columns, the padded lanes stay 0), and with no
+    active block (one launch that leaves β and r as they were, maxh 0)."""
+    G = 5 if case == "ragged_tail" else 8
+    prob, st, lam0, n_scale = _group_pass_case(
+        dev, dtype, G, "ls", seed=3, p=622 if case == "ragged_tail" else None,
+        zero_weight=case == "zero_weight", none_active=case == "no_active")
+    sk, _, mk = _hold_group_pass(prob, st, lam0, n_scale, False, G)
+    assert torch.equal(torch.where(prob.valid, sk.beta, 0.0), sk.beta)
+    if case == "no_active":
+        assert torch.equal(sk.beta, st.beta) and torch.equal(sk.r, st.r)
+        assert float(mk) == 0.0
+    if case == "zero_weight":
+        assert float(prob.lamw[0, 1]) == 0.0
 
 
 def test_polish_group_lasso_on_the_card(dev):
