@@ -343,6 +343,7 @@ def main():
         from coordinatedescent_jl_tpu_torch.models import polish as pol
         from coordinatedescent_jl_tpu_torch.ops import (batched_certify,
                                                         block_cd, group_cd)
+        from coordinatedescent_jl_tpu_torch.ops.prox import fista_momentum
         from coordinatedescent_jl_tpu_torch.profile_paths import (
             bench_problem, group_bench_problem, launch_counts,
             reset_launch_counts, vc_bench_problem)
@@ -2078,7 +2079,7 @@ def main():
     beta_h = torch.nn.functional.pad(0.9 * sol_h.x, (0, nb_h * B_h
                                                      - Xg.shape[1]))
     st_h = group_cd._group_init(prob_h, beta_h.reshape(nb_h, B_h), None)
-    coefs_h = group_cd._fista_coefs(gp.opts.block_iters, torch.float32)
+    coefs_h = fista_momentum(gp.opts.block_iters, torch.float32)
     n_h = float(Xg.shape[0])
     order_h = torch.arange(nb_h, device=dev)
 

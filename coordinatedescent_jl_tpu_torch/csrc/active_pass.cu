@@ -32,10 +32,8 @@
 //     arrive, with nothing to release, at the hardware cluster barrier
 //     once done with the partials and the Gram, and wait for it as the
 //     next visit starts, by when it is complete (no CTA overwrites or
-//     leaves what another still reads).  The FISTA momentum sequence (the
-//     same at every visit) is read from a table computed once per device
-//     by the cooperative route's own expressions, off the step's chain;
-// Both routes:
+//     leaves what another still reads);
+// Both routes (the visit skeleton, common.cuh, shared with GP):
 //   - the visit order is found on the device: every CTA walks `border` and
 //     takes the next block whose `active` flag is set (a warp ballot over
 //     32 entries at a time, during the previous visit's residual update),
@@ -57,7 +55,9 @@
 //     in the same order, the same Gram (from L2: the working set's 8 Grams
 //     are 512 KB) and the same code give every CTA a bit-identical d, so
 //     one barrier per visit suffices and no CTA waits for a published d;
-//     FISTA with a Gershgorin step (inner = ista): a warp owns 8
+//     FISTA with a Gershgorin step (inner = ista; the momentum sequence,
+//     the same at every visit, read from the host's table `mom`, a load
+//     off the step's chain): a warp owns 8
 //     coordinates and holds their Gram columns in registers for the whole
 //     solve (read once from L2), each lane 4 rows; a step reads the
 //     extrapolated point once per warp (one 16-byte load a lane, distinct
@@ -119,17 +119,14 @@ namespace cg = cooperative_groups;
 
 namespace cdt {
 
-constexpr int AP_THREADS = 512;  // the solve: 128 coordinates x AP_QUAD
+// The CTA is common.cuh's DOT_THREADS: the solve's DOT_MAXB coordinates x
+// AP_QUAD threads.
 constexpr int AP_QUAD = 4;       // threads per coordinate in the solve
-constexpr int AP_UNROLL = 4;     // 16-byte loads in flight per thread
-constexpr int MAXB = 128;        // widest block the kernel takes
 constexpr int AP_NVEC = 9;       // B-long vectors in shared memory
 constexpr int AP_KCH = 8;        // partial-Gram columns per sweep of rows
 constexpr int AP_GBATCH = 4;     // Gram loads in flight per thread
-constexpr int AP_CBATCH = 8;     // partial-c loads in flight per thread
 constexpr int AP_RS = 24;        // slot of `red` that holds the running
                                  // ||r||^2 (block reductions use 0..15)
-constexpr int AP_MOM = 256;      // FISTA momentum coefficients in the table
 constexpr int KIND_LS = 0, KIND_WLS = 1, KIND_SQRT = 2;
 
 // The Gram in shared memory: row l starts at l ld + V ((l / 4) % 8), ld =
@@ -171,10 +168,10 @@ __host__ __device__ inline ApLayout ap_layout(int B, int rows, int keep_x,
   constexpr int V = vec_of<T>();
   ApLayout L;
   int o = 0;
-  L.scr = o;  o += AP_THREADS * V;                 // see above
+  L.scr = o;  o += DOT_THREADS * V;                // see above
   L.pc = o;   o += cl ? 2 * B : 0;                 // partial c, 2 parities
   L.prs = o;  o += cl ? 2 * V : 0;                 // partial ||r||^2, mbarrier
-  L.ks = o;   o += cl && !gram ? (ks_per(B, G) + V - 1) / V * V : 0;
+  L.ks = o;   o += cl && !gram ? vec_up<T>(ks_per(B, G)) : 0;
   L.xs = o;   o += keep_x ? rows * B : 0;          // the kept rows of X_b
   L.K = o;    o += B * gram_ld<T>(B);              // the block's Gram
   L.vecs = o; o += AP_NVEC * B;                    // c, beta0, lamw, ...
@@ -198,16 +195,16 @@ __device__ __forceinline__ void load_gram(T* dst, const T* src, int B, int ld,
   if (vec) {
     const int nch = B * B / V;
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    for (int c0 = tid; c0 < nch; c0 += AP_GBATCH * AP_THREADS) {
+    for (int c0 = tid; c0 < nch; c0 += AP_GBATCH * DOT_THREADS) {
       uint4 u[AP_GBATCH];
 #pragma unroll
       for (int j = 0; j < AP_GBATCH; ++j) {
-        const int c = c0 + j * AP_THREADS;
+        const int c = c0 + j * DOT_THREADS;
         if (c < nch) u[j] = coherent ? __ldcg(s4 + c) : __ldg(s4 + c);
       }
 #pragma unroll
       for (int j = 0; j < AP_GBATCH; ++j) {
-        const int c = c0 + j * AP_THREADS;
+        const int c = c0 + j * DOT_THREADS;
         if (c < nch) {
           const int l = c * V / B;
           *reinterpret_cast<uint4*>(dst + grow<T>(l, ld) + (c * V - l * B)) = u[j];
@@ -216,16 +213,16 @@ __device__ __forceinline__ void load_gram(T* dst, const T* src, int B, int ld,
     }
   } else {
     const int BB = B * B;
-    for (int e0 = tid; e0 < BB; e0 += AP_GBATCH * AP_THREADS) {
+    for (int e0 = tid; e0 < BB; e0 += AP_GBATCH * DOT_THREADS) {
       T u[AP_GBATCH];
 #pragma unroll
       for (int j = 0; j < AP_GBATCH; ++j) {
-        const int e = e0 + j * AP_THREADS;
+        const int e = e0 + j * DOT_THREADS;
         if (e < BB) u[j] = coherent ? __ldcg(src + e) : __ldg(src + e);
       }
 #pragma unroll
       for (int j = 0; j < AP_GBATCH; ++j) {
-        const int e = e0 + j * AP_THREADS;
+        const int e = e0 + j * DOT_THREADS;
         if (e < BB) dst[grow<T>(e / B, ld) + e % B] = u[j];
       }
     }
@@ -240,7 +237,7 @@ __device__ __forceinline__ void prefetch_gram(T* dst, const T* src, int B,
                                               int ld) {
   constexpr int V = vec_of<T>();
   const int nch = B * B / V;
-  for (int c = threadIdx.x; c < nch; c += AP_THREADS) {
+  for (int c = threadIdx.x; c < nch; c += DOT_THREADS) {
     const int l = c * V / B;
     const unsigned sa = (unsigned)__cvta_generic_to_shared(
         dst + grow<T>(l, ld) + (c * V - l * B));
@@ -253,94 +250,6 @@ __device__ __forceinline__ void prefetch_gram(T* dst, const T* src, int B,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The FISTA momentum step t -> (1 + sqrt(1 + 4 t^2)) / 2, one expression
-// for both routes (the same rounding wherever it is evaluated).
-template <typename T>
-__device__ __forceinline__ T fista_t(T tt) {
-  return T(0.5) * (T(1) + sqrt(T(1) + T(4) * tt * tt));
-}
-
-// The cluster route's momentum table: the coefficients (t_k - 1) / t_{k+1}
-// of the first AP_MOM steps, and at [AP_MOM] the t before step AP_MOM.  The
-// sequence is the same at every visit of every pass, so it is computed
-// once per device (momentum_kernel, at the first cluster launch) by the
-// cooperative route's own expressions, and a step reads its coefficient
-// (a load that depends on no data, issued ahead of the step's chain)
-// instead of two square roots and a division.
-__device__ float ap_mom_f32[AP_MOM + 1];
-__device__ double ap_mom_f64[AP_MOM + 1];
-__device__ __forceinline__ float* mom_table(float) { return ap_mom_f32; }
-__device__ __forceinline__ double* mom_table(double) { return ap_mom_f64; }
-
-template <typename T>
-__global__ void momentum_kernel() {
-  T* mom = mom_table(T(0));
-  // step it's t is f^(it+1)(1) and its successor f^(it+2)(1)
-  T tp = T(1), tt = fista_t(T(1));
-  for (int it = 0; it < AP_MOM; ++it) {
-    const T tn = fista_t(tt);
-    mom[it] = (tt - T(1)) / tn;
-    tp = tt;
-    tt = tn;
-  }
-  mom[AP_MOM] = tp;
-}
-
-// Builds the table on the current device once (then waits for it, once,
-// so that a launch on any stream finds it).
-template <typename T>
-cudaError_t momentum_ready(cudaStream_t s) {
-  static std::mutex mu;
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  if (done[dev]) return cudaSuccess;
-  momentum_kernel<T><<<1, 1, 0, s>>>();
-  e = cudaGetLastError();
-  if (e == cudaSuccess) e = cudaStreamSynchronize(s);
-  if (e == cudaSuccess) done[dev] = true;
-  return e;
-}
-
-// V elements at p (16-byte aligned) in or out of shared memory.
-template <typename T>
-__device__ __forceinline__ void lds16(const T* p, T (&v)[vec_of<T>()]) {
-  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
-}
-template <typename T>
-__device__ __forceinline__ void sts16(T* p, const T (&v)[vec_of<T>()]) {
-  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
-}
-
-// Warp 0: the next active block in border order after hdr[0] (a ballot
-// over 32 entries at a time) into hdr[1] (-1 past the end); every CTA
-// walks the same order.
-__device__ __forceinline__ void find_next(int* hdr, const long long* border,
-                                          const unsigned char* active,
-                                          int nb) {
-  const int lane = threadIdx.x & 31;
-  int cur = hdr[0], blk = -1;
-  while (cur < nb) {
-    const int i = cur + lane;
-    const unsigned m = __ballot_sync(FULL, i < nb && active[border[i]]);
-    if (m) {
-      const int f = __ffs(m) - 1;
-      blk = (int)border[cur + f];
-      cur += f + 1;
-      break;
-    }
-    cur += 32;
-  }
-  __syncwarp();
-  if (lane == 0) {
-    hdr[0] = cur;
-    hdr[1] = blk;
-  }
 }
 
 // Barrier of the first 4 warps only (the exact scan's 128 threads).
@@ -408,13 +317,14 @@ __device__ __forceinline__ T sqrt_candidate(T bk, T ck, T a, T lam, T lod,
 // CLUSTER: the cluster route (the G CTAs are one cluster; part_c, part_rs,
 // part_k and kred unused), else the cooperative route.
 template <typename T, int KIND, bool CLUSTER>
-__global__ void __launch_bounds__(AP_THREADS, 1)
+__global__ void __launch_bounds__(DOT_THREADS, 1)
 active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
                    const T* __restrict__ Kb, const T* __restrict__ lamw,
                    const long long* __restrict__ border,
                    const unsigned char* __restrict__ active,
                    const long long* __restrict__ corder,
-                   const T* __restrict__ beta_in, const T* __restrict__ r_in,
+                   const T* __restrict__ mom, const T* __restrict__ beta_in,
+                   const T* __restrict__ r_in,
                    const T* __restrict__ rsqr_in, T* beta_out, T* r_out,
                    T* maxh_out, T* rsqr_out, T* part_c, T* part_rs,
                    T* part_k, T* kred, int nb, int n, int B, int rows,
@@ -441,7 +351,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   const ApLayout Ly = ap_layout<T>(B, rows, keep_x, keep_r, CLUSTER, gram,
                                    gridDim.x);
   const int ld = gram_ld<T>(B);
-  T* scr = base + Ly.scr;
+  T* scr = base + Ly.scr;   // DOT_THREADS x V
   T* PC = base + Ly.pc;    // cluster route: this CTA's partial c's, by parity
   T* PRS = base + Ly.prs;  // ... its partial ||r||^2, by parity
   T* KS = base + Ly.ks;    // ... its slice of the summed Gram
@@ -450,9 +360,9 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   unsigned long long* gbar =
       reinterpret_cast<unsigned long long*>(PRS + vec_of<T>());
   unsigned gph = 0;
-  T* Y0 = scr;          // the solve's two MAXB-long vectors, over the
-  T* Y1 = scr + MAXB;   // row-group sums
-  T* LD = scr + 2 * MAXB;  // the sqrt scan's lam / sqrt(1 - lam^2 / a)
+  T* Y0 = scr;              // the solve's two DOT_MAXB-long vectors, over
+  T* Y1 = scr + DOT_MAXB;   // the row-group sums
+  T* LD = scr + 2 * DOT_MAXB;  // the sqrt scan's lam / sqrt(1 - lam^2 / a)
   T* xs = base + Ly.xs;
   T* K = base + Ly.K;
   T* c = base + Ly.vecs;
@@ -485,9 +395,6 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   // multicast to the cluster), under the sweep and the barrier
   const bool pre = gram && gvec;
   const int BB = B * B;
-  const int CL = (B + V - 1) / V;  // column lanes of the row sweep
-  const int RG = AP_THREADS / CL;  // row groups
-  const int cl = tid % CL, rg = tid / CL;
   const int k = tid / AP_QUAD, q = tid % AP_QUAD;  // the FISTA roles
   const bool own = k < B;
   const bool lead = own && q == 0;  // writes coordinate k
@@ -495,10 +402,10 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
 
   // beta_out starts as beta_in (the first barrier orders this copy before
   // CTA 0 writes any visited block); r from r_in, own rows
-  for (size_t e = (size_t)g * AP_THREADS + tid; e < (size_t)nb * B;
-       e += (size_t)G * AP_THREADS)
+  for (size_t e = (size_t)g * DOT_THREADS + tid; e < (size_t)nb * B;
+       e += (size_t)G * DOT_THREADS)
     beta_out[e] = beta_in[e];
-  for (int i = tid; i < nr; i += AP_THREADS) rl[i] = r_in[row0 + i];
+  for (int i = tid; i < nr; i += DOT_THREADS) rl[i] = r_in[row0 + i];
   if (tid < B) CO[tid] = T(corder[tid]);
   if (tid == 0) {
     hdr[0] = 0;
@@ -514,7 +421,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   // before the first arrive on another CTA's mbarrier)
   if constexpr (CLUSTER) cluster_arrive_relaxed();
   __syncthreads();
-  if (w == 0) find_next(hdr, border, active, nb);
+  if (w == 0) next_active_block(hdr, border, active, nb);
 
   T mh_all = T(0);
   int t = 0;
@@ -548,64 +455,22 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     // 1. this CTA's partial c over its rows (kept in shared memory when
     //    planned), and without a Gram its partial Gram
     {
-      T acc[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = T(0);
-      if (rg < RG) {
-        for (int i = rg; i < nr; i += RG * AP_UNROLL) {
-          T x[AP_UNROLL][V];
-          // wls: the unweighted rows beside the weighted, to be kept
-          T xu[WLS ? AP_UNROLL : 1][V];
-#pragma unroll
-          for (int u = 0; u < AP_UNROLL; ++u) {
-            const int ii = i + u * RG;
-            if (ii < nr) {
-              load_chunk(Xwb + (size_t)(row0 + ii) * B, cl * V, B, vec, x[u]);
-              if (WLS && keep_x)
-                load_chunk(Xb + (size_t)(row0 + ii) * B, cl * V, B, vec,
-                           xu[WLS ? u : 0]);
-            } else {
-#pragma unroll
-              for (int e = 0; e < V; ++e) x[u][e] = T(0);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < AP_UNROLL; ++u) {
-            const int ii = i + u * RG;
-            if (ii < nr) {
-              T* xd = xs + (size_t)ii * B + cl * V;
-              const T(&xk)[V] = WLS ? xu[WLS ? u : 0] : x[u];
-              if (keep_x && vec) {
-                sts16(xd, xk);
-              } else if (keep_x) {
-#pragma unroll
-                for (int e = 0; e < V; ++e)
-                  if (cl * V + e < B) xd[e] = xk[e];
-              }
-              const T rv = rl[ii];
-#pragma unroll
-              for (int e = 0; e < V; ++e) acc[e] += x[u][e] * rv;
-            }
-          }
-        }
-      }
-      if (!CLUSTER && pre) prefetch_gram(K, Kb + (size_t)b * BB, B, ld);
-      sts16(scr + tid * V, acc);
-      __syncthreads();
-      if (tid < B) {
-        const int cc = tid / V, ee = tid % V;
-        T s = T(0);
-        for (int qq = 0; qq < RG; ++qq) s += scr[(qq * CL + cc) * V + ee];
-        if constexpr (CLUSTER)
-          PC[par * B + tid] = s;
-        else
-          part_c[((size_t)par * G + g) * B + tid] = s;
-      }
+      partial_c<T, WLS>(
+          Xwb, Xb, rl, xs, scr, row0, nr, B, keep_x, vec,
+          [&] {
+            if (!CLUSTER && pre) prefetch_gram(K, Kb + (size_t)b * BB, B, ld);
+          },
+          [&](int j, T s) {
+            if constexpr (CLUSTER)
+              PC[par * B + j] = s;
+            else
+              part_c[((size_t)par * G + g) * B + j] = s;
+          });
       if (!gram) {
         // thread (row l = tid / 4, quarter) sums K[l, q + 4 j] over the
         // CTA's rows (interleaved columns: the quarters hit other banks),
         // AP_KCH columns per sweep of the rows to bound the registers
-        for (int j0 = 0; j0 < MAXB / AP_QUAD; j0 += AP_KCH) {
+        for (int j0 = 0; j0 < DOT_MAXB / AP_QUAD; j0 += AP_KCH) {
           T kacc[AP_KCH];
 #pragma unroll
           for (int j = 0; j < AP_KCH; ++j) kacc[j] = T(0);
@@ -662,7 +527,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     const int per = ks_per(B, G);
     if (!gram) {
       const int e0 = g * per, e1 = min(e0 + per, BB);
-      for (int eb = e0; eb < e1; eb += AP_THREADS / AP_QUAD) {
+      for (int eb = e0; eb < e1; eb += DOT_THREADS / AP_QUAD) {
         const int e = eb + tid / AP_QUAD;
         T s = T(0);
         if (e < e1) {
@@ -689,9 +554,8 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     }
 
     // 3. the block's Gram (prefetched, from kred, or from the CTAs' KS);
-    //    c, the G partials added in a fixed order: with 16-byte loads,
-    //    thread (column group, subset s) sums CTAs s, s + S, ... in order,
-    //    then the S subsets in order; beta0, lamw; the solve's vectors
+    //    c, the G partials added in a fixed order; beta0, lamw; the solve's
+    //    vectors
     if (pre) {
       if constexpr (CLUSTER) {
         mbar_wait(gbar, gph);   // the multicast rows are in
@@ -700,68 +564,23 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
         cp_async_wait_all();
       }
     } else if (CLUSTER && !gram) {
-      for (int e = tid; e < BB; e += AP_THREADS) {
+      for (int e = tid; e < BB; e += DOT_THREADS) {
         const int o = e / per;
         K[grow<T>(e / B, ld) + e % B] = peer(KS, o)[e - o * per];
       }
     } else {
       load_gram(K, gram ? Kb + (size_t)b * BB : kred, B, ld, gvec, !gram);
     }
-    // partial c of CTA gg (the cluster route: in that CTA's shared memory)
-    auto pc = [&](int gg) -> const T* {
-      if constexpr (CLUSTER)
-        return peer(PC + par * B, gg);
-      else
-        return part_c + ((size_t)par * G + gg) * B;
-    };
-    if (vec) {
-      const int CG = B / V, S = AP_THREADS / CG;
-      const int cgi = tid % CG, s = tid / CG;
-      T acc[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = T(0);
-      if (s < S) {
-        for (int g0 = s; g0 < G; g0 += S * AP_CBATCH) {
-          T v[AP_CBATCH][V];
-#pragma unroll
-          for (int j = 0; j < AP_CBATCH; ++j) {
-            const int gg = g0 + S * j;
-            if (gg < G) {
-              const uint4* src =
-                  reinterpret_cast<const uint4*>(pc(gg) + cgi * V);
-              uint4 u;
-              if constexpr (CLUSTER)
-                u = *src;
-              else
-                u = __ldcg(src);
-              memcpy(&v[j][0], &u, 16);
-            } else {
-#pragma unroll
-              for (int e = 0; e < V; ++e) v[j][e] = T(0);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < AP_CBATCH; ++j)
-#pragma unroll
-            for (int e = 0; e < V; ++e) acc[e] += v[j][e];
-        }
-      }
-      sts16(scr + tid * V, acc);
-      __syncthreads();
-      if (tid < B) {
-        T cs = T(0);
-        for (int ss = 0; ss < S; ++ss)
-          cs += scr[(ss * CG + tid / V) * V + tid % V];
-        c[tid] = cs;
-      }
-    } else if (tid < B) {
-      T cs = T(0);
-      for (int gg = 0; gg < G; ++gg)
-        cs += CLUSTER ? pc(gg)[tid] : __ldcg(pc(gg) + tid);
-      c[tid] = cs;
-    }
-    __syncthreads();  // the sums of c are read out of scr, which Y0 and
-                      // Y1 overlay
+    // partial c of CTA gg (the cluster route: in that CTA's shared memory;
+    // the sums of c are read out of scr, which Y0 and Y1 overlay)
+    sum_partials<T, CLUSTER>(
+        [&](int gg) -> const T* {
+          if constexpr (CLUSTER)
+            return peer(PC + par * B, gg);
+          else
+            return part_c + ((size_t)par * G + gg) * B;
+        },
+        G, B, vec, scr, c);
     // sqrt + ista: ||r||^2 as the previous visit left it, the G partials
     // added in the same order in every CTA
     if (SQRT && ista && t > 0 && w == 0) {
@@ -772,8 +591,8 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
       s = warp_sum(s);
       if (lane == 0) red[AP_RS] = s;
     }
-    // Y0 = beta0 and Y1 = 0 past B (the FISTA product reads all MAXB)
-    if (tid < MAXB) {
+    // Y0 = beta0 and Y1 = 0 past B (the FISTA product reads all DOT_MAXB)
+    if (tid < DOT_MAXB) {
       const T bk = tid >= B ? T(0)
                    : CLUSTER ? bk_pre : beta_in[(size_t)b * B + tid];
       if (tid < B) {
@@ -826,12 +645,8 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
       const T thr = own ? ts * lw[k] / L : T(0);
       const T q0 = (own ? c[k] : T(0)) + warp_dot(Y0, kc);
       T dk = own ? b0[k] : T(0), dpk = dk;
-      // the cluster route reads the first AP_MOM steps' momentum from its
-      // table (the steps past it go on from the t the table ends with)
-      const T* mom = mom_table(T(0));
-      const int m = CLUSTER ? min(iters, AP_MOM) : 0;
-      T tt = CLUSTER && m < iters ? mom[AP_MOM] : T(1);
       for (int it = 0; it < iters; ++it) {
+        const T coef = mom[it + 1];  // the next step's point's coefficient
         const T* Yc = (it & 1) ? Y1 : Y0;
         T* Yn = (it & 1) ? Y0 : Y1;
         const T s = warp_dot(Yc, kc);
@@ -839,14 +654,6 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
           const T dn = soft(Yc[k] + (q0 - s) / L, thr);
           dpk = dk;
           dk = dn;
-        }
-        T coef;
-        if (it < m) {
-          coef = mom[it];
-        } else {
-          tt = fista_t(tt);
-          const T tn = fista_t(tt);
-          coef = (tt - T(1)) / tn;
         }
         if (lead) Yn[k] = dk + coef * (dk - dpk);
         __syncthreads();
@@ -870,7 +677,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
         DD[k] = df - b0[k];
       }
       mh = block_max(own ? tabs(df - b0[k]) : T(0), red);
-    } else if (tid < MAXB) {
+    } else if (tid < DOT_MAXB) {
       // exact sequential scan in corder via c <- c - K[kk, :] h, on the
       // first 4 warps (thread k owns coordinate k); c and beta
       // double-buffered, so each coordinate costs one 128-thread barrier
@@ -949,34 +756,11 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
 
     // 5. r -= X_b d over this CTA's rows, one warp per row; warp 0 first
     //    finds the next visit's block, its loads under the other warps' rows
-    if (w == 0) find_next(hdr, border, active, nb);
+    if (w == 0) next_active_block(hdr, border, active, nb);
     T rsacc = T(0);  // sqrt + ista: this warp's share of the new ||r||^2
-    for (int i = w; i < nr; i += AP_THREADS / 32) {
-      T s = T(0);
-      for (int k0 = lane * V; k0 < B; k0 += 32 * V) {
-        T x[V], dd[V];
-        if (keep_x && vec) {
-          lds16(xs + (size_t)i * B + k0, x);
-        } else if (keep_x) {
-          load_chunk_shared(xs + (size_t)i * B, k0, B, x);
-        } else {
-          load_chunk(Xb + (size_t)(row0 + i) * B, k0, B, vec, x);
-        }
-        if (vec) {
-          lds16(DD + k0, dd);
-        } else {
-          load_chunk_shared(DD, k0, B, dd);
-        }
-#pragma unroll
-        for (int e = 0; e < V; ++e) s += x[e] * dd[e];
-      }
-      s = warp_sum(s);
-      if (lane == 0) {
-        const T rn = rl[i] - s;
-        rl[i] = rn;
-        if (SQRT) rsacc += rn * rn;
-      }
-    }
+    update_rows(rl, xs, Xb, DD, row0, nr, B, keep_x, vec, [&](T rn) {
+      if (SQRT) rsacc += rn * rn;
+    });
     if (SQRT && ista) {
       // this CTA's sum of squares, for the next visit's (parity's) threshold
       const T tot = block_sum(rsacc, red);
@@ -992,7 +776,7 @@ active_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   }
   AP_STAMP_IF(6, true)
   if (keep_r)
-    for (int i = tid; i < nr; i += AP_THREADS) r_out[row0 + i] = rl[i];
+    for (int i = tid; i < nr; i += DOT_THREADS) r_out[row0 + i] = rl[i];
   if (g == 0 && tid == 0) *maxh_out = mh_all;
   // cluster route: the last visit's partials are read (a CTA's shared
   // memory lives as long as the CTA), or with no visit the start phase
@@ -1029,19 +813,22 @@ inline auto cluster_kernel(int kind) {
                              : active_pass_kernel<T, KIND_LS, true>;
 }
 
+// `mom`: the momentum coefficients of iters + 1 FISTA steps (ista only;
+// step it reads entry it + 1, the next step's).
 template <typename T>
 int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
                 const long long* border, const unsigned char* active,
-                const long long* corder, const T* beta_in, const T* r_in,
+                const long long* corder, const T* mom, const T* beta_in,
+                const T* r_in,
                 const T* rsqr_in, T* beta_out, T* r_out, T* maxh,
                 T* rsqr_out, T* part_c, T* part_rs, T* part_k, T* kred,
                 int nb, int n, int B, int grid, int rows, int keep_x,
                 int keep_r, int smem, int cluster, int kind, int ista,
                 int iters, double lam0, double nsc, cudaStream_t s) {
   const bool gram = Kb != nullptr;
-  if (B < 1 || B > MAXB || nb < 1 || n < 1 || grid < 1 || rows < 1 ||
+  if (B < 1 || B > DOT_MAXB || nb < 1 || n < 1 || grid < 1 || rows < 1 ||
       (long long)grid * rows < n || kind < KIND_LS || kind > KIND_SQRT ||
-      !Xw || !rsqr_in || !rsqr_out ||
+      !Xw || !rsqr_in || !rsqr_out || (ista && iters > 0 && !mom) ||
       (cluster ? grid > MAX_CLUSTER
                : (!part_c || !part_rs || (!gram && (!part_k || !kred)))))
     return (int)cudaErrorInvalidValue;
@@ -1049,16 +836,13 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
       ap_layout<T>(B, rows, keep_x, keep_r, cluster, gram, grid).bytes)
     return (int)cudaErrorInvalidValue;
   T tl = T(lam0), tn = T(nsc);
-  cudaError_t e;
   if (cluster) {
     // one cluster of `grid` CTAs; a refused launch is the caller's error
-    e = momentum_ready<T>(s);
-    if (e != cudaSuccess) return (int)e;
-    e = launch_clusters(cluster_kernel<T>(kind), grid, AP_THREADS,
-                        (size_t)smem, grid, s, X, Xw, Kb, lamw, border,
-                        active, corder, beta_in, r_in, rsqr_in, beta_out,
-                        r_out, maxh, rsqr_out, part_c, part_rs, part_k, kred,
-                        nb, n, B, rows, keep_x, keep_r, ista, iters, tl, tn);
+    const cudaError_t e = launch_clusters(
+        cluster_kernel<T>(kind), grid, DOT_THREADS, (size_t)smem, grid, s, X,
+        Xw, Kb, lamw, border, active, corder, mom, beta_in, r_in, rsqr_in,
+        beta_out, r_out, maxh, rsqr_out, part_c, part_rs, part_k, kred, nb, n,
+        B, rows, keep_x, keep_r, ista, iters, tl, tn);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
@@ -1067,21 +851,14 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
       : kind == KIND_SQRT
           ? (const void*)active_pass_kernel<T, KIND_SQRT, false>
           : (const void*)active_pass_kernel<T, KIND_LS, false>;
-  // the grid must be co-resident (a plain launch of too large a grid
-  // would hang at the first barrier; the cooperative launch refuses it)
-  int resident = 0;
-  e = resident_ctas(kern, AP_THREADS, (size_t)smem, &resident);
-  if (e != cudaSuccess) return (int)e;
-  if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&X,       &Xw,      &Kb,     &lamw,     &border, &active,
-                  &corder,  &beta_in, &r_in,   &rsqr_in,  &beta_out, &r_out,
-                  &maxh,    &rsqr_out, &part_c, &part_rs, &part_k, &kred,
-                  &nb,      &n,       &B,      &rows,     &keep_x, &keep_r,
-                  &ista,    &iters,   &tl,     &tn};
-  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(AP_THREADS), args,
-                                  (size_t)smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  void* args[] = {&X,        &Xw,     &Kb,       &lamw,   &border,
+                  &active,   &corder, &mom,      &beta_in, &r_in,
+                  &rsqr_in,  &beta_out, &r_out,  &maxh,   &rsqr_out,
+                  &part_c,   &part_rs, &part_k,  &kred,   &nb,
+                  &n,        &B,      &rows,     &keep_x, &keep_r,
+                  &ista,     &iters,  &tl,       &tn};
+  return (int)launch_cooperative(kern, grid, DOT_THREADS, (size_t)smem, args,
+                                 s);
 }
 
 // The launch-latency probe (kernel_ab.py --small): a kernel of K1's CTA
@@ -1091,11 +868,11 @@ int active_pass(const T* X, const T* Xw, const T* Kb, const T* lamw,
 // route's kind, launched on `grid` CTAs as each route launches K1 (the
 // cooperative route with its residency query).
 template <bool CLUSTER>
-__global__ void __launch_bounds__(AP_THREADS, 1)
+__global__ void __launch_bounds__(DOT_THREADS, 1)
 probe_kernel(int barriers, const uint4* __restrict__ src, int n16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint4* dst = reinterpret_cast<uint4*>(smem_raw);
-  for (int i = threadIdx.x; i < n16; i += AP_THREADS) dst[i] = __ldg(src + i);
+  for (int i = threadIdx.x; i < n16; i += DOT_THREADS) dst[i] = __ldg(src + i);
   if (n16) __syncthreads();
   for (int i = 0; i < barriers; ++i) {
     if constexpr (CLUSTER)
@@ -1111,20 +888,14 @@ inline int probe_launch(int cluster, int grid, int smem, int barriers,
     return (int)cudaErrorInvalidValue;
   const uint4* src4 = (const uint4*)src;
   int n16 = bytes / 16;
-  cudaError_t e;
-  if (cluster) {
-    e = launch_clusters(probe_kernel<true>, grid, AP_THREADS, (size_t)smem,
-                        grid, s, barriers, src4, n16);
-  } else {
-    const void* kern = (const void*)probe_kernel<false>;
-    int resident = 0;
-    e = resident_ctas(kern, AP_THREADS, (size_t)smem, &resident);
-    if (e != cudaSuccess) return (int)e;
-    if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (!cluster) {
     void* args[] = {&barriers, &src4, &n16};
-    e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(AP_THREADS), args,
-                                    (size_t)smem, s);
+    return (int)launch_cooperative((const void*)probe_kernel<false>, grid,
+                                   DOT_THREADS, (size_t)smem, args, s);
   }
+  const cudaError_t e =
+      launch_clusters(probe_kernel<true>, grid, DOT_THREADS, (size_t)smem,
+                      grid, s, barriers, src4, n16);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1153,13 +924,14 @@ extern "C" int cdt_probe_launch(int cluster, int grid, int smem, int barriers,
     if (kind < cdt::KIND_LS || kind > cdt::KIND_SQRT || smem < 0)          \
       return (int)cudaErrorInvalidValue;                                   \
     return (int)cdt::active_clusters(                                      \
-        (const void*)cdt::cluster_kernel<T>(kind), cdt::AP_THREADS,        \
+        (const void*)cdt::cluster_kernel<T>(kind), cdt::DOT_THREADS,       \
         (size_t)smem, cluster, (int*)count);                               \
   }                                                                        \
   extern "C" int cdt_active_pass_##SUFFIX(                                    \
       const void* X, const void* Xw, const void* Kb, const void* lamw,        \
       const void* border, const void* active, const void* corder,             \
-      const void* beta_in, const void* r_in, const void* rsqr_in,             \
+      const void* mom, const void* beta_in, const void* r_in,                 \
+      const void* rsqr_in,                                                    \
       void* beta_out, void* r_out, void* maxh, void* rsqr_out, void* part_c,  \
       void* part_rs, void* part_k, void* kred, int nb, int n, int B,          \
       int grid, int rows, int keep_x, int keep_r, int smem, int cluster,      \
@@ -1167,7 +939,8 @@ extern "C" int cdt_probe_launch(int cluster, int grid, int smem, int barriers,
     return cdt::active_pass<T>(                                               \
         (const T*)X, (const T*)Xw, (const T*)Kb, (const T*)lamw,              \
         (const long long*)border, (const unsigned char*)active,               \
-        (const long long*)corder, (const T*)beta_in, (const T*)r_in,          \
+        (const long long*)corder, (const T*)mom, (const T*)beta_in,           \
+        (const T*)r_in,                                                       \
         (const T*)rsqr_in, (T*)beta_out, (T*)r_out, (T*)maxh, (T*)rsqr_out,   \
         (T*)part_c, (T*)part_rs, (T*)part_k, (T*)kred, nb, n, B, grid, rows,  \
         keep_x, keep_r, smem, cluster, kind, ista, iters, lam0, nsc,          \

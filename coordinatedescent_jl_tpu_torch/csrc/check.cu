@@ -527,18 +527,9 @@ int launch_check(int phase_b, CheckArgs a, int grid, int cta,
     return (int)cudaGetLastError();
   }
   if (grid < 1 || a.part == nullptr) return (int)cudaErrorInvalidValue;
-  // the grid must be co-resident (a plain launch of too large a grid
-  // would hang at the barrier; the cooperative launch refuses it)
-  const void* kern = check_kernel(phase_b);
-  int resident = 0;
-  cudaError_t e = resident_ctas(kern, CK_THREADS, 0, &resident);
-  if (e != cudaSuccess) return (int)e;
-  if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(CK_THREADS), args, 0,
-                                  st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch_cooperative(check_kernel(phase_b), grid, CK_THREADS, 0,
+                                 args, st);
 }
 
 }  // namespace cdt

@@ -1,11 +1,14 @@
 // Shared device helpers of the hand-written kernels: warp/block reductions
 // in a fixed order (so every result is deterministic, with no atomics),
 // the soft threshold, the restricted gradient sweep's row-chunk dot
-// product c = Xw_b' r, 16-byte loads with a masked scalar fallback, the
-// cached residency query the launchers size their grids by, and the
-// thread-block cluster's barrier, distributed shared memory, launch and
-// occupancy query, and the FISTA block product from Gram columns held in
-// registers (K1's solve and the union-block round).
+// product c = Xw_b' r, 16-byte loads with a masked scalar fallback and the
+// layouts' rounding to them, the cached residency query and the
+// cooperative launch behind it, the thread-block cluster's barrier,
+// distributed shared memory, launch and occupancy query, the FISTA block
+// product from Gram columns held in registers (K1's solve, GP's and the
+// union-block round), and the visit skeleton K1 and GP share: the walk of
+// the visit order, the row sweep of the partial c, the fixed-order sum of
+// the CTAs' partials and the residual update.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -139,6 +142,23 @@ inline cudaError_t resident_ctas(const void* kern, int threads, size_t smem,
   *ctas = per_sm * sms;
   if (used < 64) cache[used++] = Entry{kern, dev, smem, *ctas};
   return cudaSuccess;
+}
+
+// Launches `kern` on `grid` CTAs of `threads` threads (`smem` bytes of
+// dynamic shared memory each) with its `args`, as one cooperative grid on
+// stream `s`.  The grid must be co-resident: a plain launch of too large a
+// grid would hang at its first grid barrier, and this one is refused.
+inline cudaError_t launch_cooperative(const void* kern, int grid, int threads,
+                                      size_t smem, void** args,
+                                      cudaStream_t s) {
+  int resident = 0;
+  cudaError_t e = resident_ctas(kern, threads, smem, &resident);
+  if (e != cudaSuccess) return e;
+  if (resident < grid) return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), args, smem,
+                                  s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // Thread-block clusters (sm_90).  The cluster barrier, split into its
@@ -367,6 +387,13 @@ inline cudaError_t active_clusters(const void* kern, int threads, size_t smem,
 template <typename T>
 __host__ __device__ constexpr int vec_of() { return 16 / (int)sizeof(T); }
 
+// x rounded up to whole 16-byte chunks of T (the shared-memory layouts
+// start every array 16-byte aligned)
+template <typename T>
+__host__ __device__ constexpr int vec_up(int x) {
+  return (x + vec_of<T>() - 1) / vec_of<T>() * vec_of<T>();
+}
+
 // The V = 16 / sizeof(T) elements row[k0 .. k0 + V) of a row `width`
 // long, zero past its end: one 16-byte load when `vec` (the caller has
 // checked that the row and k0 are 16-byte aligned and that width is a
@@ -397,7 +424,22 @@ __device__ __forceinline__ void load_chunk_shared(const T* row, int k0,
     v[e] = k0 + e < width ? row[k0 + e] : T(0);
 }
 
-// The FISTA product of K1 and of the union-block round over one warp's 8
+// V elements at p (16-byte aligned) in or out of shared memory.
+template <typename T>
+__device__ __forceinline__ void lds16(const T* p, T (&v)[vec_of<T>()]) {
+  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void sts16(T* p, const T (&v)[vec_of<T>()]) {
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+}
+
+// The CTA of warp_dot's layout (K1, GP and the union-block round): 128
+// coordinates, 4 threads each.
+constexpr int DOT_THREADS = 512;
+constexpr int DOT_MAXB = 128;
+
+// The FISTA product of K1, GP and the union-block round over one warp's 8
 // coordinates k = 8 w + c (c < 8) of a block of at most 128:
 // lane L holds K[4 L + i, 8 w + c] (i < 4) in registers for the whole
 // solve and reads v[4 L .. 4 L + 3] (one 16-byte load in float: every
@@ -441,6 +483,215 @@ __device__ __forceinline__ T warp_dot(const T* v, const T (&kc)[4][8]) {
     for (int i = 1; i < 4; ++i) p[c] += w[i] * kc[i][c];
   }
   return warp_cols(p);
+}
+
+// The visit skeleton of K1 (active_pass.cu) and GP (group_pass.cu): a pass
+// over the active blocks by a grid of DOT_THREADS-thread CTAs, CTA g
+// owning nr rows of r from row0 (`rl`: in its shared memory, or its rows
+// of the output), each visit's (n, B) blocks X_b (the residual's) and Xw_b
+// (the gradient's: X_b itself but for the weighted kind) read with 16-byte
+// loads where `vec` (both designs and B * sizeof(T) 16-byte aligned), else
+// masked scalar loads.
+constexpr int VISIT_UNROLL = 4;  // 16-byte row loads in flight per thread
+constexpr int VISIT_CBATCH = 8;  // partial-c loads in flight per thread
+
+// Warp 0: the next active block in border order after hdr[0] (a ballot
+// over 32 entries at a time) into hdr[1] (-1 past the end); every CTA
+// walks the same order, and the host reads nothing.
+__device__ __forceinline__ void next_active_block(int* hdr,
+                                                  const long long* border,
+                                                  const unsigned char* active,
+                                                  int nb) {
+  const int lane = threadIdx.x & 31;
+  int cur = hdr[0], blk = -1;
+  while (cur < nb) {
+    const int i = cur + lane;
+    const unsigned m = __ballot_sync(FULL, i < nb && active[border[i]]);
+    if (m) {
+      const int f = __ffs(m) - 1;
+      blk = (int)border[cur + f];
+      cur += f + 1;
+      break;
+    }
+    cur += 32;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    hdr[0] = cur;
+    hdr[1] = blk;
+  }
+}
+
+// A visit's first phase: this CTA's partial sums of c = Xw_b' r over its
+// rows.  Thread (column chunk cl, row group rg) sums V columns over rows
+// rg, rg + RG, ..., VISIT_UNROLL rows in flight, and with keep_x stores
+// the rows of X_b into xs as it goes (WLS: the unweighted rows, loaded
+// beside the weighted).  mid() runs once the sweep is done (K1 issues its
+// Gram's prefetch there); then the row groups' sums meet in scr (16-byte
+// aligned, DOT_THREADS x V) and are added in group order, and put(j, s)
+// takes column j's partial, j < B.
+template <typename T, bool WLS, typename Mid, typename Put>
+__device__ __forceinline__ void partial_c(const T* Xwb, const T* Xb,
+                                          const T* rl, T* xs, T* scr,
+                                          int row0, int nr, int B,
+                                          int keep_x, bool vec, Mid mid,
+                                          Put put) {
+  constexpr int V = vec_of<T>();
+  const int tid = threadIdx.x;
+  const int CL = (B + V - 1) / V;  // column chunks of the row sweep
+  const int RG = DOT_THREADS / CL;  // row groups
+  const int cl = tid % CL, rg = tid / CL;
+  T acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = T(0);
+  if (rg < RG) {
+    for (int i = rg; i < nr; i += RG * VISIT_UNROLL) {
+      T x[VISIT_UNROLL][V];
+      // wls: the unweighted rows beside the weighted, to be kept
+      T xu[WLS ? VISIT_UNROLL : 1][V];
+#pragma unroll
+      for (int u = 0; u < VISIT_UNROLL; ++u) {
+        const int ii = i + u * RG;
+        if (ii < nr) {
+          load_chunk(Xwb + (size_t)(row0 + ii) * B, cl * V, B, vec, x[u]);
+          if (WLS && keep_x)
+            load_chunk(Xb + (size_t)(row0 + ii) * B, cl * V, B, vec,
+                       xu[WLS ? u : 0]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) x[u][e] = T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < VISIT_UNROLL; ++u) {
+        const int ii = i + u * RG;
+        if (ii < nr) {
+          T* xd = xs + (size_t)ii * B + cl * V;
+          const T(&xk)[V] = WLS ? xu[WLS ? u : 0] : x[u];
+          if (keep_x && vec) {
+            sts16(xd, xk);
+          } else if (keep_x) {
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              if (cl * V + e < B) xd[e] = xk[e];
+          }
+          const T rv = rl[ii];
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] += x[u][e] * rv;
+        }
+      }
+    }
+  }
+  mid();
+  sts16(scr + tid * V, acc);
+  __syncthreads();
+  if (tid < B) {
+    const int cc = tid / V, ee = tid % V;
+    T s = T(0);
+    for (int qq = 0; qq < RG; ++qq) s += scr[(qq * CL + cc) * V + ee];
+    put(tid, s);
+  }
+}
+
+// c[j] for j < B: the G CTAs' partial sums added in one fixed order, so
+// that every CTA holds the same bits.  part(gg) points at CTA gg's B
+// partials: in that CTA's shared memory (DSMEM: `peer`'s address, plain
+// loads), or in global scratch the other CTAs wrote in this launch (L2
+// loads, __ldcg).  With 16-byte loads (vec), thread (column group, subset
+// s) sums CTAs s, s + S, ... in order, VISIT_CBATCH loads in flight, and
+// the S subsets' sums meet in scr and are added in order; else thread j
+// adds column j's partials in CTA order.  Ends with the CTA synchronised.
+template <typename T, bool DSMEM, typename Part>
+__device__ __forceinline__ void sum_partials(Part part, int G, int B,
+                                             bool vec, T* scr, T* c) {
+  constexpr int V = vec_of<T>();
+  const int tid = threadIdx.x;
+  if (vec) {
+    const int CG = B / V, S = DOT_THREADS / CG;
+    const int cgi = tid % CG, s = tid / CG;
+    T acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = T(0);
+    if (s < S) {
+      for (int g0 = s; g0 < G; g0 += S * VISIT_CBATCH) {
+        T v[VISIT_CBATCH][V];
+#pragma unroll
+        for (int j = 0; j < VISIT_CBATCH; ++j) {
+          const int gg = g0 + S * j;
+          if (gg < G) {
+            const uint4* src =
+                reinterpret_cast<const uint4*>(part(gg) + cgi * V);
+            uint4 u;
+            if constexpr (DSMEM)
+              u = *src;
+            else
+              u = __ldcg(src);
+            memcpy(&v[j][0], &u, 16);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) v[j][e] = T(0);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < VISIT_CBATCH; ++j)
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] += v[j][e];
+      }
+    }
+    sts16(scr + tid * V, acc);
+    __syncthreads();
+    if (tid < B) {
+      T cs = T(0);
+      for (int ss = 0; ss < S; ++ss)
+        cs += scr[(ss * CG + tid / V) * V + tid % V];
+      c[tid] = cs;
+    }
+  } else if (tid < B) {
+    T cs = T(0);
+    for (int gg = 0; gg < G; ++gg)
+      cs += DSMEM ? part(gg)[tid] : __ldcg(part(gg) + tid);
+    c[tid] = cs;
+  }
+  __syncthreads();
+}
+
+// r -= X_b d over this CTA's rows, one warp a row, d (B long) in shared
+// memory: the rows of X_b from xs when keep_x, else from global memory
+// again.  Lane 0 of the row's warp writes the new r_i and hands it to
+// hook(r_i) (K1's sqrt kind sums its squares there).
+template <typename T, typename Hook>
+__device__ __forceinline__ void update_rows(T* rl, const T* xs, const T* Xb,
+                                            const T* d, int row0, int nr,
+                                            int B, int keep_x, bool vec,
+                                            Hook hook) {
+  constexpr int V = vec_of<T>();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int i = w; i < nr; i += DOT_THREADS / 32) {
+    T s = T(0);
+    for (int k0 = lane * V; k0 < B; k0 += 32 * V) {
+      T x[V], dd[V];
+      if (keep_x && vec) {
+        lds16(xs + (size_t)i * B + k0, x);
+      } else if (keep_x) {
+        load_chunk_shared(xs + (size_t)i * B, k0, B, x);
+      } else {
+        load_chunk(Xb + (size_t)(row0 + i) * B, k0, B, vec, x);
+      }
+      if (vec) {
+        lds16(d + k0, dd);
+      } else {
+        load_chunk_shared(d, k0, B, dd);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += x[e] * dd[e];
+    }
+    s = warp_sum(s);
+    if (lane == 0) {
+      const T rn = rl[i] - s;
+      rl[i] = rn;
+      hook(rn);
+    }
+  }
 }
 
 }  // namespace cdt

@@ -23,7 +23,9 @@
 // design Xw and updates r from X; sqrt has n_scale = ||r|| in its
 // thresholds, which the wrapper folds into the table.
 //
-// Design, on K1's cooperative route (csrc/active_pass.cu's header):
+// Design, on K1's cooperative route (csrc/active_pass.cu's header) and its
+// visit skeleton (common.cuh's next_active_block, partial_c, sum_partials
+// and update_rows, shared with K1):
 //   - a co-resident grid of at most one CTA an SM (cudaLaunchCooperativeKernel,
 //     grid barriers by cooperative groups' grid.sync()); CTA g owns rows
 //     [g R, g R + R) of r for the whole pass, in shared memory when the plan
@@ -66,10 +68,8 @@ namespace cg = cooperative_groups;
 
 namespace cdt {
 
-constexpr int GP_THREADS = 512;  // 128 coordinates x 4 (warp_dot's layout)
-constexpr int GP_MAXB = 128;     // widest block (warp_dot covers 128)
-constexpr int GP_UNROLL = 4;     // 16-byte row loads in flight per thread
-constexpr int GP_CBATCH = 8;     // partial-c loads in flight per thread
+// The CTA is common.cuh's DOT_THREADS (warp_dot's layout), and the widest
+// block DOT_MAXB.
 
 // Shared-memory layout, in elements of T after a 16-byte header of ints;
 // every array starts 16-byte aligned.  kernels/group_pass.py::smem_bytes
@@ -79,58 +79,25 @@ struct GpLayout {
   size_t bytes;
 };
 
-// x rounded up to whole 16-byte chunks of T
-template <typename T>
-__host__ __device__ inline int gp_up(int x) {
-  return (x + vec_of<T>() - 1) / vec_of<T>() * vec_of<T>();
-}
-
 template <typename T>
 __host__ __device__ inline GpLayout gp_layout(int B, int rows, int keep_x,
                                               int keep_r, int iters) {
   GpLayout L;
   int o = 0;
-  L.scr = o; o += GP_THREADS * vec_of<T>();  // row-group and partial sums
-  L.c = o;   o += GP_MAXB;                   // c0
-  L.b0 = o;  o += GP_MAXB;                   // beta0
-  L.u = o;   o += 2 * GP_MAXB;               // yv - beta0, by step parity
-  L.ds = o;  o += GP_MAXB;                   // d, for the snap's K_gg d_g
-  L.dd = o;  o += GP_MAXB;                   // the block's change
-  L.sq = o;  o += GP_MAXB;                   // squares for a group's norm
-  L.thr = o; o += GP_MAXB;                   // the block's group thresholds
-  L.red = o; o += 32;                        // block_max slots
-  L.mom = o; o += gp_up<T>(iters);           // the momentum coefficients
-  L.rs = o;  o += keep_r ? gp_up<T>(rows) : 0;  // the CTA's rows of r
-  L.xs = o;  o += keep_x ? rows * B : 0;        // its rows of X_b
+  L.scr = o; o += DOT_THREADS * vec_of<T>();  // row-group and partial sums
+  L.c = o;   o += DOT_MAXB;                    // c0
+  L.b0 = o;  o += DOT_MAXB;                    // beta0
+  L.u = o;   o += 2 * DOT_MAXB;                // yv - beta0, by step parity
+  L.ds = o;  o += DOT_MAXB;                    // d, for the snap's K_gg d_g
+  L.dd = o;  o += DOT_MAXB;                    // the block's change
+  L.sq = o;  o += DOT_MAXB;                    // squares for a group's norm
+  L.thr = o; o += DOT_MAXB;                    // the block's group thresholds
+  L.red = o; o += 32;                          // block_max slots
+  L.mom = o; o += vec_up<T>(iters);            // the momentum coefficients
+  L.rs = o;  o += keep_r ? vec_up<T>(rows) : 0;  // the CTA's rows of r
+  L.xs = o;  o += keep_x ? rows * B : 0;         // its rows of X_b
   L.bytes = 16 + sizeof(T) * (size_t)o;
   return L;
-}
-
-// Warp 0: the next active block in border order after hdr[0] (a ballot over
-// 32 entries at a time) into hdr[1] (-1 past the end); every CTA walks the
-// same order.  (K1's find_next, which csrc/active_pass.cu keeps to itself.)
-__device__ __forceinline__ void gp_next(int* hdr,
-                                        const long long* __restrict__ border,
-                                        const unsigned char* __restrict__ active,
-                                        int nb) {
-  const int lane = threadIdx.x & 31;
-  int cur = hdr[0], blk = -1;
-  while (cur < nb) {
-    const int i = cur + lane;
-    const unsigned m = __ballot_sync(FULL, i < nb && active[border[i]]);
-    if (m) {
-      const int f = __ffs(m) - 1;
-      blk = (int)border[cur + f];
-      cur += f + 1;
-      break;
-    }
-    cur += 32;
-  }
-  __syncwarp();
-  if (lane == 0) {
-    hdr[0] = cur;
-    hdr[1] = blk;
-  }
 }
 
 // sum over j in the group of this thread's coordinate of v[j] K[k, j]
@@ -180,7 +147,7 @@ __device__ __forceinline__ T group_norm(T z, bool shfl, int G, int k,
 }
 
 template <typename T, bool WLS>
-__global__ void __launch_bounds__(GP_THREADS, 1)
+__global__ void __launch_bounds__(DOT_THREADS, 1)
 group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
                   const T* __restrict__ Kb, const T* __restrict__ Lb,
                   const T* __restrict__ thr_in,
@@ -200,7 +167,7 @@ group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
   T* c = base + Ly.c;
   T* b0 = base + Ly.b0;
   T* U0 = base + Ly.u;
-  T* U1 = U0 + GP_MAXB;
+  T* U1 = U0 + DOT_MAXB;
   T* DS = base + Ly.ds;
   T* DD = base + Ly.dd;
   T* SQ = base + Ly.sq;
@@ -220,9 +187,6 @@ group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
                    (!WLS || reinterpret_cast<uintptr_t>(Xw) % 16 == 0) &&
                    ((size_t)B * sizeof(T)) % 16 == 0;
   const bool kvec = vec && reinterpret_cast<uintptr_t>(Kb) % 16 == 0;
-  const int CL = (B + V - 1) / V;    // column lanes of the row sweep
-  const int RG = GP_THREADS / CL;    // row groups
-  const int cl = tid % CL, rg = tid / CL;
   const int k = tid >> 2;            // this thread's coordinate (warp_dot)
   const bool own = k < B;
   const bool lead = own && (tid & 3) == 0;  // writes coordinate k
@@ -231,17 +195,17 @@ group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
 
   // beta_out starts as beta_in (the first grid barrier orders this copy
   // before CTA 0 writes a visited block); r from r_in, own rows
-  for (size_t e = (size_t)g * GP_THREADS + tid; e < (size_t)nb * B;
-       e += (size_t)ctas * GP_THREADS)
+  for (size_t e = (size_t)g * DOT_THREADS + tid; e < (size_t)nb * B;
+       e += (size_t)ctas * DOT_THREADS)
     beta_out[e] = beta_in[e];
-  for (int i = tid; i < nr; i += GP_THREADS) rl[i] = r_in[row0 + i];
-  for (int i = tid; i < iters; i += GP_THREADS) mom[i] = mom_in[i];
+  for (int i = tid; i < nr; i += DOT_THREADS) rl[i] = r_in[row0 + i];
+  for (int i = tid; i < iters; i += DOT_THREADS) mom[i] = mom_in[i];
   // the products read all 128 entries: 0 past B, for good
-  for (int i = tid; i < 2 * GP_MAXB; i += GP_THREADS) U0[i] = T(0);
-  if (tid < GP_MAXB) DS[tid] = T(0);
+  for (int i = tid; i < 2 * DOT_MAXB; i += DOT_THREADS) U0[i] = T(0);
+  if (tid < DOT_MAXB) DS[tid] = T(0);
   if (tid == 0) hdr[0] = 0;
   __syncthreads();
-  if (w == 0) gp_next(hdr, border, active, nb);
+  if (w == 0) next_active_block(hdr, border, active, nb);
 
   T mh_all = T(0);
   for (int t = 0;; ++t) {
@@ -254,59 +218,9 @@ group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
 
     // 1. this CTA's partial c0 over its rows (the rows of X_b kept in
     //    shared memory when planned)
-    {
-      T acc[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = T(0);
-      if (rg < RG) {
-        for (int i = rg; i < nr; i += RG * GP_UNROLL) {
-          T x[GP_UNROLL][V];
-          // wls: the unweighted rows beside the weighted, to be kept
-          T xu[WLS ? GP_UNROLL : 1][V];
-#pragma unroll
-          for (int u = 0; u < GP_UNROLL; ++u) {
-            const int ii = i + u * RG;
-            if (ii < nr) {
-              load_chunk(Xwb + (size_t)(row0 + ii) * B, cl * V, B, vec, x[u]);
-              if (WLS && keep_x)
-                load_chunk(Xb + (size_t)(row0 + ii) * B, cl * V, B, vec,
-                           xu[WLS ? u : 0]);
-            } else {
-#pragma unroll
-              for (int e = 0; e < V; ++e) x[u][e] = T(0);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < GP_UNROLL; ++u) {
-            const int ii = i + u * RG;
-            if (ii < nr) {
-              T* xd = xs + (size_t)ii * B + cl * V;
-              const T(&xk)[V] = WLS ? xu[WLS ? u : 0] : x[u];
-              if (keep_x && vec) {
-                *reinterpret_cast<uint4*>(xd) =
-                    *reinterpret_cast<const uint4*>(xk);
-              } else if (keep_x) {
-#pragma unroll
-                for (int e = 0; e < V; ++e)
-                  if (cl * V + e < B) xd[e] = xk[e];
-              }
-              const T rv = rl[ii];
-#pragma unroll
-              for (int e = 0; e < V; ++e) acc[e] += x[u][e] * rv;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < V; ++e) scr[tid * V + e] = acc[e];
-      __syncthreads();
-      if (tid < B) {
-        const int cc = tid / V, ee = tid % V;
-        T s = T(0);
-        for (int qq = 0; qq < RG; ++qq) s += scr[(qq * CL + cc) * V + ee];
-        part_c[((size_t)par * ctas + g) * B + tid] = s;
-      }
-    }
+    partial_c<T, WLS>(
+        Xwb, Xb, rl, xs, scr, row0, nr, B, keep_x, vec, [] {},
+        [&](int j, T s) { part_c[((size_t)par * ctas + g) * B + j] = s; });
 
     // 2. what does not depend on the sums, loaded under the barrier: the
     //    Gram's rows in registers, kc[i][c] = K[8 w + c, 4 lane + i] (0 past
@@ -336,52 +250,10 @@ group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     const T L = tmax(Lb[b], T(1e-30));
     cg::this_grid().sync();
 
-    // 3. c0: the partials added in a fixed order; with 16-byte loads, thread
-    //    (column group, subset s) sums CTAs s, s + S, ... in order, then the
-    //    S subsets in order
-    if (vec) {
-      const int CG = B / V, S = GP_THREADS / CG;
-      const int cgi = tid % CG, s = tid / CG;
-      T acc[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = T(0);
-      if (s < S) {
-        for (int g0 = s; g0 < ctas; g0 += S * GP_CBATCH) {
-          T v[GP_CBATCH][V];
-#pragma unroll
-          for (int j = 0; j < GP_CBATCH; ++j) {
-            const int gg = g0 + S * j;
-            if (gg < ctas) {
-              const uint4 u = __ldcg(reinterpret_cast<const uint4*>(
-                  part_c + ((size_t)par * ctas + gg) * B + cgi * V));
-              memcpy(&v[j][0], &u, 16);
-            } else {
-#pragma unroll
-              for (int e = 0; e < V; ++e) v[j][e] = T(0);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < GP_CBATCH; ++j)
-#pragma unroll
-            for (int e = 0; e < V; ++e) acc[e] += v[j][e];
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < V; ++e) scr[tid * V + e] = acc[e];
-      __syncthreads();
-      if (tid < B) {
-        T cs = T(0);
-        for (int ss = 0; ss < S; ++ss)
-          cs += scr[(ss * CG + tid / V) * V + tid % V];
-        c[tid] = cs;
-      }
-    } else if (tid < B) {
-      T cs = T(0);
-      for (int gg = 0; gg < ctas; ++gg)
-        cs += __ldcg(part_c + ((size_t)par * ctas + gg) * B + tid);
-      c[tid] = cs;
-    }
-    __syncthreads();
+    // 3. c0: the partials added in a fixed order
+    sum_partials<T, false>(
+        [&](int gg) { return part_c + ((size_t)par * ctas + gg) * B; }, ctas,
+        B, vec, scr, c);
 
     // 4. the block solve, redundantly in every CTA
     const T bk = own ? b0[k] : T(0);
@@ -425,29 +297,11 @@ group_pass_kernel(const T* __restrict__ X, const T* __restrict__ Xw,
     // 5. r -= X_b (d - beta0) over this CTA's rows, one warp per row; warp 0
     //    first finds the next visit's block, its loads under the other
     //    warps' rows
-    if (w == 0) gp_next(hdr, border, active, nb);
-    for (int i = w; i < nr; i += GP_THREADS / 32) {
-      T s = T(0);
-      for (int k0 = lane * V; k0 < B; k0 += 32 * V) {
-        T x[V], dd[V];
-        if (keep_x && vec) {
-          *reinterpret_cast<uint4*>(x) =
-              *reinterpret_cast<const uint4*>(xs + (size_t)i * B + k0);
-        } else if (keep_x) {
-          load_chunk_shared(xs + (size_t)i * B, k0, B, x);
-        } else {
-          load_chunk(Xb + (size_t)(row0 + i) * B, k0, B, vec, x);
-        }
-        load_chunk_shared(DD, k0, B, dd);
-#pragma unroll
-        for (int e = 0; e < V; ++e) s += x[e] * dd[e];
-      }
-      s = warp_sum(s);
-      if (lane == 0) rl[i] = rl[i] - s;
-    }
+    if (w == 0) next_active_block(hdr, border, active, nb);
+    update_rows(rl, xs, Xb, DD, row0, nr, B, keep_x, vec, [](T) {});
   }
   if (keep_r)
-    for (int i = tid; i < nr; i += GP_THREADS) r_out[row0 + i] = rl[i];
+    for (int i = tid; i < nr; i += DOT_THREADS) r_out[row0 + i] = rl[i];
   if (g == 0 && tid == 0) *maxh_out = mh_all;
 }
 
@@ -459,27 +313,19 @@ int group_pass(const T* X, const T* Xw, const T* Kb, const T* Lb,
                T* r_out, T* maxh, T* part_c, int nb, int n, int B, int G,
                int grid, int rows, int keep_x, int keep_r, int iters,
                int wls, int smem, cudaStream_t s) {
-  if (B < 1 || B > GP_MAXB || G < 1 || B % G != 0 || nb < 1 || n < 1 ||
+  if (B < 1 || B > DOT_MAXB || G < 1 || B % G != 0 || nb < 1 || n < 1 ||
       grid < 1 || rows < 1 || (long long)grid * rows < n || iters < 0 ||
       !part_c ||
       (size_t)smem != gp_layout<T>(B, rows, keep_x, keep_r, iters).bytes)
     return (int)cudaErrorInvalidValue;
   const void* kern = wls ? (const void*)group_pass_kernel<T, true>
                          : (const void*)group_pass_kernel<T, false>;
-  // the grid must be co-resident (a plain launch of too large a grid would
-  // hang at the first barrier; the cooperative launch refuses it)
-  int resident = 0;
-  cudaError_t e = resident_ctas(kern, GP_THREADS, (size_t)smem, &resident);
-  if (e != cudaSuccess) return (int)e;
-  if (resident < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&X,      &Xw,      &Kb,       &Lb,    &thr,    &valid,
                   &border, &active,  &mom,      &beta_in, &r_in, &beta_out,
                   &r_out,  &maxh,    &part_c,   &nb,    &n,      &B,
                   &G,      &rows,    &keep_x,   &keep_r, &iters};
-  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(GP_THREADS), args,
-                                  (size_t)smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch_cooperative(kern, grid, DOT_THREADS, (size_t)smem, args,
+                                 s);
 }
 
 }  // namespace cdt

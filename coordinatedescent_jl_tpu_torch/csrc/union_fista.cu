@@ -45,11 +45,11 @@
 
 namespace cdt {
 
-constexpr int UF_THREADS = 512;  // 128 coordinates x 4 (warp_dot's layout)
-constexpr int UF_MAXB = 128;     // widest block (warp_dot covers 128)
+// The CTA is common.cuh's DOT_THREADS (warp_dot's layout), and the widest
+// block DOT_MAXB.
 constexpr int UF_UNROLL = 8;     // panel rows in flight per thread
 // scratch: the row sums' 16 warps x 128 rows, or the panel's row groups'
-// partials (G x Cp <= UF_THREADS x 16 / sizeof(T) entries)
+// partials (G x Cp <= DOT_THREADS x 16 / sizeof(T) entries)
 constexpr int UF_SCR = 2048;
 
 // Shared-memory layout, in elements of T; every array starts 16-byte
@@ -59,25 +59,19 @@ struct UfLayout {
   size_t bytes;
 };
 
-// x rounded up to whole 16-byte chunks of T
-template <typename T>
-__host__ __device__ inline int uf_up(int x) {
-  return (x + vec_of<T>() - 1) / vec_of<T>() * vec_of<T>();
-}
-
 template <typename T>
 __host__ __device__ inline UfLayout uf_layout(int Cp, int B, int iters) {
   UfLayout L;
   int o = 0;
-  L.bs = o;  o += uf_up<T>(Cp);         // the lane's coefficients
-  L.cs = o;  o += uf_up<T>(Cp);         // its gradients Xs'R, kept current
-  L.thr = o; o += uf_up<T>(Cp);         // its thresholds
-  L.u = o;   o += 2 * UF_MAXB;          // v - bs_b, by step parity
-  L.d = o;   o += UF_MAXB;              // the block's change
+  L.bs = o;  o += vec_up<T>(Cp);         // the lane's coefficients
+  L.cs = o;  o += vec_up<T>(Cp);         // its gradients Xs'R, kept current
+  L.thr = o; o += vec_up<T>(Cp);         // its thresholds
+  L.u = o;   o += 2 * DOT_MAXB;          // v - bs_b, by step parity
+  L.d = o;   o += DOT_MAXB;              // the block's change
   L.scr = o; o += UF_SCR;
-  L.lb = o;  o += uf_up<T>(Cp / B);     // the blocks' majorizers
-  L.mom = o; o += uf_up<T>(iters);      // the momentum coefficients
-  L.red = o; o += 32;                   // block_max slots
+  L.lb = o;  o += vec_up<T>(Cp / B);     // the blocks' majorizers
+  L.mom = o; o += vec_up<T>(iters);      // the momentum coefficients
+  L.red = o; o += 32;                    // block_max slots
   L.bytes = sizeof(T) * (size_t)o;
   return L;
 }
@@ -105,9 +99,9 @@ __device__ void panel_update(const T* __restrict__ P, const T* d, T* cs,
                              T* scr, int Cp, int B) {
   const int tid = threadIdx.x;
   const int nch = Cp / W;
-  const int G = nch >= UF_THREADS ? 1 : min(B, UF_THREADS / nch);
+  const int G = nch >= DOT_THREADS ? 1 : min(B, DOT_THREADS / nch);
   const int g = tid / nch;
-  for (int c = tid % nch; c < nch && g < G; c += UF_THREADS) {
+  for (int c = tid % nch; c < nch && g < G; c += DOT_THREADS) {
     T acc[W];
 #pragma unroll
     for (int e = 0; e < W; ++e) acc[e] = T(0);
@@ -143,7 +137,7 @@ __device__ void panel_update(const T* __restrict__ P, const T* d, T* cs,
   }
   __syncthreads();
   if (G > 1) {
-    for (int j = tid; j < Cp; j += UF_THREADS) {
+    for (int j = tid; j < Cp; j += DOT_THREADS) {
       T t = scr[j];
       for (int q = 1; q < G; ++q) t += scr[q * Cp + j];
       cs[j] -= t;
@@ -153,7 +147,7 @@ __device__ void panel_update(const T* __restrict__ P, const T* d, T* cs,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(UF_THREADS, 1)
+__global__ void __launch_bounds__(DOT_THREADS, 1)
     union_fista_kernel(const T* __restrict__ Ks, const T* __restrict__ thr_in,
                        const T* __restrict__ Bs0, const T* __restrict__ cs0,
                        const unsigned char* __restrict__ cert,
@@ -163,23 +157,23 @@ __global__ void __launch_bounds__(UF_THREADS, 1)
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const size_t row = (size_t)blockIdx.x * Cp;
   if (cert[blockIdx.x]) {  // frozen: the plain round keeps Bs0
-    for (int j = tid; j < Cp; j += UF_THREADS) out[row + j] = Bs0[row + j];
+    for (int j = tid; j < Cp; j += DOT_THREADS) out[row + j] = Bs0[row + j];
     return;
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const UfLayout Ly = uf_layout<T>(Cp, B, iters);
   T *bs = sm + Ly.bs, *cs = sm + Ly.cs, *thr = sm + Ly.thr;
-  T *U0 = sm + Ly.u, *U1 = U0 + UF_MAXB, *D = sm + Ly.d, *scr = sm + Ly.scr;
+  T *U0 = sm + Ly.u, *U1 = U0 + DOT_MAXB, *D = sm + Ly.d, *scr = sm + Ly.scr;
   T *Lb = sm + Ly.lb, *mom = sm + Ly.mom, *red = sm + Ly.red;
-  for (int j = tid; j < Cp; j += UF_THREADS) {
+  for (int j = tid; j < Cp; j += DOT_THREADS) {
     bs[j] = Bs0[row + j];
     cs[j] = cs0[row + j];
     thr[j] = thr_in[row + j];
   }
-  for (int j = tid; j < iters; j += UF_THREADS) mom[j] = mom_in[j];
+  for (int j = tid; j < iters; j += DOT_THREADS) mom[j] = mom_in[j];
   // v - bs_b is 0 past B (warp_dot reads all 128)
-  for (int j = tid; j < 2 * UF_MAXB; j += UF_THREADS) U0[j] = T(0);
+  for (int j = tid; j < 2 * DOT_MAXB; j += DOT_THREADS) U0[j] = T(0);
   __syncthreads();
 
   const int k = tid >> 2;  // this thread's coordinate (warp_dot's result)
@@ -212,14 +206,14 @@ __global__ void __launch_bounds__(UF_THREADS, 1)
           T s = tabs(kc[i][0]);
 #pragma unroll
           for (int c = 1; c < 8; ++c) s += tabs(kc[i][c]);
-          scr[w * UF_MAXB + 4 * lane + i] = s;
+          scr[w * DOT_MAXB + 4 * lane + i] = s;
         }
         __syncthreads();
         T rsum = T(0);
         if (tid < B) {
           rsum = scr[tid];
-          for (int q = 1; q < UF_THREADS / 32; ++q)
-            rsum += scr[q * UF_MAXB + tid];
+          for (int q = 1; q < DOT_THREADS / 32; ++q)
+            rsum += scr[q * DOT_MAXB + tid];
         }
         L = tmax(block_max(rsum, red), T(1e-30));
         if (tid == 0) Lb[b] = L;
@@ -258,7 +252,7 @@ __global__ void __launch_bounds__(UF_THREADS, 1)
         panel_update<T, 1>(Ks + (size_t)o * Cp, D, cs, scr, Cp, B);
     }
   }
-  for (int j = tid; j < Cp; j += UF_THREADS) out[row + j] = bs[j];
+  for (int j = tid; j < Cp; j += DOT_THREADS) out[row + j] = bs[j];
 }
 
 template <typename T>
@@ -266,7 +260,7 @@ int union_fista(const T* Ks, const T* thr, const T* Bs0, const T* cs0,
                 const unsigned char* cert, const T* mom, T* out, int k,
                 int Cp, int B, int iters, int n_sweeps, int vec, int smem,
                 cudaStream_t s) {
-  if (B < 1 || B > UF_MAXB || Cp < B || Cp % B != 0 || iters < 0 ||
+  if (B < 1 || B > DOT_MAXB || Cp < B || Cp % B != 0 || iters < 0 ||
       n_sweeps < 0 || (size_t)smem != uf_layout<T>(Cp, B, iters).bytes)
     return (int)cudaErrorInvalidValue;
   if (k < 1) return (int)cudaGetLastError();
@@ -276,8 +270,8 @@ int union_fista(const T* Ks, const T* thr, const T* Bs0, const T* cs0,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<k, UF_THREADS, smem, s>>>(Ks, thr, Bs0, cs0, cert, mom, out, Cp, B,
-                                   iters, n_sweeps, vec);
+  kern<<<k, DOT_THREADS, smem, s>>>(Ks, thr, Bs0, cs0, cert, mom, out, Cp,
+                                    B, iters, n_sweeps, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""Time K1 (every form), K2, K3/K4 and K5 at the main paths' shapes, for an
-A/B of two trees.
+"""Time K1 (every form), K2, K3/K4, K5, GP and the union-block round at
+the main paths' shapes, for an A/B of two trees.
 
     python -m coordinatedescent_jl_tpu_torch.kernel_ab
     PYTHONPATH=<other tree> python <this tree>/coordinatedescent_jl_tpu_torch/kernel_ab.py
@@ -22,7 +22,12 @@ needed (``K2_blocks`` of them, ``K2_bound_ms`` its byte bound); the check
 phases on the full design's
 mid-solve state (fresh ``c``, a drift on half of the blocks): ``K3``
 (phase A, screen on), ``K3_noscreen`` and ``K4`` (phase B with phase A's
-masks); ``K1p`` (the JAX package's resident pass K1′: K1's small-n plan,
+masks); ``GP`` (the group engine's active pass at ``chip_smoke.py`` 4h's
+shape: n = 10,000, blocks of 128 lanes in groups of 8, 12 of 16 blocks
+active, 16 steps, float32) and ``UF`` (the batched path's union-block
+FISTA round at 4b's: 98 lanes, Cp = 1,024, blocks of 128, 16 steps, 8
+sweeps), where the tree under test has them; ``K1p`` (the JAX package's
+resident pass K1′: K1's small-n plan,
 wls, FISTA, one block of 128 with a cached Gram at n = 500, from 0.9 of
 the solution at z0 = 0.5 of the varying-coefficient bench problem, where
 the tree under test has it); ``lasso_counts``, the host reads and the
@@ -276,6 +281,7 @@ def main():
     r64 = y.double() - X[:, support].double() @ beta_true[support].double()
     out["K5f64"] = _ms(lambda: gs.grad_f64(X, r64), 20)
     del r64
+    out.update(_group_and_union(X, y, bp.opts, dev))
 
     from coordinatedescent_jl_tpu_torch.profile_paths import (
         launch_counts, reset_launch_counts)
@@ -294,6 +300,69 @@ def main():
     if hasattr(tcd, "GaussianKernel"):
         out["K1p"] = _k1_resident(tcd, ap, block_cd, dev)
     print(json.dumps(out), flush=True)
+
+
+def _group_and_union(X, y, opts, dev) -> dict:
+    """``GP``: one group pass (``fused_group_pass``) over the first 2,048
+    columns of the bench design in groups of 8 (16 blocks of 128), 3
+    random groups nonzero in each of the first 12 blocks, at a fifth of the
+    groups' λmax.  ``UF``: one union-block round (``fused_union_fista``) as
+    ``chip_smoke.py`` 4b builds it (seed 18) on the design's first 1,024
+    columns.  Each only where the tree has its kernel."""
+    import importlib
+
+    def module(name):
+        try:
+            return importlib.import_module(
+                f"coordinatedescent_jl_tpu_torch.kernels.{name}")
+        except ImportError:
+            return None
+
+    from coordinatedescent_jl_tpu_torch.ops import group_cd
+    try:
+        from coordinatedescent_jl_tpu_torch.ops.prox import fista_momentum
+    except ImportError:   # trees from before the one helper
+        fista_momentum = group_cd._fista_coefs
+    out = {}
+    n = X.shape[0]
+    gp, uf = module("group_pass"), module("union_fista")
+    if gp is not None:
+        G, Cg = 8, 2048
+        gen = torch.Generator(device=dev).manual_seed(21)
+        prob = group_cd._build_group_problem(
+            X[:, :Cg].contiguous(), y,
+            torch.ones((Cg // G,), device=dev), G)
+        nb, B = prob.valid.shape
+        on = torch.zeros((nb, B // G), device=dev)
+        for b in range(12):
+            on[b, torch.randperm(B // G, generator=gen, device=dev)[:3]] = 1
+        beta = 0.05 * torch.randn((nb, B), generator=gen, device=dev) * \
+            on.repeat_interleave(G, dim=1)
+        st = group_cd._group_init(prob, beta.contiguous(), None)
+        c = group_cd._full_sweep(prob, prob.y, False).reshape(nb, -1, G)
+        lam = 0.2 * float(torch.linalg.vector_norm(c, dim=2).max()) / n
+        coefs = fista_momentum(16, torch.float32)
+        order = torch.arange(nb, device=dev)
+        out["GP"] = _ms(lambda: gp.fused_group_pass(
+            prob, st.beta, st.r, st.active, lam, float(n), order, coefs), 50)
+        out["GP_active"] = int(st.active.sum())
+        del prob, st, c
+    if uf is not None:
+        gu = torch.Generator(device=dev).manual_seed(18)
+        ku, Cu = 98, 1024
+        Xu = X[:, :Cu].contiguous()
+        Ru = torch.randn((ku, n), generator=gu, device=dev)
+        csu = Ru @ Xu
+        Bsu = torch.randn((ku, Cu), generator=gu, device=dev) * (
+            torch.rand((ku, Cu), generator=gu, device=dev) < 0.05)
+        thru = torch.quantile(csu.abs(), 0.9, dim=1, keepdim=True) * (
+            0.5 + torch.rand((ku, Cu), generator=gu, device=dev))
+        certu = torch.arange(ku, device=dev) % 8 == 7
+        uargs = (Xu.T @ Xu, thru, Bsu, csu, certu)
+        out["UF"] = _ms(lambda: uf.fused_union_fista(*uargs, opts), 20)
+        del Xu, Ru, uargs
+    torch.cuda.empty_cache()
+    return out
 
 
 def _k1_resident(tcd, ap, block_cd, dev) -> dict:

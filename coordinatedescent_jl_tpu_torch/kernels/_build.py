@@ -43,11 +43,11 @@ _D = ctypes.c_double
 # argument types of every C entry point (pointers and the stream as
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
-    # X, Xw, Kb|0, lamw, border, active, corder, beta_in, r_in, rsqr_in,
-    # beta_out, r_out, maxh, rsqr_out, part_c|0, part_rs|0, part_k|0,
-    # kred|0, nb, n, B, grid, rows, keep_x, keep_r, smem, cluster, kind,
-    # ista, iters, lam0, n_scale, stream
-    "cdt_active_pass": [_P] * 18 + [_I] * 12 + [_D, _D, _P],
+    # X, Xw, Kb|0, lamw, border, active, corder, mom|0, beta_in, r_in,
+    # rsqr_in, beta_out, r_out, maxh, rsqr_out, part_c|0, part_rs|0,
+    # part_k|0, kred|0, nb, n, B, grid, rows, keep_x, keep_r, smem, cluster,
+    # kind, ista, iters, lam0, n_scale, stream
+    "cdt_active_pass": [_P] * 19 + [_I] * 12 + [_D, _D, _P],
     # cluster, grid, smem, barriers, src|0, bytes, stream (K1's launch probe)
     "cdt_probe_launch": [_I] * 4 + [_P, _I, _P],
     # host buffer of 132 x 8 int64 (a -DCDT_AP_STAMPS build only)
@@ -231,6 +231,16 @@ def largest_cluster(entry: str, index: int, *shape) -> int:
         if active_clusters(entry, index, *shape, cluster) >= 1:
             return cluster
     return 1
+
+
+@functools.lru_cache(maxsize=16)
+def momentum_table(coefs: tuple, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """The FISTA momentum coefficients ``coefs``
+    (``ops/prox.py::fista_momentum``) as a device tensor of ``dtype``, made
+    once per (coefficients, dtype, device) and kept: K1, GP and the
+    union-block round read it, and a launch copies nothing."""
+    return torch.tensor(coefs, dtype=dtype, device=device)
 
 
 def require(cond: bool, msg: str, *args):

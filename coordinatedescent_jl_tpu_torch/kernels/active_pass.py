@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ..ops.prox import sqrt_candidate
+from ..ops.prox import fista_momentum, sqrt_candidate
 from ..utils import host
 
 LAUNCHES_KIND = {"ls": [0, 0], "wls": [0, 0], "sqrt": [0, 0]}
@@ -260,6 +260,10 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
         sp = scratch.data_ptr()
         part = [sp, sp + nc * w, None if gram else sp + (nc + nrs) * w,
                 None if gram else sp + (nc + nrs + nk) * w]
+    # FISTA: the coefficients of iters + 1 steps (each step forms the next
+    # step's point)
+    mom = (_build.momentum_table(fista_momentum(iters + 1, dt), dt, dev)
+           if inner == "ista" else None)
     lib = _build.library()
     fn = lib.cdt_active_pass_f32 if dt == torch.float32 else \
         lib.cdt_active_pass_f64
@@ -269,9 +273,9 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
         err = fn(Xb.data_ptr(), Xwb.data_ptr(),
                  None if Kb is None else Kb.data_ptr(),
                  prob.lamw.data_ptr(), border.data_ptr(), active.data_ptr(),
-                 corder.data_ptr(), beta_b.data_ptr(), r.data_ptr(),
-                 rsqr.data_ptr(), op, op + nb * B * w, op + (nb * B + n) * w,
-                 op + (nb * B + n + 1) * w, *part,
+                 corder.data_ptr(), _build.ptr(mom), beta_b.data_ptr(),
+                 r.data_ptr(), rsqr.data_ptr(), op, op + nb * B * w,
+                 op + (nb * B + n) * w, op + (nb * B + n + 1) * w, *part,
                  nb, n, B, plan.grid, plan.rows, int(plan.keep_x),
                  int(plan.keep_r), plan.smem, int(plan.cluster),
                  _KINDS[kind], int(inner == "ista"), int(iters),
@@ -298,20 +302,15 @@ def _fused_active_pass_cuda(prob, beta_b, r, active, lam0, n_scale, border,
 def _block_ista(K, c, beta0, lamw, thr_scale, iters: int):
     """``iters`` FISTA steps on one block's LS + L1 subproblem with the
     Gershgorin step ``L = max column abs-sum``, then the zero-snap and the
-    dead-column guard.  The momentum sequence is computed in the working
-    dtype, as the kernel does.  Returns ``(d, maxh)``."""
-    npdt = np.dtype(str(c.dtype).replace("torch.", "")).type
+    dead-column guard.  The momentum sequence is the kernel's, computed in
+    the working dtype.  Returns ``(d, maxh)``."""
     L = torch.clamp_min(torch.max(torch.sum(torch.abs(K), dim=0)), 1e-30)
     thr = thr_scale * lamw / L
     q0 = c + beta0 @ K
     d = d_prev = beta0
-    t = npdt(1)
-    for _ in range(iters):
-        t_next = npdt(0.5) * (npdt(1) + np.sqrt(npdt(1) + npdt(4) * t * t))
-        coef = float((t - npdt(1)) / t_next)
+    for coef in fista_momentum(iters, c.dtype):
         yv = d + coef * (d - d_prev)
         d_prev, d = d, _soft(yv + (q0 - yv @ K) / L, thr)
-        t = t_next
     q = q0 - d @ K
     adiag = torch.diagonal(K)
     d = torch.where(torch.abs(adiag * d + q) <= thr_scale * lamw,

@@ -40,7 +40,7 @@ from ..utils import host
 
 LAUNCHES = 0
 MAX_B = 128          # widest block: warp_dot's product covers 128 lanes
-_THREADS = 512       # csrc/group_pass.cu GP_THREADS
+_THREADS = 512       # csrc/common.cuh DOT_THREADS
 
 
 class GroupPassPlan(NamedTuple):
@@ -86,13 +86,6 @@ def plan_group_pass(n: int, B: int, itemsize: int, iters: int, sms: int,
                          smem_bytes(B, rows, keep_x, keep_r, iters, itemsize))
 
 
-@functools.lru_cache(maxsize=16)
-def _momentum(coefs: tuple, dtype: torch.dtype,
-              device: torch.device) -> torch.Tensor:
-    """The FISTA momentum coefficients as a device tensor of the dtype."""
-    return torch.tensor(coefs, dtype=dtype, device=device)
-
-
 def require_inputs(prob, beta, r, active, order):
     """The shapes, dtypes and layout the kernel takes (raises
     ``ValueError`` on any other): a block of at most 128 lanes holding
@@ -136,7 +129,7 @@ def fused_group_pass(prob, beta, r, active, lam0, n_scale, order, coefs,
     whose ``active`` flag is set, in one launch; returns ``(beta, r,
     maxh)``, ``maxh`` a device scalar.  ``n_scale`` is a float or a 0-d
     device tensor (the sqrt kind's ρ); ``coefs`` the momentum coefficients
-    (``ops/group_cd.py::_fista_coefs``).  CUDA tensors only (raises
+    (``ops/prox.py::fista_momentum``).  CUDA tensors only (raises
     otherwise); nothing is read to the host."""
     global LAUNCHES
     require_inputs(prob, beta, r, active, order)
@@ -152,7 +145,7 @@ def fused_group_pass(prob, beta, r, active, lam0, n_scale, order, coefs,
     # the per-group prox levels of every block, in the plain twin's
     # expression order
     thr = n_scale * lam0 * prob.lamw / torch.clamp_min(prob.Lb, 1e-30)[:, None]
-    mom = _momentum(tuple(coefs), dt, dev)
+    mom = _build.momentum_table(tuple(coefs), dt, dev)
     out = torch.empty((nb * B + n + 1,), dtype=dt, device=dev)
     part = torch.empty((2 * plan.grid * B,), dtype=dt, device=dev)
     op = out.data_ptr()

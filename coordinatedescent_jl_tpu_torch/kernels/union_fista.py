@@ -21,12 +21,11 @@ refine round on the card).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
-from ..ops.batched_certify import fista_momentum, union_block_fista_plain
+from ..ops.batched_certify import union_block_fista_plain
+from ..ops.prox import fista_momentum
 from ..utils.options import CDOptions
 
 LAUNCHES = 0
@@ -47,14 +46,6 @@ def smem_bytes(Cp: int, B: int, iters: int, itemsize: int) -> int:
 
     return itemsize * (3 * up(Cp) + 3 * _MAX_B + _SCRATCH + up(Cp // B)
                        + up(iters) + 32)
-
-
-@functools.lru_cache(maxsize=16)
-def _momentum(block_iters: int, dtype: torch.dtype,
-              device: torch.device) -> torch.Tensor:
-    """:func:`fista_momentum` as a device tensor of the working dtype."""
-    return torch.tensor(fista_momentum(block_iters, dtype), dtype=dtype,
-                        device=device)
 
 
 def require_inputs(Ks, thr_full, Bs0, cs0, cert, block_size: int):
@@ -109,7 +100,7 @@ def fused_union_fista(Ks, thr_full, Bs0, cs0, cert, opts: CDOptions,
                    "{} (the card allows {})", smem, Cp,
                    _build.smem_optin(Bs0.device))
     out = torch.empty_like(Bs0)
-    mom = _momentum(iters, dt, Bs0.device)
+    mom = _build.momentum_table(fista_momentum(iters, dt), dt, Bs0.device)
     vec = Cp % (16 // item) == 0 and Ks.data_ptr() % 16 == 0
     lib = _build.library()
     fn = lib.cdt_union_fista_f32 if dt == torch.float32 else \

@@ -59,7 +59,7 @@ from ..ops.batched_certify import stall_escape_update
 from ..ops.block_cd import (_np_dtype, _to_blocked_beta, build_blocked,
                             full_f32_matmuls, noise_floor_mask, secant_alpha,
                             solve_blocked)
-from ..ops.prox import soft_threshold
+from ..ops.prox import fista_momentum, soft_threshold
 from ..utils import host
 from ..utils.helpers import (get_sigma, min_norm_lstsq, on_device, std_X,
                              target_device)
@@ -305,18 +305,6 @@ def _locpolyl1_core(X, z, y, zgrid, h: float, lam0: float, seed: int,
                  else torch.zeros_like(out))
 
 
-def _fista_coefs(iters: int, dtype):
-    """The FISTA momentum coefficients ``(t_k − 1)/t_{k+1}``: the same for
-    every lane and phase, so computed once on the host in ``dtype``."""
-    npdt = _np_dtype(dtype).type
-    coefs, t = [], npdt(1)
-    for _ in range(iters):
-        t_new = npdt(0.5) * (npdt(1) + np.sqrt(npdt(1) + npdt(4) * t * t))
-        coefs.append(float((t - npdt(1)) / t_new))
-        t = t_new
-    return coefs
-
-
 class _VcBatchOps:
     """One chunk of ``k`` lanes of the batched executions (the z-grid's
     ``_locpolyl1_batched_core`` and the LOO-CV's
@@ -339,7 +327,7 @@ class _VcBatchOps:
         self.n, self.p, self.q1, self.ep, self.k = n, p, q1, p * q1, k
         self.sub_f64 = dt.itemsize < 8
         self.eps = torch.finfo(dt).eps
-        self.coefs = _fista_coefs(opts.block_iters, dt)
+        self.coefs = fista_momentum(opts.block_iters, dt)
         w = evaluate(kernel, z[None, :], z0[:, None])            # (k, n)
         if holdout is not None:
             # leave one out: the held-out row's weight is 0 in its lane

@@ -20,13 +20,10 @@ loop of every ``scan_chunk`` entry point) is not ported: it went with
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
-from .block_cd import _np_dtype, noise_floor_mask
-from .prox import soft_threshold
+from .block_cd import noise_floor_mask
+from .prox import fista_momentum, soft_threshold
 from ..utils.options import CDOptions, use_kernels
 
 
@@ -79,20 +76,6 @@ def union_block_fista(Ks, thr_full, Bs0, cs0, cert, opts: CDOptions,
                                  n_sweeps)
     return union_block_fista_plain(Ks, thr_full, Bs0, cs0, cert, opts,
                                    n_sweeps)
-
-
-@functools.lru_cache(maxsize=64)
-def fista_momentum(block_iters: int, dtype: torch.dtype) -> tuple:
-    """The FISTA momentum coefficients ``(t_k − 1) / t_{k+1}`` of
-    ``block_iters`` steps, computed on the host in ``dtype`` (the same for
-    every block and sweep of a round)."""
-    npdt = _np_dtype(dtype).type
-    coefs, t = [], npdt(1)
-    for _ in range(block_iters):
-        t_new = npdt(0.5) * (npdt(1) + np.sqrt(npdt(1) + npdt(4) * t * t))
-        coefs.append(float((t - npdt(1)) / t_new))
-        t = t_new
-    return tuple(coefs)
 
 
 def union_block_fista_plain(Ks, thr_full, Bs0, cs0, cert, opts: CDOptions,

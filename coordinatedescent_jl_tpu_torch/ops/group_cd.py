@@ -46,7 +46,7 @@ from .block_cd import (_blockify_cols, _block_grams, _blocks_matvec, _eps,
                        _to_blocked_beta, _weighted_rows, full_f32_matmuls,
                        noise_floor_mask)
 from .losses import LeastSquaresLoss, SqrtLassoLoss, WeightedLSLoss
-from .prox import ProxL1Group, group_soft_threshold
+from .prox import ProxL1Group, fista_momentum, group_soft_threshold
 from ..kernels import group_pass
 from ..utils import host
 from ..utils.helpers import on_device, sample_std, target_device
@@ -121,22 +121,6 @@ def _group_prox(z, thr, k: int, G: int):
     shp = z.shape
     out = group_soft_threshold(z.reshape(shp[:-1] + (k, G)), thr[..., None])
     return out.reshape(shp)
-
-
-def _fista_coefs(iters: int, dtype) -> list:
-    """The FISTA momentum coefficients ``(t_k − 1)/t_{k+1}``, ``t_0 = 1``,
-    ``t_{k+1} = ½(1 + √(1 + 4t_k²))``, computed in ``dtype``'s arithmetic
-    (as the JAX engine computes them on the device) and returned as Python
-    floats, which that dtype represents exactly."""
-    f = _np_dtype(dtype).type
-    one, half, four = f(1.0), f(0.5), f(4.0)
-    t = one
-    out = []
-    for _ in range(iters):
-        t_next = half * (one + np.sqrt(one + four * t * t))
-        out.append(float((t - one) / t_next))
-        t = t_next
-    return out
 
 
 def _block_visit(K, c0, beta0, L, thr, k: int, G: int, coefs):
@@ -310,7 +294,7 @@ def _group_cd_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
     kernels = use_kernels(opts, X)
     prob = _build_group_problem(X, y, lamw_g, G, w)
     nb, B = prob.valid.shape
-    coefs = _fista_coefs(opts.block_iters, dtype)
+    coefs = fista_momentum(opts.block_iters, dtype)
     n_scale = float(n)
     if opts.warm_start:
         st = _group_solve_at_lambda(
@@ -345,7 +329,7 @@ def _group_sqrt_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
     kernels = use_kernels(opts, X)
     prob = _build_group_problem(X, y, lamw_g, G, None)
     B = prob.valid.shape[1]
-    coefs = _fista_coefs(opts.block_iters, X.dtype)
+    coefs = fista_momentum(opts.block_iters, X.dtype)
     tol = float(_np_dtype(X.dtype).type(opts.opt_tol))
     if not opts.warm_start:
         beta0 = torch.zeros_like(beta0)

@@ -10,9 +10,29 @@
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=64)
+def fista_momentum(iters: int, dtype) -> tuple:
+    """The FISTA momentum coefficients ``(t_k − 1)/t_{k+1}`` of ``iters``
+    steps, ``t_0 = 1``, ``t_{k+1} = ½(1 + √(1 + 4t_k²))``: the same for
+    every block, lane and sweep, so computed once on the host in the torch
+    ``dtype``'s arithmetic (as the JAX engines compute them on the device)
+    and returned as Python floats, which that dtype represents exactly.
+    The kernels read their device copy
+    (``kernels/_build.py::momentum_table``)."""
+    f = np.dtype(str(dtype).replace("torch.", "")).type
+    coefs, t = [], f(1)
+    for _ in range(iters):
+        t_new = f(0.5) * (f(1) + np.sqrt(f(1) + f(4) * t * t))
+        coefs.append(float((t - f(1)) / t_new))
+        t = t_new
+    return tuple(coefs)
 
 
 def soft_threshold(x, t):

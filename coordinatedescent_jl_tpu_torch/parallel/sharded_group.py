@@ -20,10 +20,10 @@ import torch
 from ..models.lasso import LassoSolution
 from ..ops.block_cd import _blocks_matvec, _np_dtype, full_f32_matmuls
 from ..ops.group_cd import (GroupState, _block_width, _build_group_problem,
-                            _fista_coefs, _group_active_pass,
-                            _group_full_check, _group_lambda_max)
+                            _group_active_pass, _group_full_check,
+                            _group_lambda_max)
 from ..ops.losses import LeastSquaresLoss, WeightedLSLoss
-from ..ops.prox import ProxL1Group
+from ..ops.prox import ProxL1Group, fista_momentum
 from ..utils import host
 from ..utils.helpers import on_device, sample_std
 from ..utils.options import CDOptions, use_kernels
@@ -164,7 +164,7 @@ def group_coordinate_descent_sharded(beta0, loss, penalty: ProxL1Group,
     if key is None:
         key = rank_generator(seed, sh.s)
     kernels = use_kernels(options, Xl)
-    coefs = _fista_coefs(options.block_iters, dtype)
+    coefs = fista_momentum(options.block_iters, dtype)
     n_scale = float(n)
     with full_f32_matmuls():
         prob = _build_group_problem(Xl, y, _own_vec(lamw_g, sh, ng_shard,

@@ -405,9 +405,10 @@ def group_solve_with_trace(X, y, lam, group_size: int, weights=None,
     group-KKT violation ``max_g max(‖X_g'r‖₂/(n·ω_g) − λ, 0)``, its
     ``X'r`` the dense sweep's (K5 on the card; never ``torch.einsum``,
     which copies the blocked design).  Returns ``(beta, EpochTrace)``."""
-    from ..ops.group_cd import (_build_group_problem, _fista_coefs,
-                                _full_sweep, _group_active_pass,
-                                _group_full_check, _group_init)
+    from ..ops.group_cd import (_build_group_problem, _full_sweep,
+                                _group_active_pass, _group_full_check,
+                                _group_init)
+    from ..ops.prox import fista_momentum
 
     dev = target_device(device)
     X = on_device(X, dev)
@@ -425,7 +426,7 @@ def group_solve_with_trace(X, y, lam, group_size: int, weights=None,
         prob = _build_group_problem(X, y, lamw_g, G)
         nb, B = prob.valid.shape
         k = prob.lamw.shape[1]
-        coefs = _fista_coefs(options.block_iters, dtype)
+        coefs = fista_momentum(options.block_iters, dtype)
         st = _group_init(prob, torch.zeros((nb, B), dtype=dtype, device=dev),
                          torch.Generator().manual_seed(seed))
 

@@ -205,9 +205,9 @@ def test_active_pass_cluster_route_matches_cooperative_bitwise(
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_active_pass_cluster_momentum_past_the_stored_steps(dev, dtype):
-    """The cluster route reads the first 256 FISTA momentum coefficients
-    from its per-device table and computes the steps past it as the
-    cooperative route does: the same bits at 16, 256 and 300 steps."""
+    """Both routes read the FISTA momentum from the host's table
+    (``ops/prox.py::fista_momentum``) at any number of steps: the same
+    bits at 16, 256 and 300 steps."""
     n, B = 300, 16
     prob, st = _problem(dev, dtype, n=n, p=80, B=B, gram=True)
     nb = prob.lamw.shape[0]
@@ -1119,10 +1119,11 @@ def _hold_group_pass(prob, st, lam0, n_scale, randomize, G):
     launch on the same inputs bit for bit the first."""
     from coordinatedescent_jl_tpu_torch.kernels import group_pass
     from coordinatedescent_jl_tpu_torch.ops import group_cd
+    from coordinatedescent_jl_tpu_torch.ops.prox import fista_momentum
     from coordinatedescent_jl_tpu_torch.utils import host
 
     dtype = st.beta.dtype
-    coefs = group_cd._fista_coefs(16, dtype)
+    coefs = fista_momentum(16, dtype)
     seed_state = st.key.get_state()
     launches, reads = group_pass.LAUNCHES, host.COUNTS["host_reads"]
     sk, mk = group_cd._group_active_pass(prob, st, lam0, n_scale, randomize,

@@ -22,6 +22,7 @@ import coordinatedescent_jl_tpu as cd  # noqa: E402
 from coordinatedescent_jl_tpu.ops import group_cd as jgroup  # noqa: E402
 import coordinatedescent_jl_tpu_torch as tcd  # noqa: E402
 from coordinatedescent_jl_tpu_torch.ops import group_cd as tgroup  # noqa: E402
+from coordinatedescent_jl_tpu_torch.ops.prox import fista_momentum  # noqa: E402
 from coordinatedescent_jl_tpu_torch.utils.convert import (  # noqa: E402
     group_problem_from_jax, group_state_from_jax, options_from_jax)
 
@@ -184,7 +185,7 @@ def test_block_visit_matches_jax():
         dt, mt = tgroup._block_visit(
             torch.tensor(K), torch.tensor(c0), torch.tensor(beta0),
             torch.tensor(L, dtype=torch.float64), torch.tensor(thr), k, G,
-            tgroup._fista_coefs(iters, torch.float64))
+            fista_momentum(iters, torch.float64))
         np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-12)
         np.testing.assert_allclose(float(mt), float(mj), rtol=1e-12)
         # group 1: the first prox step keeps it (‖z_1‖ > thr_1), the snap
@@ -227,22 +228,44 @@ def test_group_passes_match_jax_on_converted_state():
     assert np.array_equal(tc.active.numpy(), np.asarray(jc.active))
     ja, jam = jgroup._group_active_pass(jp, js, lam, 80.0, False, 16)
     ta, tam = tgroup._group_active_pass(
-        tp, ts, lam, 80.0, False, tgroup._fista_coefs(16, torch.float64))
+        tp, ts, lam, 80.0, False, fista_momentum(16, torch.float64))
     np.testing.assert_allclose(ta.beta.numpy(), np.asarray(ja.beta),
                                atol=1e-12)
     np.testing.assert_allclose(ta.r.numpy(), np.asarray(ja.r), atol=1e-12)
     np.testing.assert_allclose(float(tam), float(jam), rtol=1e-12)
 
 
-def test_fista_coefs_in_the_dtype():
+# the 16 coefficients' bit patterns, which every engine and kernel reads
+_FISTA_BITS = {
+    torch.float32: (np.uint32, [
+        0x0, 0x3e9041ff, 0x3ede3adc, 0x3f07f3cc, 0x3f19498e, 0x3f261fd6,
+        0x3f30098f, 0x3f37ef9c, 0x3f3e6289, 0x3f43c112, 0x3f484bf8,
+        0x3f4c311d, 0x3f4f91e5, 0x3f528746, 0x3f552441, 0x3f577791]),
+    torch.float64: (np.uint64, [
+        0x0, 0x3fd2083feffc8abb, 0x3fdbc75b6146cc75, 0x3fe0fe798589a647,
+        0x3fe32931b9e07f5c, 0x3fe4c3fad9e9d504, 0x3fe60131e0c6922e,
+        0x3fe6fdf367993570, 0x3fe7cc512a6ff0b4, 0x3fe878222452490b,
+        0x3fe9097f1bf813e7, 0x3fe9862390d6e9fa, 0x3fe9f23cc02baaf7,
+        0x3fea50e8d032888e, 0x3feaa4880039b226, 0x3feaeef2371dd852]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fista_coefs_in_the_dtype(dtype):
     """The momentum coefficients are the JAX engine's, computed in the
-    solve's dtype (float32 ones differ from Python doubles)."""
-    c32 = tgroup._fista_coefs(16, torch.float32)
-    c64 = tgroup._fista_coefs(16, torch.float64)
-    assert c32[0] == c64[0] == 0.0
-    assert all(float(np.float32(c)) == c for c in c32)
-    assert c32 != c64
-    np.testing.assert_allclose(c32, c64, rtol=1e-6)
+    solve's dtype (float32 ones differ from Python doubles), bit for bit
+    the pinned patterns, and the same tuple wherever they are asked for."""
+    coefs = fista_momentum(16, dtype)
+    npdt = np.dtype(str(dtype).replace("torch.", ""))
+    bits, want = _FISTA_BITS[dtype]
+    got = np.asarray(coefs, dtype=npdt).view(bits)
+    assert [int(b) for b in got] == want
+    assert all(float(npdt.type(c)) == c for c in coefs)
+    assert fista_momentum(16, dtype) is coefs
+    other = fista_momentum(16, torch.float64 if dtype == torch.float32
+                           else torch.float32)
+    assert coefs[0] == other[0] == 0.0 and coefs != other
+    np.testing.assert_allclose(coefs, other, rtol=1e-6)
 
 
 def test_group_f32_matches_f64_support():

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 import coordinatedescent_jl_tpu_torch as tcd  # noqa: E402
 from coordinatedescent_jl_tpu_torch.kernels import group_pass  # noqa: E402
 from coordinatedescent_jl_tpu_torch.ops import group_cd  # noqa: E402
+from coordinatedescent_jl_tpu_torch.ops.prox import fista_momentum  # noqa: E402
 
 
 def _case(G, p, n=60, dtype=torch.float64, seed=0):
@@ -85,7 +86,7 @@ def test_group_engine_runs_the_plain_twin_off_the_card(monkeypatch):
 
     monkeypatch.setattr(group_pass, "fused_group_pass", refuse)
     _, _, prob, st = _case(130, 300)
-    coefs = group_cd._fista_coefs(16, torch.float64)
+    coefs = fista_momentum(16, torch.float64)
     state = st.key.get_state()
     a, ma = group_cd._group_active_pass(prob, st, 0.05, 60.0, True, coefs,
                                         True)
