@@ -99,8 +99,13 @@ Phases, each failing loudly (exit code 1, no result line):
       2), which must launch K1's wls form, K3, K4 and K5 and never K2,
       with a plain run on the first 100 points in the same support; the
       batched grid (``grid_batch=128``), certified, in the scan's support,
-      with finite refits; ``locpoly`` (the faster of 2) held at three
-      points to a float64 normal-equation solve within 1e-4 relative;
+      with finite refits, launching the vc-round kernel once a refine
+      round; that kernel at the grid's shape (128 lanes, 16 steps, float32
+      with X in shared memory and float64 from L2) against its plain twin
+      (B within 1e-4 / 1e-10 of max |B|, the certificates' decisions
+      equal), both times and its bound; ``locpoly`` (the faster of 2)
+      held at three points to a float64 normal-equation solve within
+      1e-4 relative;
       ``lvocv_locpolyl1`` batched over four bandwidths (the faster of 2)
       and sequential at h = 0.2, the two scores within 5e-2 relative.
    k. observability and persistence at full width, on the bench problem
@@ -339,8 +344,11 @@ def main():
                                                             check,
                                                             gradient_sweep,
                                                             group_pass,
-                                                            union_fista)
+                                                            union_fista,
+                                                            vc_round)
         from coordinatedescent_jl_tpu_torch.models import polish as pol
+        from coordinatedescent_jl_tpu_torch.models import (
+            varying_coefficient as vcm)
         from coordinatedescent_jl_tpu_torch.ops import (batched_certify,
                                                         block_cd, group_cd)
         from coordinatedescent_jl_tpu_torch.ops.prox import fista_momentum
@@ -2268,10 +2276,14 @@ def main():
     t_b = math.inf
     for rep in range(2):
         reset_counts()
-        _, t = wall(lambda: vc_batched(vp.lam0 * (1.0 + 1e-7 * (rep + 1))))
+        (_, st_last), t = wall(
+            lambda: vc_batched(vp.lam0 * (1.0 + 1e-7 * (rep + 1))))
         t_b = min(t_b, t)
     launches_b, reads_b = counts(), dict(host.COUNTS)
     add(launches_b)
+    if not 0 < launches_b["vc_round"] == st_last["refine_rounds"]:
+        fail(f"the batched grid launched vc_round {launches_b['vc_round']} "
+             f"times in {st_last['refine_rounds']} refine rounds")
     vc_finite("locpolyl1 batched", o_b, (ep_v, Lv))
     vc_finite("locpolyl1 batched refits", r_b, (ep_v, Lv))
     bad = support_mismatch(o_b, o_s, supp_tol)
@@ -2283,6 +2295,63 @@ def main():
         f"; max |drefit| {maxdiff(r_b, r_s):.3e}")
     if bad:
         fail("locpolyl1: the batched grid and the scan differ in support")
+
+    # the batched grid's refine round at its shape (128 lanes of the grid,
+    # 16 steps, from random sparse starts): the vc-round kernel against its
+    # plain twin, float32 (X in shared memory) and float64 (X from L2),
+    # within 1e-4 / 1e-10 of max |B|; the certificates' decisions equal
+    for dt_v in (torch.float32, torch.float64):
+        kv = 128
+        Xr, zr, yr = (a.to(dt_v) for a in (Xv, zv, yv))
+        z0r = torch.linspace(0.05, 0.95, kv, dtype=dt_v, device=dev)
+        with block_cd.full_f32_matmuls():
+            ops_v = vcm._VcBatchOps(Xr, zr, yr, kern_v, z0r, vp.degree,
+                                    tcd.CDOptions())
+        gv_ = torch.Generator(device=dev).manual_seed(22)
+        Bv = 0.1 * torch.randn((kv, ops_v.ep), generator=gv_, device=dev,
+                               dtype=dt_v) * (torch.rand(
+                                   (kv, ops_v.ep), generator=gv_,
+                                   device=dev) < 0.2)
+        state_v = (Bv, torch.zeros((kv,), dtype=torch.bool, device=dev),
+                   torch.full((kv,), math.inf, dtype=dt_v, device=dev),
+                   torch.zeros((kv,), dtype=torch.int32, device=dev),
+                   torch.zeros((kv,), dtype=torch.bool, device=dev),
+                   (ops_v.lamw * vcm._thr_scale(vp.lam0, nv, dt_v))
+                   .contiguous())
+
+        def vc_kernel():
+            return vc_round.fused_vc_round(ops_v, *state_v)
+
+        def vc_plain():
+            with block_cd.full_f32_matmuls():
+                return ops_v.round_plain(*state_v)
+
+        out_v, ref_v = vc_kernel(), vc_plain()
+        if not all(torch.equal(out_v[i], ref_v[i]) for i in (3, 5, 6)):
+            fail("vc_round: cert, stall or esc differ from the plain twin")
+        ms = cuda_ms(vc_kernel, 50)
+        pms = cuda_ms(vc_plain, 5)
+        _, names, dms = one_call(vc_kernel)
+        dms = dms if names else None
+        item_v = Bv.element_size()
+        q1v, pv = vp.degree + 1, Xv.shape[1]
+        route_v = vc_round.pick_route(nv, pv, q1v, item_v,
+                                      _build.smem_optin(dev))
+        f64v = dt_v == torch.float64
+        report(None if f64v else "vc_round",
+               "vc round" + (" (float64)" if f64v else ""),
+               maxdiff(out_v[0], ref_v[0]),
+               (1e-10 if f64v else 1e-4) * float(ref_v[0].abs().max()), ms,
+               pms, f"k={kv}, n={nv}, p={pv}, q1={q1v}, "
+               f"{len(ops_v.coefs)} steps, route {route_v}; device "
+               + ("not measured" if dms is None else f"{dms:.4f} ms"),
+               item_v * (nv * pv + nv + kv * (3 * nv * q1v + 2 * nv
+                                              + 6 * pv * q1v)),
+               4 * kv * (len(ops_v.coefs) + 1) * nv * pv * q1v,
+               peak="f64" if f64v else "f32", device_ms=dms)
+        if not ok:
+            fail("vc_round disagrees with its plain twin")
+        del ops_v, state_v, out_v, ref_v, Bv
 
     lp, t_lpf = wall(lambda: tcd.locpoly(Xv, zv, yv, zgv, vp.degree, kern_v))
     t_lp = math.inf
@@ -2448,6 +2517,11 @@ def main():
                "group_pass.cu",
                "none: coordinatedescent_jl_tpu/ops/group_cd.py's visit runs "
                "outside Pallas"),
+        "vc_round": ("fused_vc_round (the varying-coefficient grid's refine "
+                     "round)", "vc_round.cu",
+                     "none: coordinatedescent_jl_tpu/models/"
+                     "varying_coefficient.py's batched rounds run outside "
+                     "Pallas"),
         "K1wls_vc": ("fused_active_pass (wls, n = 500: the small-n regime, "
                      "one cluster)",
                      "active_pass.cu",

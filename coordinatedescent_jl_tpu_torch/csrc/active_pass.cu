@@ -271,21 +271,6 @@ __device__ long long ap_stamps[132 * AP_NSTAMP];
 #endif
 #define AP_STAMP(i) AP_STAMP_IF(i, t == 0)
 
-// One rounding per operation (the compiler may not contract these into
-// fused multiply-adds).
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-
 // The exact sqrt-lasso coordinate minimizer, block_cd._sqrt_candidate in
 // its expression order: with the coordinate's own contribution added back,
 // s = c + a beta and rsb = ||r_back||^2 = rsqr + 2 beta c + beta^2 a; zero

@@ -1,6 +1,7 @@
 // Shared device helpers of the hand-written kernels: warp/block reductions
 // in a fixed order (so every result is deterministic, with no atomics),
-// the soft threshold, the restricted gradient sweep's row-chunk dot
+// the soft threshold, products and sums rounded one at a time (no fused
+// multiply-add), the restricted gradient sweep's row-chunk dot
 // product c = Xw_b' r, 16-byte loads with a masked scalar fallback and the
 // layouts' rounding to them, the cached residency query and the
 // cooperative launch behind it, the thread-block cluster's barrier,
@@ -34,6 +35,21 @@ __device__ __forceinline__ T soft(T x, T t) {
   T m = tabs(x) - t;
   m = m > T(0) ? m : T(0);
   return x > T(0) ? m : (x < T(0) ? -m : T(0) * m);
+}
+
+// One rounding per operation (the compiler may not contract these into
+// fused multiply-adds): K1's sqrt candidate and the vc round's updates.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
 }
 
 template <typename T>

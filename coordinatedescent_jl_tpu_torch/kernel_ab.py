@@ -1,5 +1,6 @@
-"""Time K1 (every form), K2, K3/K4, K5, GP and the union-block round at
-the main paths' shapes, for an A/B of two trees.
+"""Time K1 (every form), K2, K3/K4, K5, GP, the union-block round and the
+varying-coefficient round at the main paths' shapes, for an A/B of two
+trees.
 
     python -m coordinatedescent_jl_tpu_torch.kernel_ab
     PYTHONPATH=<other tree> python <this tree>/coordinatedescent_jl_tpu_torch/kernel_ab.py
@@ -30,7 +31,10 @@ sweeps), where the tree under test has them; ``K1p`` (the JAX package's
 resident pass K1′: K1's small-n plan,
 wls, FISTA, one block of 128 with a cached Gram at n = 500, from 0.9 of
 the solution at z0 = 0.5 of the varying-coefficient bench problem, where
-the tree under test has it); ``lasso_counts``, the host reads and the
+the tree under test has it); ``VC`` and ``VC_f64`` (the
+varying-coefficient grid's refine round at 4j's shape: 128 lanes, n =
+500, p = 50, degree 1, 16 steps, float32 and float64, where the tree
+under test has it); ``lasso_counts``, the host reads and the
 launches of ``chip_smoke.py`` 4c's warm ``lasso`` at 0.05·λmax·(1 + 2e-7)
 (after a warm-up), which tell a tree's host-side changes apart from its
 kernels'.  Per call: milliseconds between CUDA events
@@ -299,7 +303,51 @@ def main():
     torch.cuda.empty_cache()
     if hasattr(tcd, "GaussianKernel"):
         out["K1p"] = _k1_resident(tcd, ap, block_cd, dev)
+    out.update(_vc_round_keys(tcd, dev))
     print(json.dumps(out), flush=True)
+
+
+def _vc_round_keys(tcd, dev) -> dict:
+    """``VC`` / ``VC_f64``: one varying-coefficient refine round
+    (``fused_vc_round``) at ``chip_smoke.py`` 4j's shape: 128 lanes of the
+    bench problem's grid (n = 500, p = 50, degree 1, z0 evenly over [0.05,
+    0.95]) at λ0 = 0.05, 16 steps, from random sparse starts (seed 22), in
+    float32 (X in shared memory) and float64 (X from L2); only where the
+    tree under test has the kernel."""
+    try:
+        from coordinatedescent_jl_tpu_torch.kernels import vc_round
+    except ImportError:
+        return {}
+    from coordinatedescent_jl_tpu_torch.models import varying_coefficient
+    from coordinatedescent_jl_tpu_torch.ops.block_cd import full_f32_matmuls
+    from coordinatedescent_jl_tpu_torch.profile_paths import vc_bench_problem
+
+    vp = vc_bench_problem(dev)
+    out = {}
+    for key, dt in (("VC", torch.float32), ("VC_f64", torch.float64)):
+        X, z, y = (t.to(dt) for t in (vp.X, vp.z, vp.y))
+        k, n = 128, X.shape[0]
+        z0 = torch.linspace(0.05, 0.95, k, dtype=dt, device=dev)
+        with full_f32_matmuls():
+            ops = varying_coefficient._VcBatchOps(
+                X, z, y, tcd.GaussianKernel(vp.h), z0, vp.degree,
+                tcd.CDOptions())
+        thrw = (ops.lamw * varying_coefficient._thr_scale(vp.lam0, n, dt)
+                ).contiguous()
+        g = torch.Generator(device=dev).manual_seed(22)
+        B = 0.1 * torch.randn((k, ops.ep), generator=g, device=dev,
+                              dtype=dt) * (torch.rand(
+                                  (k, ops.ep), generator=g, device=dev) < 0.2)
+        state = (B, torch.zeros((k,), dtype=torch.bool, device=dev),
+                 torch.full((k,), float("inf"), dtype=dt, device=dev),
+                 torch.zeros((k,), dtype=torch.int32, device=dev),
+                 torch.zeros((k,), dtype=torch.bool, device=dev), thrw)
+        out[key] = _ms(lambda: vc_round.fused_vc_round(ops, *state), 50)
+        optin = torch.cuda.get_device_properties(
+            dev).shared_memory_per_block_optin
+        out[key]["route"] = vc_round.pick_route(
+            n, X.shape[1], vp.degree + 1, X.element_size(), optin)
+    return out
 
 
 def _group_and_union(X, y, opts, dev) -> dict:

@@ -80,6 +80,10 @@ _SIGNATURES = {
     # beta_out, r_out, maxh, part_c, nb, n, B, G, grid, rows, keep_x,
     # keep_r, iters, wls, smem, stream
     "cdt_group_pass": [_P] * 15 + [_I] * 11 + [_P],
+    # X, y, w, dpow, sc, Lt, adiag, xwnorm, thrw, B, cert, best, stall, esc,
+    # mom, scratch|0, B_out, R, mx, cert_out, best_out, stall_out, esc_out,
+    # k, n, p, q1, iters, route, patience, smem, tol, tol4, stream
+    "cdt_vc_round": [_P] * 23 + [_I] * 8 + [_D, _D, _P],
 }
 
 _lib = None
@@ -238,8 +242,9 @@ def momentum_table(coefs: tuple, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
     """The FISTA momentum coefficients ``coefs``
     (``ops/prox.py::fista_momentum``) as a device tensor of ``dtype``, made
-    once per (coefficients, dtype, device) and kept: K1, GP and the
-    union-block round read it, and a launch copies nothing."""
+    once per (coefficients, dtype, device) and kept: K1, GP, the
+    union-block round and the varying-coefficient round read it, and a
+    launch copies nothing."""
     return torch.tensor(coefs, dtype=dtype, device=device)
 
 

@@ -12,7 +12,8 @@ see that module for the reference functions each one mirrors).
   form, K3/K4 with the screen off and K5 run on the card) or the batched
   execution (``_VcBatchOps``: coarse anchors through the scan, every
   other point certified and refined in chunks of lanes, every product a
-  plain GEMM against the shared X);
+  plain GEMM against the shared X; on the card a refine round is one
+  launch of ``kernels/vc_round.py``);
 - bandwidth selection (``lvocv_locpoly``, ``split_locpoly``,
   ``lvocv_locpolyl1``, sequential or batched), the support and
   interpolation utilities and the sandwich standard errors.
@@ -63,7 +64,8 @@ from ..ops.prox import fista_momentum, soft_threshold
 from ..utils import host
 from ..utils.helpers import (get_sigma, min_norm_lstsq, on_device, std_X,
                              target_device)
-from ..utils.options import CDOptions, auto_batch_lanes, resolve_extrapolate
+from ..utils.options import (CDOptions, auto_batch_lanes,
+                             resolve_extrapolate, use_kernels)
 
 # ---------------------------------------------------------------------------
 # Smoothing kernels
@@ -315,7 +317,9 @@ class _VcBatchOps:
     expanded column (j, d) is ``X_j ⋅ dpow[k, :, d]``, so every product is
     a GEMM against the shared X (``_pred``, ``_xt``) with the powers
     applied around it.  ``thrw`` is an argument throughout (the LOO-CV's
-    λ·σ changes per round)."""
+    λ·σ changes per round).  A refine round (:meth:`round`) is one launch
+    of a hand-written kernel on the card, its plain twin
+    :meth:`round_plain` elsewhere."""
 
     def __init__(self, X, z, y, kernel, z0, degree: int, opts: CDOptions,
                  holdout=None):
@@ -323,11 +327,14 @@ class _VcBatchOps:
         q1 = degree + 1
         dt = X.dtype
         k = z0.shape[0]
-        self.X, self.y, self.opts = X, y, opts
+        self.X, self.y, self.opts = X.contiguous(), y.contiguous(), opts
         self.n, self.p, self.q1, self.ep, self.k = n, p, q1, p * q1, k
         self.sub_f64 = dt.itemsize < 8
         self.eps = torch.finfo(dt).eps
         self.coefs = fista_momentum(opts.block_iters, dt)
+        # the stall escape's rounds (float32 only)
+        self.patience = (opts.stall_patience if self.sub_f64
+                         else np.iinfo(np.int32).max)
         w = evaluate(kernel, z[None, :], z0[:, None])            # (k, n)
         if holdout is not None:
             # leave one out: the held-out row's weight is 0 in its lane
@@ -370,12 +377,14 @@ class _VcBatchOps:
 
     def _xt(self, V, M=None):
         """``Σ_i V[k, i, d] M[i, j]`` → ``(k, ep)`` in (j, d) order: one GEMM
-        ``Mᵀ @ V`` with ``M`` the shared X (default) or ``X∘X``."""
+        ``Mᵀ @ V`` with ``M`` the shared X (default) or ``X∘X``; contiguous
+        (at degree 0 the reshape alone would be a strided view), as the
+        round's kernel takes the diagonals made from it."""
         M = self.X if M is None else M
         k, n, q1 = V.shape
         out = M.T @ V.permute(1, 0, 2).reshape(n, k * q1)       # (p, k·q1)
-        return out.reshape(self.p, k, q1).permute(1, 0, 2).reshape(k,
-                                                                    self.ep)
+        return out.reshape(self.p, k, q1).permute(1, 0, 2).reshape(
+            k, self.ep).contiguous()
 
     def _Kv(self, v):
         u = v / self.sc
@@ -416,6 +425,32 @@ class _VcBatchOps:
             zt = z_new
         return zt / sc
 
+    def round(self, B, cert, best, stall, esc, thrw):
+        """One certify/refine round: :meth:`fista_phase` (certified lanes
+        frozen), the fresh residual, the certificate's per-lane max ``mx``
+        and the stall-escape update.  Returns ``(B, R, mx, cert, best,
+        stall, esc)``.  Under the mode rule (``utils.options.use_kernels``)
+        one launch of the hand-written kernel
+        (``kernels/vc_round.py::fused_vc_round``), else the plain twin
+        :meth:`round_plain`."""
+        if use_kernels(self.opts, B):
+            from ..kernels.vc_round import fused_vc_round
+            return fused_vc_round(self, B, cert, best, stall, esc, thrw)
+        return self.round_plain(B, cert, best, stall, esc, thrw)
+
+    def round_plain(self, B, cert, best, stall, esc, thrw):
+        """Plain twin of :meth:`round`: eager products and elementwise
+        operations, ~430 launches a round at n = 500, p = 50, degree 1 and
+        16 steps."""
+        B = self.fista_phase(B, cert, thrw)
+        # the residual afresh each round: an incrementally kept R would
+        # carry the float32 drift the certificate measures
+        R = self.residual(B)
+        mx = torch.amax(self.certify(B, R, thrw), dim=1)
+        cert, best, stall, esc = stall_escape_update(
+            cert, best, stall, esc, mx, self.patience, self.opts.opt_tol)
+        return B, R, mx, cert, best, stall, esc
+
     def solve(self, B0, thrw, frozen=None):
         """Certify/refine rounds to the engine's KKT criterion (noise floor,
         and at float32 the per-lane stall escape), one counted host read a
@@ -431,8 +466,6 @@ class _VcBatchOps:
         R = self.residual(B)
         mx = torch.amax(self.certify(B, R, thrw), dim=1)
         cert = (mx < tol) | frozen
-        patience = (opts.stall_patience if self.sub_f64
-                    else np.iinfo(np.int32).max)
         best = mx
         stall = torch.zeros((self.k,), dtype=torch.int32, device=dev)
         esc = torch.zeros((self.k,), dtype=torch.bool, device=dev)
@@ -440,13 +473,8 @@ class _VcBatchOps:
         while (rounds < 2 * opts.compact_rounds
                and not host.item(torch.all(cert))):
             with host.span("vc.refine_round"):
-                B = self.fista_phase(B, cert, thrw)
-                # the residual afresh each round: an incrementally kept R
-                # would carry the float32 drift the certificate measures
-                R = self.residual(B)
-                mx = torch.amax(self.certify(B, R, thrw), dim=1)
-                cert, best, stall, esc = stall_escape_update(
-                    cert, best, stall, esc, mx, patience, tol)
+                B, R, _, cert, best, stall, esc = self.round(
+                    B, cert, best, stall, esc, thrw)
             rounds += 1
         self.rounds = rounds
         return B, R, cert, esc

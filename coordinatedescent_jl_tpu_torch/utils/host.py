@@ -65,6 +65,11 @@ Marks are ranges around one launch or one copy that carry its shape, as
 - ``cdt#group_pass n= B= G= iters= x_item=``: one launch of the group
   engine's active pass (``kernels/group_pass.py``), ``iters`` the FISTA
   steps a visit;
+- ``cdt#vc_round k= n= p= q1= iters= x_item= route=``: one launch of the
+  varying-coefficient grid's refine round (``kernels/vc_round.py``) over
+  ``k`` lanes, ``route`` 0 with X in shared memory, 1 with X read from
+  L2; the lanes it refines (those not yet certified) are counted later,
+  under ``vc_round``;
 - ``cdt#union cap=``: one refine round's union selection
   (``models/lasso_path.py::_refine_chunk``), with the union's capacity
   ``compact_size``; the columns of positive union priority are counted

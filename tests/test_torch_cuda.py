@@ -19,7 +19,7 @@ from coordinatedescent_jl_tpu_torch import (  # noqa: E402
     CDOptions, lasso, lasso_duality_gap_compensated, lasso_path,
     polish_lasso)
 from coordinatedescent_jl_tpu_torch.kernels import (  # noqa: E402
-    active_pass, check, gradient_sweep, union_fista)
+    active_pass, check, gradient_sweep, union_fista, vc_round)
 from coordinatedescent_jl_tpu_torch.ops import (  # noqa: E402
     batched_certify, block_cd)
 
@@ -959,6 +959,158 @@ def test_union_fista_kernel_refuses_other_shapes(dev, case):
         union_fista.fused_union_fista(Ks, thr, Bs0, cs0, cert,
                                       CDOptions(block_size=B), n_sweeps=2)
     assert union_fista.LAUNCHES == before
+
+
+# ---- the varying-coefficient round (csrc/vc_round.cu), with the other
+# refine round's tests: after the one-call traces above (heavy card work
+# before them left their traces empty)
+
+
+def _vc_round_lanes(dev, dtype, degree, k, loo, seed=3):
+    """``k`` lanes of ``_VcBatchOps`` at n = 500, p = 50 (float32) or n =
+    300, p = 40 (float64, where X still fits in shared memory), 16 steps:
+    grid lanes over z0 in [0.05, 0.95], or LOO-CV lanes (each lane's own
+    row at zero weight) at rows 0, 1, ...; thresholds λ·σ with a per-lane
+    σ; random sparse starts; every 5th lane certified (frozen); the stall
+    counters one below the patience in every 3rd lane, whose ``best`` is
+    below its max (no improvement).  ``tol`` is set to the geometric mean
+    of two neighbouring per-lane maxima of the twin's round near their
+    median, so no lane's max sits at ``tol`` or ``4 tol``."""
+    from coordinatedescent_jl_tpu_torch import GaussianKernel
+    from coordinatedescent_jl_tpu_torch.models import varying_coefficient
+
+    n, p = (500, 50) if dtype == torch.float32 else (300, 40)
+    rng = np.random.default_rng(seed)
+    z = torch.as_tensor(rng.uniform(0, 1, n), dtype=dtype, device=dev)
+    X = torch.as_tensor(rng.standard_normal((n, p)), dtype=dtype, device=dev)
+    y = torch.sin(2 * np.pi * z) * X[:, 0] + 0.3 * torch.as_tensor(
+        rng.standard_normal(n), dtype=dtype, device=dev)
+    idx = torch.arange(k, device=dev) % n if loo else None
+    z0 = z[idx] if loo else torch.linspace(0.05, 0.95, k, dtype=dtype,
+                                           device=dev)
+    opts = CDOptions(stall_patience=3)
+    ops = varying_coefficient._VcBatchOps(X, z, y, GaussianKernel(0.1), z0,
+                                          degree, opts, holdout=idx)
+    sig = torch.as_tensor(0.5 + rng.random(k), dtype=dtype, device=dev)
+    thrw = (ops.lamw * varying_coefficient._thr_scale(0.05, n, dtype)
+            * sig[:, None]).contiguous()
+    B = torch.as_tensor(0.3 * rng.standard_normal((k, ops.ep))
+                        * (rng.random((k, ops.ep)) < 0.2), dtype=dtype,
+                        device=dev)
+    lane = torch.arange(k, device=dev)
+    cert = lane % 5 == 2
+    stall = torch.where(lane % 3 == 0, 2, 0).to(torch.int32)
+    esc = lane % 7 == 6
+    mx0 = ops.round_plain(B, cert, torch.full((k,), np.inf, dtype=dtype,
+                                              device=dev),
+                          stall, esc, thrw)[2]
+    best = torch.where(lane % 3 == 0, 0.5 * mx0, 2.0 * mx0)
+    m = np.sort(mx0.double().cpu().numpy())
+    i = len(m) // 2
+    tol = float(np.sqrt(m[i] * m[i - 1])) if len(m) > 1 else 0.5 * m[0]
+    ops.opts = opts.replace(opt_tol=tol)
+    return ops, (B, cert, best, stall, esc, thrw)
+
+
+@pytest.mark.parametrize("loo", [False, True])
+@pytest.mark.parametrize("route", [0, 1])
+@pytest.mark.parametrize("k", [1, 94, 128, 200])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vc_round_kernel_matches_twin(dev, dtype, degree, k, route, loo):
+    """The varying-coefficient round's kernel on either route of X against
+    its plain twin: one launch; B within 1e-4 (float32) / 1e-10 (float64)
+    of max |B| and R within that of max |y| (the products' sums run in
+    another order than cuBLAS's, through 16 dependent steps), the per-lane
+    max within 1e-3 / 1e-8 relative, cert, stall and esc exact, and a
+    certified lane's coefficients the twin's bit for bit."""
+    ops, state = _vc_round_lanes(dev, dtype, degree, k, loo)
+    B, cert = state[0], state[1]
+    before = vc_round.LAUNCHES
+    out = vc_round.fused_vc_round(ops, *state, route=route)
+    torch.cuda.synchronize()
+    assert vc_round.LAUNCHES == before + 1
+    ref = ops.round_plain(*state)
+    f32 = dtype == torch.float32
+    assert torch.equal(out[0][cert], ref[0][cert])
+    assert torch.equal(out[0][cert], (B * ops.sc / ops.sc)[cert])
+    tol = 1e-4 if f32 else 1e-10
+    torch.testing.assert_close(out[0], ref[0], rtol=0,
+                               atol=tol * float(ref[0].abs().max()))
+    torch.testing.assert_close(out[1], ref[1], rtol=0,
+                               atol=tol * float(ops.y.abs().max()))
+    torch.testing.assert_close(out[2], ref[2], rtol=1e-3 if f32 else 1e-8,
+                               atol=1e-30)
+    for i, name in ((3, "cert"), (5, "stall"), (6, "esc")):
+        assert out[i].dtype == ref[i].dtype and torch.equal(out[i], ref[i]), \
+            name
+    torch.testing.assert_close(out[4], ref[4], rtol=1e-3 if f32 else 1e-8,
+                               atol=1e-30)
+    # the dispatcher takes the kernel on the card, the twin with
+    # use_pallas=False
+    ops.round(*state)
+    assert vc_round.LAUNCHES == before + 2
+    ops.opts = ops.opts.replace(use_pallas=False)
+    ops.round(*state)
+    assert vc_round.LAUNCHES == before + 2
+
+
+def test_vc_round_kernel_refuses_what_does_not_fit(dev):
+    """Where not even route 1 fits the card's shared memory (p·q1 = 24,000
+    coordinates a lane), the wrapper raises before any launch: a CUDA
+    tensor never falls back to the twin."""
+    from coordinatedescent_jl_tpu_torch import GaussianKernel
+    from coordinatedescent_jl_tpu_torch.models import varying_coefficient
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, p, k = 40, 8000, 2
+    X = torch.randn((n, p), generator=g, device=dev)
+    z = torch.rand((n,), generator=g, device=dev)
+    y = torch.randn((n,), generator=g, device=dev)
+    ops = varying_coefficient._VcBatchOps(
+        X, z, y, GaussianKernel(0.2), z[:k], 2, CDOptions())
+    state = (torch.zeros((k, ops.ep), device=dev),
+             torch.zeros((k,), dtype=torch.bool, device=dev),
+             torch.ones((k,), device=dev),
+             torch.zeros((k,), dtype=torch.int32, device=dev),
+             torch.zeros((k,), dtype=torch.bool, device=dev),
+             ops.lamw.contiguous())
+    before = vc_round.LAUNCHES
+    with pytest.raises(ValueError, match="vc-round kernel"):
+        ops.round(*state)
+    assert vc_round.LAUNCHES == before
+
+
+def test_vc_grid_rounds_are_kernel_launches_at_the_cell_shape(dev):
+    """One ``locpolyl1`` fit at the varying-coefficient cell's shape (n =
+    500, p = 50, degree 1, 1000 grid points, 128 lanes, float32)
+    certifies every lane with one round kernel launch a refine round, and
+    its coefficients agree with the plain rounds' in support (no
+    coordinate above 1e-4 in one and not the other) and within 1e-4."""
+    import warnings
+
+    from coordinatedescent_jl_tpu_torch import GaussianKernel, locpolyl1
+    from coordinatedescent_jl_tpu_torch.profile_paths import vc_bench_problem
+
+    vp = vc_bench_problem(dev)
+    kern = GaussianKernel(vp.h)
+    st, sp = {}, {}
+    before = vc_round.LAUNCHES
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        ok_, _ = locpolyl1(vp.X, vp.z, vp.y, vp.zgrid, 1, kern, vp.lam0,
+                           grid_batch=128, stats=st)
+        op, _ = locpolyl1(vp.X, vp.z, vp.y, vp.zgrid, 1, kern, vp.lam0,
+                          options=CDOptions(use_pallas=False),
+                          grid_batch=128, stats=sp)
+    assert st["used_batched"] and st["batched_certified"]
+    assert sp["batched_certified"]
+    assert st["refine_rounds"] >= 8
+    assert vc_round.LAUNCHES - before == st["refine_rounds"]
+    differ = ((ok_ != 0) != (op != 0)) & (torch.maximum(ok_.abs(), op.abs())
+                                          > 1e-4)
+    assert int(differ.sum()) == 0
+    torch.testing.assert_close(ok_, op, atol=1e-4, rtol=0)
 
 
 def test_refit_lasso_path_runs_on_the_card(dev):

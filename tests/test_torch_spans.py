@@ -14,8 +14,10 @@ record under the same names (``test_real_profiler_records_the_ranges``).
 """
 
 import contextlib
+import ctypes
 import itertools
 import re
+import types
 
 import numpy as np
 import pytest
@@ -257,6 +259,77 @@ def test_vc_refine_round_spans_count_the_rounds(recorded):
     assert _count(ranges, "vc.refine") == 2       # 16 lanes, chunks of 8
     for name in ("vc.batched", "vc.anchors", "vc.refit"):
         assert _count(ranges, name) == 1
+
+
+@pytest.fixture
+def fake_vc_round(monkeypatch):
+    """The varying-coefficient round's launch path on the CPU: the mode
+    rule takes the kernel, and the library's entry point writes what the
+    plain twin computes for that round into the launch's output buffers
+    (``B, R, mx, cert, best, stall, esc``, its 17th to 23rd arguments).
+    Returns the entry point's calls."""
+    from coordinatedescent_jl_tpu_torch.kernels import _build, vc_round
+    from coordinatedescent_jl_tpu_torch.models import varying_coefficient
+
+    calls, pending = [], []
+
+    def entry(*args):
+        calls.append(args)
+        for ptr, t in zip(args[16:23], pending.pop()):
+            t = t.contiguous()
+            ctypes.memmove(ptr, t.data_ptr(), t.numel() * t.element_size())
+        return 0
+
+    def launch(ops, *state):
+        pending.append(ops.round_plain(*state))
+        return vc_round._launch(ops, *state)
+
+    lib = types.SimpleNamespace(cdt_vc_round_f32=entry,
+                                cdt_vc_round_f64=entry)
+    monkeypatch.setattr(varying_coefficient, "use_kernels", lambda o, t: True)
+    monkeypatch.setattr(vc_round, "fused_vc_round", launch)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda dev=None: 0)
+    monkeypatch.setattr(_build, "smem_optin", lambda dev: 232_448)
+    return calls
+
+
+def test_vc_round_mark_one_a_launch_counted_later(recorded, fake_vc_round):
+    """A ``cdt#vc_round`` mark around each launch of the round's kernel,
+    one a refine round inside its ``vc.refine_round`` span, with the
+    launch's shape and route; the live lanes of each are counted once the
+    entry point has returned (``cdt#counted vc_round=``), and that count
+    adds no host read: the counted reads, the stats and the output are
+    those of the run without a profiler."""
+    from coordinatedescent_jl_tpu_torch.kernels import vc_round
+
+    quiet = {}
+    r0 = host.COUNTS["host_reads"]
+    off = _vc(quiet)
+    reads_off = host.COUNTS["host_reads"] - r0
+    n_off = len(fake_vc_round)
+    st = {}
+    l0 = vc_round.LAUNCHES
+    on, ranges = recorded(_vc, st)
+    assert host.COUNTS["host_reads"] - r0 - reads_off == reads_off
+    assert quiet == st and st["batched_certified"]
+    assert all(torch.equal(a, b) for a, b in zip(on, off, strict=True))
+    rounds = [r for r in ranges if r[0] == "cdt:vc.refine_round"]
+    marks = [r for r in ranges if r[0].startswith("cdt#vc_round ")]
+    assert len(marks) == len(rounds) == st["refine_rounds"] == n_off >= 2
+    assert vc_round.LAUNCHES - l0 == st["refine_rounds"]
+    assert all(any(_inside(m, r) for r in rounds) for m in marks)
+    # 16 lanes in two chunks of 8; float64, route 0 (X in shared memory)
+    assert _marks(ranges, "vc_round") == [
+        {"k": 8, "n": 100, "p": 6, "q1": 2, "iters": 16, "x_item": 8,
+         "route": 0}] * len(marks)
+    (counted,) = [r for r in ranges if r[0].startswith("cdt#counted")]
+    assert counted is ranges[-1]
+    head, pair = counted[0].split(" ")
+    kind, live = pair.split("=")
+    live = [int(c) for c in live.split(",")]
+    assert kind == "vc_round" and len(live) == len(marks)
+    assert all(1 <= c <= 8 for c in live)
 
 
 def test_polish_spans(recorded):

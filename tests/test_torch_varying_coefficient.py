@@ -345,6 +345,135 @@ def test_vc_batch_ops_products_match_einsum():
     close(ops._xt(V), ref, rtol=1e-13)
 
 
+def _vc_round_state(dtype, degree, holdout, seed=5):
+    """A chunk of 6 lanes of ``_VcBatchOps`` mid-refinement at n = 40, p =
+    4, 5 FISTA steps a round and a stall patience of 2: random starts,
+    lanes 1 and 4 certified (frozen), thresholds scaled by a per-lane σ (as
+    the LOO-CV's λ·σ), the stall counters near the patience; for
+    ``holdout`` each lane's own row at zero weight (the LOO-CV's lanes)."""
+    X, z, y = bench_like(40, 4, seed)
+    X, z, y = (t(a).to(dtype) for a in (X, z, y))
+    k = 6
+    idx = torch.arange(3, 3 + k) if holdout else None
+    z0 = z[idx] if holdout else torch.linspace(0.1, 0.9, k, dtype=dtype)
+    opts = TOPTS.replace(block_iters=5, stall_patience=2, opt_tol=1e-3)
+    ops = tvc._VcBatchOps(X, z, y, tcd.GaussianKernel(0.2), z0, degree,
+                          opts, holdout=idx)
+    rng = np.random.default_rng(seed)
+    sig = torch.as_tensor(0.5 + rng.random(k), dtype=dtype)
+    thrw = ops.lamw * tvc._thr_scale(0.05, 40, dtype) * sig[:, None]
+    B = torch.as_tensor(rng.standard_normal((k, ops.ep))
+                        * (rng.random((k, ops.ep)) < 0.4), dtype=dtype)
+    cert = torch.tensor([False, True, False, False, True, False])
+    best = torch.as_tensor(rng.random(k), dtype=dtype)
+    stall = torch.tensor([0, 3, 2, 1, 0, 2], dtype=torch.int32)
+    esc = torch.tensor([False, False, True, False, False, False])
+    return ops, (B, cert, best, stall, esc, thrw)
+
+
+@pytest.mark.parametrize("holdout", [False, True])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vc_round_plain_is_the_old_sequence(dtype, degree, holdout):
+    """``_VcBatchOps.round_plain`` (and ``round`` and the kernel wrapper,
+    which run it on the CPU) equals the sequence it gathers bit for bit:
+    ``fista_phase``, the fresh residual, ``certify``'s per-lane max and
+    ``stall_escape_update``; a certified lane's coefficients are ``(B ·
+    sc) / sc``; the lanes' tensors are what the kernel takes."""
+    from coordinatedescent_jl_tpu_torch.kernels import vc_round
+    from coordinatedescent_jl_tpu_torch.ops.batched_certify import (
+        stall_escape_update)
+
+    ops, (B, cert, best, stall, esc, thrw) = _vc_round_state(dtype, degree,
+                                                             holdout)
+    # the kernel takes these as they are, at every degree
+    vc_round.require_inputs(ops.X, ops.y, ops.w, ops.dpow, ops.sc, ops.Lt,
+                            ops.adiag, ops.xwnorm, thrw, B, cert, best,
+                            stall, esc)
+    Bn = ops.fista_phase(B, cert, thrw)
+    R = ops.residual(Bn)
+    mx = torch.amax(ops.certify(Bn, R, thrw), dim=1)
+    patience = 2 if dtype == torch.float32 else np.iinfo(np.int32).max
+    want = (Bn, R, mx, *stall_escape_update(cert, best, stall, esc, mx,
+                                            patience, 1e-3))
+    for got in (ops.round_plain(B, cert, best, stall, esc, thrw),
+                ops.round(B, cert, best, stall, esc, thrw),
+                vc_round.fused_vc_round(ops, B, cert, best, stall, esc,
+                                        thrw)):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(Bn[cert], (B * ops.sc / ops.sc)[cert])
+    assert not torch.equal(Bn[~cert], B[~cert])
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device", "layout",
+                                  "cert", "stall", "powers"])
+def test_vc_round_require_inputs_rejects(case):
+    """The kernel's input check refuses a dtype other than float32 /
+    float64, a wrong shape, a tensor on another device, a non-contiguous
+    tensor, a ``cert`` that is not bool, a ``stall`` that is not int32 and
+    a ``B`` whose columns are not ``p·q1``."""
+    from coordinatedescent_jl_tpu_torch.kernels import vc_round
+
+    ops, (B, cert, best, stall, esc, thrw) = _vc_round_state(torch.float32,
+                                                             1, False)
+    t_ = {"X": ops.X, "y": ops.y, "w": ops.w, "dpow": ops.dpow,
+          "sc": ops.sc, "Lt": ops.Lt, "adiag": ops.adiag,
+          "xwnorm": ops.xwnorm, "thrw": thrw, "B": B, "cert": cert,
+          "best": best, "stall": stall, "esc": esc}
+    vc_round.require_inputs(**t_)
+    if case == "dtype":
+        t_ = {k: v.half() if v.is_floating_point() else v
+              for k, v in t_.items()}
+    elif case == "shape":
+        t_["thrw"] = thrw[:, 1:].contiguous()
+    elif case == "device":
+        t_["y"] = ops.y.to("meta")
+    elif case == "layout":
+        t_["sc"] = ops.sc.T.contiguous().T
+    elif case == "cert":
+        t_["cert"] = cert.to(torch.uint8)
+    elif case == "stall":
+        t_["stall"] = stall.long()
+    else:
+        t_["dpow"] = ops.dpow[:, :, :1].contiguous()
+    with pytest.raises(ValueError, match="vc-round kernel"):
+        vc_round.require_inputs(**t_)
+
+
+def test_vc_round_smem_bytes_pick_the_route():
+    """``smem_bytes`` counts ``csrc/vc_round.cu::vc_layout``'s arrays (hand
+    counts below), and ``pick_route`` takes route 0 exactly where its bytes
+    fit the card's opt-in shared memory (232,448 bytes on an H100): the
+    float32 varying-coefficient grid (n = 500, p = 50, degree 1) keeps X in
+    shared memory, float64 reads it from L2."""
+    from coordinatedescent_jl_tpu_torch.kernels import vc_round
+
+    optin = 232_448
+    assert vc_round.groups(500, 50) == 10
+    assert vc_round.groups(3, 50) == 3 and vc_round.groups(10, 600) == 1
+    # X 500 x 51, w and y 500 each, dpow and (w r) dpow 1,000 each, five
+    # step vectors of 100, 10 x 100 partials, 32 slots
+    f32 = 4 * (25_500 + 2 * 500 + 2 * 1_000 + 5 * 100 + 1_000 + 32)
+    assert vc_round.smem_bytes(500, 50, 2, 4, 0) == f32 == 120_128
+    assert vc_round.smem_bytes(500, 50, 2, 8, 0) == 2 * f32 > optin
+    assert vc_round.smem_bytes(500, 50, 2, 8, 1) == 8 * (5 * 100 + 1_000
+                                                         + 32)
+    # every array rounded up to 16 bytes: 21 -> 24, 7 -> 8, 3 -> 4
+    assert vc_round.smem_bytes(7, 3, 1, 4, 0) == 4 * (24 + 2 * 8 + 2 * 8
+                                                      + 5 * 4 + 24 + 32)
+    assert vc_round.pick_route(500, 50, 2, 4, optin) == 0
+    assert vc_round.pick_route(500, 50, 2, 8, optin) == 1
+    for n, p, q1, item in ((500, 50, 2, 4), (500, 50, 3, 4), (2000, 40, 2, 4),
+                           (200, 50, 1, 8), (60, 700, 2, 4)):
+        b0 = vc_round.smem_bytes(n, p, q1, item, 0)
+        assert vc_round.pick_route(n, p, q1, item, b0) == 0
+        assert vc_round.pick_route(n, p, q1, item, b0 - 1) == 1
+        assert vc_round.pick_route(n, p, q1, item, optin) == int(b0 > optin)
+        assert vc_round.smem_bytes(n, p, q1, item, 1) < b0
+
+
 # -- bandwidth selection ---------------------------------------------------------
 
 
