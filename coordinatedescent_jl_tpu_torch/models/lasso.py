@@ -190,7 +190,9 @@ def _feasible_lasso_core(X, y, lam0: float, beta0, key,
     else:
         r = y - _blocks_matvec(prob.Xb, beta_b)
     # from the blocked layout: no design-sized temporary in the rounds
-    gam = get_loadings_blocked(prob.Xb, r, p)
+    with host.span("feasible.loadings"):
+        gam = get_loadings_blocked(prob.Xb, r, p)
+        host.settle(gam)
 
     n_scale = float(y.shape[0])
     st = _init_state("ls", prob, beta_b, key)
@@ -198,18 +200,21 @@ def _feasible_lasso_core(X, y, lam0: float, beta0, key,
     cache = _empty_ws_cache("ls", prob, nc, cd) if nc else None
     it, done = 0, False
     while not done and it < opts.max_iter:
-        # the cached gradient does not depend on the penalty weights, so it
-        # (and the raw-column working-set cache) survives the loading update
-        prob_g = prob._replace(lamw=_blocked_weights(gam, B))
-        if cd.warm_start:
-            st, cache = _solve_at_lambda_ws("ls", cd, prob_g, lam0, st,
-                                            n_scale, cache)
-        else:
-            st = solve_blocked("ls", cd, prob_g, lam0,
-                               torch.zeros_like(st.beta), key)
-        gam_new = get_loadings_blocked(prob.Xb, st.r, p)
-        done = host.item(torch.max(torch.abs(gam - gam_new))
-                         / torch.max(gam_new) < opts.opt_tol)
+        with host.span("feasible.round"):
+            # the cached gradient does not depend on the penalty weights, so
+            # it (and the raw-column working-set cache) survives the loading
+            # update
+            prob_g = prob._replace(lamw=_blocked_weights(gam, B))
+            if cd.warm_start:
+                st, cache = _solve_at_lambda_ws("ls", cd, prob_g, lam0, st,
+                                                n_scale, cache)
+            else:
+                st = solve_blocked("ls", cd, prob_g, lam0,
+                                   torch.zeros_like(st.beta), key)
+            with host.span("feasible.loadings"):
+                gam_new = get_loadings_blocked(prob.Xb, st.r, p)
+                done = host.item(torch.max(torch.abs(gam - gam_new))
+                                 / torch.max(gam_new) < opts.opt_tol)
         gam = gam_new
         it += 1
     return _unblock(st.beta, p), st.r, gam

@@ -516,8 +516,9 @@ def polish_feasible_lasso(X, y, beta, lam0, *, target_rel_gap: float = 1e-7,
     lam0 = float(lam0)
 
     def loadings(b_np):
-        return host_f64(loadings_f64(X, _support_residual(X, y, b_np)[0],
-                                     col_chunk=col_chunk))
+        with host.span("polish.loadings"):
+            return host_f64(loadings_f64(X, _support_residual(X, y, b_np)[0],
+                                         col_chunk=col_chunk))
 
     gam = loadings(beta_np)
     rounds = 0
@@ -525,41 +526,42 @@ def polish_feasible_lasso(X, y, beta, lam0, *, target_rel_gap: float = 1e-7,
     rel_change = float("nan")
     converged = False
     for lr in range(max_loading_rounds):
-        res = polish_lasso(X, y, beta_np, lam0, gam,
-                           target_rel_gap=target_rel_gap, device=dev,
-                           **polish_kw)
-        beta_np = host_f64(res.beta)
-        rounds += res.rounds
-        gam_new = loadings(beta_np)
-        rel_change = float(np.max(np.abs(gam_new - gam))
-                           / max(float(np.max(gam_new)), 1e-300))
-        gam = gam_new
-        if res.converged and rel_change <= gamma_rtol:
-            converged = True
-            break
-        ws = _restricted_set(X, y64, torch.as_tensor(gam, device=dev),
-                             beta_np)
-        if ws is None:
-            continue
-        prob, st, Xs, idx_np, sup = ws
-        gam = np.array(gam, np.float64)                  # writable copy
-        tol_in = 1e-10 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
-        gmax = max(float(np.max(gam)), 1e-300)
-        for _ in range(40):
-            with host.span("polish.restricted_solve"):
-                st, beta_s, r64, _, _ = _restricted_sweeps(
-                    "ls", prob, st, Xs, y64, lam0, tol_in)
-            gS = _ws_loadings(Xs, r64)
-            dS = host.item(torch.max(torch.abs(gS - prob.lamw.reshape(-1))
-                                     [:sup.size])) / gmax
-            # the pad slots keep their weight 1 (zero columns, pinned at 0)
-            lamw_s = prob.lamw.reshape(-1).clone()
-            lamw_s[:sup.size] = gS[:sup.size]
-            prob = prob._replace(lamw=lamw_s.reshape(prob.lamw.shape))
-            if dS <= 0.1 * gamma_rtol:
+        with host.span("polish.loading_round"):
+            res = polish_lasso(X, y, beta_np, lam0, gam,
+                               target_rel_gap=target_rel_gap, device=dev,
+                               **polish_kw)
+            beta_np = host_f64(res.beta)
+            rounds += res.rounds
+            gam_new = loadings(beta_np)
+            rel_change = float(np.max(np.abs(gam_new - gam))
+                               / max(float(np.max(gam_new)), 1e-300))
+            gam = gam_new
+            if res.converged and rel_change <= gamma_rtol:
+                converged = True
                 break
-        gam[sup] = host_f64(prob.lamw.reshape(-1)[:sup.size])
-        beta_np = _scatter(beta_s, idx_np, p)
+            ws = _restricted_set(X, y64, torch.as_tensor(gam, device=dev),
+                                 beta_np)
+            if ws is None:
+                continue
+            prob, st, Xs, idx_np, sup = ws
+            gam = np.array(gam, np.float64)                  # writable copy
+            tol_in = 1e-10 * max(1.0, float(np.max(np.abs(beta_np)) or 1.0))
+            gmax = max(float(np.max(gam)), 1e-300)
+            for _ in range(40):
+                with host.span("polish.restricted_solve"):
+                    st, beta_s, r64, _, _ = _restricted_sweeps(
+                        "ls", prob, st, Xs, y64, lam0, tol_in)
+                gS = _ws_loadings(Xs, r64)
+                dS = host.item(torch.max(torch.abs(gS - prob.lamw.reshape(-1))
+                                         [:sup.size])) / gmax
+                # the pad slots keep their weight 1 (zero columns, pinned at 0)
+                lamw_s = prob.lamw.reshape(-1).clone()
+                lamw_s[:sup.size] = gS[:sup.size]
+                prob = prob._replace(lamw=lamw_s.reshape(prob.lamw.shape))
+                if dS <= 0.1 * gamma_rtol:
+                    break
+            gam[sup] = host_f64(prob.lamw.reshape(-1)[:sup.size])
+            beta_np = _scatter(beta_s, idx_np, p)
     return FeasiblePolishResult(
         beta=torch.as_tensor(beta_np, device=dev),
         loadings=torch.as_tensor(gam, device=dev), gap=res.gap,

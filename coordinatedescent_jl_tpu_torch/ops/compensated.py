@@ -224,9 +224,12 @@ def loadings_f64(X, r64, col_chunk: int = 2048):
     form's squared terms alone carry ~6e-8 relative error, too coarse to
     certify the feasible Lasso's loading fixed point at 1e-7).  Per chunk
     one ``(n, chunk)`` float64 square and one float64 product; no
-    design-sized temporary."""
+    design-sized temporary.  Marked ``cdt#loadings`` as
+    ``get_loadings_blocked`` is."""
     n, p = X.shape
     rr = r64 * r64
-    out = torch.cat([rr @ X[:, c:c + col_chunk].to(torch.float64).square()
-                     for c in range(0, p, col_chunk)])
-    return torch.sqrt(out / n)
+    with host.mark("loadings", n=n, p=p, x_item=X.element_size(),
+                   acc=rr.element_size()):
+        out = torch.cat([rr @ X[:, c:c + col_chunk].to(torch.float64)
+                         .square() for c in range(0, p, col_chunk)])
+        return torch.sqrt(out / n)

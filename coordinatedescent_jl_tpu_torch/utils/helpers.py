@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from . import host
+
 
 def target_device(device=None) -> torch.device:
     """The device an entry point runs on.  ``None`` means ``"cuda"``: the
@@ -55,12 +57,15 @@ def get_loadings_blocked(Xb, e, p: int):
     """``get_loadings`` from the blocked design ``Xb (nb, n, B)``, 16
     column blocks at a time, so that no design-sized ``X∘X`` temporary is
     made (4 GB at n = 10K, p = 100K).
-    Padded columns are all-zero (loading 0) and are sliced off."""
+    Padded columns are all-zero (loading 0) and are sliced off.  Marked
+    ``cdt#loadings`` with the shape and the accumulation's item size."""
     n = Xb.shape[1]
     ee = e * e
-    s = torch.cat([torch.matmul(ee, Xb[i:i + 16].square())
-                   for i in range(0, Xb.shape[0], 16)])    # (nb, B)
-    return torch.sqrt(s.reshape(-1)[:p] / n)
+    with host.mark("loadings", n=n, p=p, x_item=Xb.element_size(),
+                   acc=ee.element_size()):
+        s = torch.cat([torch.matmul(ee, Xb[i:i + 16].square())
+                       for i in range(0, Xb.shape[0], 16)])    # (nb, B)
+        return torch.sqrt(s.reshape(-1)[:p] / n)
 
 
 def min_norm_lstsq(A, b):

@@ -46,16 +46,24 @@ and the Chrome trace shows each phase as a ``cdt:<layer>.<phase>`` range:
 - the varying-coefficient grid (``models/varying_coefficient.py``):
   ``vc.scan``, or ``vc.batched`` around ``vc.anchors``, ``vc.refine`` (a
   chunk), in which ``vc.refine_round``, and ``vc.refit``;
+- the feasible Lasso's loading rounds (``models/lasso.py``):
+  ``feasible.round`` a round, ``feasible.loadings`` around each loadings
+  sweep with the read that follows it;
 - the float64 polishes (``models/polish.py``): ``polish.lasso``,
   ``polish.sqrt_lasso``, ``polish.scaled_lasso``,
   ``polish.feasible_lasso``, ``polish.group_lasso`` around each call,
-  ``polish.restricted_solve`` and ``polish.certify`` in each round.
+  ``polish.restricted_solve`` and ``polish.certify`` in each round;
+  ``polish.loading_round`` a round of the feasible polish and
+  ``polish.loadings`` around its float64 loadings sweep and read.
 
 Marks are ranges around one launch or one copy that carry its shape, as
 ``cdt#<kind> k=v ...``:
 
 - ``cdt#k5f64 n= p= x_item=``: one ``grad_f64`` sweep (K5's float64
   instantiation on the card);
+- ``cdt#loadings n= p= x_item= acc=``: one sweep of the feasible Lasso's
+  penalty loadings over the design (``get_loadings_blocked``,
+  ``loadings_f64``), ``acc`` the item size it accumulates in;
 - ``cdt#design_copy bytes=``: one copy of a design that a problem's
   set-up makes (a padding, a blockify, the weighted ``X·w``), with the
   bytes it writes;
@@ -184,6 +192,14 @@ def mark(kind: str, later=None, **attrs):
         _LATER.append((kind, later))
     return _range(MARK_PREFIX + kind
                   + "".join(f" {k}={v}" for k, v in attrs.items()))
+
+
+def settle(t):
+    """Under a profiler, wait for the device work behind ``t``, so that a
+    span holding its launches but ending in no read holds its device
+    operations too; nothing otherwise."""
+    if profiling() and t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
 
 
 def _count_kept():

@@ -1,9 +1,10 @@
 """The port's profiler spans and marks (``utils/host.py``), on the CPU at
 tiny shapes: with no profiler running nothing is recorded (patched range
 openers that raise are never reached); while one runs the
-engine's epoch spans count the epochs, the refine-round spans count the
-rounds the entry points report, the design-copy marks carry the bytes of
-the copies, the K5 f64 mark its shape; the outputs are the same bit for
+engine's epoch spans count the epochs, the refine-round and loading-round
+spans count the rounds the entry points report, the design-copy marks
+carry the bytes of the copies, the K5 f64 and loadings marks their
+shapes; the outputs are the same bit for
 bit with the profiler on and off.
 
 The counts are read through a recording range opener with the profiler's
@@ -88,8 +89,33 @@ def _vc(stats=None):
                          grid_batch=8, coarse_stride=7, stats=stats, **CPU)
 
 
+def _hetero(n=150, p=300, s=6, seed=9):
+    """A float32 problem whose noise grows with the signal (the feasible
+    Lasso's deployment)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, p))
+    b = np.zeros(p)
+    b[rng.choice(p, s, replace=False)] = rng.standard_normal(s)
+    f = X @ b
+    sd = np.abs(1 + f) / np.sqrt(np.mean((1 + f) ** 2))
+    y = f + sd * rng.standard_normal(n)
+    return (torch.as_tensor(X.astype(np.float32)),
+            torch.as_tensor(y.astype(np.float32)))
+
+
+FEASIBLE_OPTS = tcd.IterLassoOptions(options_cd=OPTS.replace(opt_tol=1e-6))
+
+
+def _feasible():
+    X, y = _hetero()
+    lam0 = float(np.sqrt(2 * np.log(X.shape[1]) / X.shape[0]))
+    sol = tcd.feasible_lasso(X, y, lam0, options=FEASIBLE_OPTS, **CPU)
+    res = tcd.polish_feasible_lasso(X, y, sol.x, lam0, **CPU)
+    return sol.x, sol.penalty.weights, res.beta, res.loadings
+
+
 ENTRIES = {"lasso_polish": _lasso_polish, "path": _path, "group": _group,
-           "locpolyl1": _vc}
+           "locpolyl1": _vc, "feasible": _feasible}
 
 
 @pytest.fixture
@@ -355,6 +381,83 @@ def test_k5f64_mark_on_grad_f64(recorded):
     g, ranges = recorded(gradient_sweep.grad_f64, X, r)
     assert torch.equal(g, gradient_sweep.grad_f64(X, r))
     assert _marks(ranges, "k5f64") == [{"n": 30, "p": 70, "x_item": 8}]
+
+
+def test_feasible_round_spans_count_the_rounds(recorded, monkeypatch):
+    """One ``feasible.round`` span an outer loading round, and one
+    ``feasible.loadings`` span a loadings sweep (the start's and each
+    round's), each round's inside its round; the polish opens one
+    ``polish.loading_round`` span a round it reports and one
+    ``polish.loadings`` span a float64 sweep, inside its call."""
+    from coordinatedescent_jl_tpu_torch.models import lasso, polish
+
+    sweeps = {"f32": 0, "f64": 0}
+
+    def counting(fn, key):
+        def call(*a, **k):
+            sweeps[key] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(lasso, "get_loadings_blocked",
+                        counting(lasso.get_loadings_blocked, "f32"))
+    monkeypatch.setattr(polish, "loadings_f64",
+                        counting(polish.loadings_f64, "f64"))
+    X, y = _hetero()
+    lam0 = float(np.sqrt(2 * np.log(X.shape[1]) / X.shape[0]))
+    sol, ranges = recorded(lambda: tcd.feasible_lasso(
+        X, y, lam0, options=FEASIBLE_OPTS, **CPU))
+    rounds = [r for r in ranges if r[0] == "cdt:feasible.round"]
+    sweeps_f32 = [r for r in ranges if r[0] == "cdt:feasible.loadings"]
+    assert len(rounds) == sweeps["f32"] - 1 >= 2
+    assert len(sweeps_f32) == sweeps["f32"]
+    assert all(any(_inside(w, r) for r in rounds) for w in sweeps_f32[1:])
+    assert not any(_inside(sweeps_f32[0], r) for r in rounds)
+    (entry,) = [r for r in ranges if r[0] == "cdt:est.feasible_lasso"]
+    assert all(_inside(r, entry) for r in rounds + sweeps_f32)
+
+    res, ranges = recorded(lambda: tcd.polish_feasible_lasso(
+        X, y, sol.x, lam0, **CPU))
+    assert res.converged
+    prounds = [r for r in ranges if r[0] == "cdt:polish.loading_round"]
+    psweeps = [r for r in ranges if r[0] == "cdt:polish.loadings"]
+    assert len(prounds) == res.loading_rounds >= 1
+    assert len(psweeps) == sweeps["f64"] == res.loading_rounds + 1
+    (whole,) = [r for r in ranges if r[0] == "cdt:polish.feasible_lasso"]
+    assert all(_inside(r, whole) for r in prounds + psweeps)
+    assert all(any(_inside(w, r) for r in prounds) for w in psweeps[1:])
+
+
+def test_loadings_marks_carry_the_shape_and_accumulation(recorded):
+    """A ``cdt#loadings`` mark a sweep, inside its span: the float32
+    rounds' sweeps accumulate in the design's float32 (``acc=4``), the
+    polish's in float64 (``acc=8``)."""
+    out, ranges = recorded(_feasible)
+    f32 = [r for r in ranges if r[0] == "cdt:feasible.loadings"]
+    f64 = [r for r in ranges if r[0] == "cdt:polish.loadings"]
+    marks = [r for r in ranges if r[0].startswith("cdt#loadings ")]
+    assert len(marks) == len(f32) + len(f64)
+    assert all(sum(_inside(m, w) for w in f32 + f64) == 1 for m in marks)
+    got = _marks(ranges, "loadings")
+    assert got == ([{"n": 150, "p": 300, "x_item": 4, "acc": 4}] * len(f32)
+                   + [{"n": 150, "p": 300, "x_item": 4, "acc": 8}]
+                   * len(f64))
+
+
+def test_settle_waits_only_under_a_profiler(monkeypatch):
+    """``host.settle`` synchronizes the tensor's stream while a profiler
+    runs and the tensor is on the card; otherwise it does nothing."""
+    waits = []
+    stream = types.SimpleNamespace(synchronize=lambda: waits.append(1))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: stream)
+    card = types.SimpleNamespace(is_cuda=True, device="cuda:0")
+    host.settle(card)
+    host.settle(torch.ones(2))
+    assert waits == []
+    monkeypatch.setattr(host, "profiling", lambda: True)
+    host.settle(torch.ones(2))
+    host.settle(card)
+    assert waits == [1]
 
 
 def _copies(recorded, fn):
