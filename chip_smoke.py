@@ -20,9 +20,13 @@ Phases, each failing loudly (exit code 1, no result line):
    (float32 FISTA and exact on the working set, float64 exact on the sqrt
    polish's inner-solve blocks), β, r, maxh and the returned ``‖r‖²``
    against the twins; K5 on the working set's 8 blocks
-   and on the full design; then the K2/K5 crossover of the gradient
-   refresh; K3 (screen on and off) and K4 on a mid-solve state, with
-   exact masks, one device kernel and no host read per call, and again on
+   and on the full design; the loadings sweep LD (the feasible Lasso's
+   ``Σ_i r_i² x_ij²``) on the full blocked design in float32 and, after K5's
+   float64-accumulating form, on the dense design in float64, each one
+   ``loadings_kernel`` a call with no host read; then the K2/K5 crossover
+   of the gradient refresh; K3 (screen on and off) and K4 on a mid-solve
+   state, with exact masks, one device kernel and no host read per call,
+   and again on
    8 of its blocks (the lasso's working set) on their plain one-CTA route,
    held as at one block below; then, at the
    varying-coefficient scan's shape (one grid point's wls problem of 4j:
@@ -70,7 +74,7 @@ Phases, each failing loudly (exit code 1, no result line):
    e. ``scaled_lasso`` at sqrt(2 ln p / n) then ``polish_scaled_lasso``:
       relative gap and relative σ change <= 1e-7;
    f. ``feasible_lasso`` at the same level then ``polish_feasible_lasso``:
-      relative gap <= 1e-7, converged;
+      relative gap <= 1e-7, converged; each launches the loadings sweep;
    g. one ``coordinate_descent(WeightedLSLoss, ProxL1)`` solve with random
       row weights in [0.5, 1.5] at 0.05·λmax of the weighted problem,
       kernels and plain: same support; the run that launches K1's wls form
@@ -831,6 +835,29 @@ def main():
            f4 * (nb_full * n * B + n + nb_full * B),
            2 * nb_full * n * B, library_ms=lms)
 
+    # LD, the loadings sweep on the blocked design (get_loadings_blocked:
+    # the float32 rounds of feasible_lasso), w = r²: sums of n = 10K
+    # positive terms in other orders than the twin's batched products,
+    # relative 1e-5 column by column; the padded columns exactly 0
+    w = st.r * st.r
+    lk = gs.loadings_sweep(full.Xb, w)
+    lp = gs.loadings_sweep_plain(full.Xb, w)
+    err = float(((lk.double() - lp.double()).abs()
+                 / lp.double().clamp_min(1e-30))[full.valid].max())
+    ok = ok and not lk[~full.valid].any()
+    ms = cuda_ms(lambda: gs.loadings_sweep(full.Xb, w), 10)
+    pms = cuda_ms(lambda: gs.loadings_sweep_plain(full.Xb, w), 3)
+    reads, names, dms = one_call(lambda: gs.loadings_sweep(full.Xb, w))
+    report("LD", "LD loadings_sweep", err, 1e-5, ms, pms,
+           f"all {nb_full} blocks, float32, relative error; one call: "
+           f"device {dms:.4f} ms, {len(names)} kernel(s), {reads} host "
+           f"reads", f4 * (nb_full * n * B + n + nb_full * B),
+           3 * nb_full * n * B, device_ms=dms)
+    if reads or len(names) != 1 or "loadings_kernel" not in names[0]:
+        fail(f"loadings_sweep must launch one loadings_kernel and read "
+             f"nothing to the host: {names}, {reads} reads")
+    del lk, lp, w
+
     # K2/K5 crossover of the gradient refresh (_refresh_c): the restricted
     # sweep at a fraction of the blocks against the dense branch (K5 and
     # the merge with the cached c)
@@ -890,7 +917,25 @@ def main():
     report("K5f64", "K5 grad_f64", err, tol, ms, pms,
            f"dense ({n}, {p}) f32, f64 r and accumulation",
            f4 * n * p + 8 * n + 8 * p, 2 * n * p, peak="f64")
-    del gk, gp, r64
+    # LD float64 (loadings_f64: the feasible polish's loadings), w = r64²
+    # on the dense design: each element widened and squared exactly in
+    # float64; sums of n = 10K positive terms, relative 1e-12
+    w64 = r64 * r64
+    lk = gs.loadings_f64_sweep(X, w64)
+    lp = gs.loadings_f64_sweep_plain(X, w64)
+    err = float(((lk - lp).abs() / lp.clamp_min(1e-300)).max())
+    ms = cuda_ms(lambda: gs.loadings_f64_sweep(X, w64), 10)
+    pms = cuda_ms(lambda: gs.loadings_f64_sweep_plain(X, w64), 3)
+    reads, names, dms = one_call(lambda: gs.loadings_f64_sweep(X, w64))
+    report("LDf64", "LD loadings_f64_sweep", err, 1e-12, ms, pms,
+           f"dense ({n}, {p}) f32, f64 w, squares and accumulation, "
+           f"relative error; one call: device {dms:.4f} ms, {len(names)} "
+           f"kernel(s), {reads} host reads",
+           f4 * n * p + 8 * n + 8 * p, 3 * n * p, peak="f64", device_ms=dms)
+    if reads or len(names) != 1 or "loadings_kernel" not in names[0]:
+        fail(f"loadings_f64_sweep must launch one loadings_kernel and read "
+             f"nothing to the host: {names}, {reads} reads")
+    del gk, gp, r64, lk, lp, w64
     torch.cuda.empty_cache()
 
     # The varying-coefficient scan's problem (4j): one grid point of
@@ -1446,15 +1491,17 @@ def main():
     sol_f, t_f = wall(lambda: tcd.feasible_lasso(X, y,
                                                  lam_sc * (1.0 + 1e-7)))
     launches_f, reads_f = counts(), dict(host.COUNTS)
-    require_launches("feasible_lasso", launches_f, ("K1", "K3", "K4", "K5"))
+    require_launches("feasible_lasso", launches_f,
+                     ("K1", "K3", "K4", "K5", "LD"))
     add(launches_f)
     finite("feasible_lasso", sol_f.x)
     reset_counts()
     res_f, t_fpol = wall(lambda: tcd.polish_feasible_lasso(
         X, y, sol_f.x, lam_sc * (1.0 + 2e-7)))
     launches = counts()
-    require_launches("feasible polish", launches, ("K1f64", "K5f64"))
+    require_launches("feasible polish", launches, ("K1f64", "K5f64", "LD"))
     add(launches)
+    ld_f64_launches = launches["LD"]
     log(f"feasible_lasso: {t_f:.4f} s, nnz {int((sol_f.x != 0).sum())}; "
         f"launches {launches_f}; host reads {reads_f['host_reads']} over "
         f"{reads_f['epochs']} epochs; polish {t_fpol:.4f} s: rel gap "
@@ -2509,6 +2556,14 @@ def main():
                "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
         "K5f64": ("grad_f64", "dense_sweep.cu",
                   "coordinatedescent_jl_tpu/ops/pallas_block.py:657"),
+        "LD": ("loadings_sweep (get_loadings_blocked; launches: both "
+               "forms)", "dense_sweep.cu",
+               "none: the JAX package's loadings are plain jnp "
+               "(coordinatedescent_jl_tpu/utils/helpers.py get_loadings)"),
+        "LDf64": ("loadings_f64_sweep (loadings_f64; launches: 4f's polish)",
+                  "dense_sweep.cu",
+                  "none: coordinatedescent_jl_tpu/ops/compensated.py "
+                  "loadings_f64 is an einsum"),
         "union_fista": ("fused_union_fista (the batched path's refine "
                         "round)", "union_fista.cu",
                         "none: coordinatedescent_jl_tpu/ops/"
@@ -2554,7 +2609,8 @@ def main():
     log(f"launches over the main-path runs: {total}; the 4j scan's: "
         f"{vc_launches}; the one-CTA route's in the 4a scan: {ws_launches}; "
         f"4m's at the p = 1M shapes: {p1m_launches}")
-    launched = {**total, **vc_launches, **ws_launches, **p1m_launches}
+    launched = {**total, **vc_launches, **ws_launches, **p1m_launches,
+                "LDf64": ld_f64_launches}
     kernels = [{"name": meta[k][0], "route": "cuda", "source": src + meta[k][1],
                 "replaces": meta[k][2], "launches": launched[k], **rec[k]}
                for k in meta]

@@ -54,6 +54,27 @@
 //     order, so at one S they give the same bits.
 // A row whose byte stride is not a multiple of 16 (grad_f64 at an odd p)
 // takes the same kernel with masked scalar loads.
+//
+// The loadings sweep (LD): out_j = sum_i w_i x_ij^2, w = r^2 (the feasible
+// Lasso's heteroscedastic penalty loadings before their sqrt(. / n)).  It
+// replaces no TPU kernel: the JAX package computes the loadings in plain
+// jnp (utils/helpers.py get_loadings, ops/compensated.py loadings_f64).  It
+// is K5's sweep with the element squared in the accumulation type before
+// the multiply-add (a compile-time flag of the shared body; K5's kernels
+// are the flag off), under its own kernel names (loadings_kernel,
+// loadings_reduce_kernel) so that a trace tells the two apart, in the same
+// two forms:
+//   - cdt_loadings_{f32,f64}: the blocked (nb, n, B) design, w and the sums
+//     of its type (utils/helpers.py::get_loadings_blocked: the square and
+//     the multiply-add in float32);
+//   - cdt_loadings64_{f32,f64}: the dense (n, p) design, float64 w and sums
+//     (ops/compensated.py::loadings_f64: a float32 element widened, its
+//     square exact in float64, a float64 multiply-add).
+// It is bounded by bytes as K5 is (X read once: 4.0e9 B, 1.19 ms at 10,000 x
+// 100,000 float32; 3 n p flops): the square happens in registers, so the
+// design is read once, where the plain version wrote and read back a
+// squared (and, for float64, a widened) copy of each block of columns.
+//
 #include <algorithm>
 
 #include "common.cuh"
@@ -66,11 +87,13 @@ constexpr int SW_UNROLL = 4;   // 16-byte loads in flight per thread
 constexpr int SW_SLAB = 1024;  // rows of r staged in shared memory
 
 // CLUSTER: the grid is the items, a tile's `split` slices one cluster.
-template <typename TX, typename T, bool CLUSTER>
-__global__ void __launch_bounds__(SW_THREADS)
-sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
-             int W, int tpb, int split, int rows, int vec, size_t ncols,
-             T* __restrict__ out, T* __restrict__ part) {
+// SQUARE: each element is squared in T before its multiply-add (the
+// loadings sweep; r is then the row weights w).
+template <typename TX, typename T, bool CLUSTER, bool SQUARE>
+__device__ __forceinline__ void sweep_body(
+    const TX* __restrict__ X, const T* __restrict__ r, int nb, int n, int W,
+    int tpb, int split, int rows, int vec, size_t ncols, T* __restrict__ out,
+    T* __restrict__ part) {
   constexpr int V = vec_of<TX>();
   constexpr int CL = SW_TILE / V;       // column lanes
   constexpr int RG = SW_THREADS / CL;   // row groups
@@ -124,7 +147,13 @@ sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
           const int row = i + u * RG;
           const T rv = row < s1 ? rs[row - s0] : T(0);
 #pragma unroll
-          for (int e = 0; e < V; ++e) acc[e] += T(x[u][e]) * rv;
+          for (int e = 0; e < V; ++e) {
+            const T xv = T(x[u][e]);
+            if constexpr (SQUARE)
+              acc[e] += xv * xv * rv;
+            else
+              acc[e] += xv * rv;
+          }
         }
 #pragma unroll
         for (int u = 0; u < SW_UNROLL; ++u)
@@ -161,10 +190,30 @@ sweep_kernel(const TX* __restrict__ X, const T* __restrict__ r, int nb, int n,
   }
 }
 
+// the parameters of both forms' kernels
+#define CDT_SWEEP_ARGS                                                      \
+  const TX *__restrict__ X, const T *__restrict__ r, int nb, int n, int W,   \
+      int tpb, int split, int rows, int vec, size_t ncols,                   \
+      T *__restrict__ out, T *__restrict__ part
+#define CDT_SWEEP_PASS X, r, nb, n, W, tpb, split, rows, vec, ncols, out, part
+
+template <typename TX, typename T, bool CLUSTER>
+__global__ void __launch_bounds__(SW_THREADS) sweep_kernel(CDT_SWEEP_ARGS) {
+  sweep_body<TX, T, CLUSTER, false>(CDT_SWEEP_PASS);
+}
+
+template <typename TX, typename T, bool CLUSTER>
+__global__ void __launch_bounds__(SW_THREADS) loadings_kernel(CDT_SWEEP_ARGS) {
+  sweep_body<TX, T, CLUSTER, true>(CDT_SWEEP_PASS);
+}
+#undef CDT_SWEEP_ARGS
+#undef CDT_SWEEP_PASS
+
 // out[col] = the S partials of col added in slice order.
 template <typename T>
-__global__ void sweep_reduce_kernel(const T* __restrict__ part, int split,
-                                    size_t ncols, T* __restrict__ out) {
+__device__ __forceinline__ void reduce_body(const T* __restrict__ part,
+                                            int split, size_t ncols,
+                                            T* __restrict__ out) {
   const size_t col = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= ncols) return;
   T s = T(0);
@@ -172,9 +221,38 @@ __global__ void sweep_reduce_kernel(const T* __restrict__ part, int split,
   out[col] = s;
 }
 
+template <typename T>
+__global__ void sweep_reduce_kernel(const T* __restrict__ part, int split,
+                                    size_t ncols, T* __restrict__ out) {
+  reduce_body(part, split, ncols, out);
+}
+
+template <typename T>
+__global__ void loadings_reduce_kernel(const T* __restrict__ part, int split,
+                                       size_t ncols, T* __restrict__ out) {
+  reduce_body(part, split, ncols, out);
+}
+
+// The kernels of one form: K5's (SQUARE false) or the loadings sweep's.
+template <typename TX, typename T, bool CLUSTER, bool SQUARE>
+inline auto sweep_global() {
+  if constexpr (SQUARE)
+    return &loadings_kernel<TX, T, CLUSTER>;
+  else
+    return &sweep_kernel<TX, T, CLUSTER>;
+}
+
+template <typename T, bool SQUARE>
+inline auto reduce_global() {
+  if constexpr (SQUARE)
+    return &loadings_reduce_kernel<T>;
+  else
+    return &sweep_reduce_kernel<T>;
+}
+
 // cluster: the tile's slices are one cluster each (2 <= split <= 16; the
 // grid is then every item, and `part` and `grid` are unused).
-template <typename TX, typename T>
+template <typename TX, typename T, bool SQUARE>
 int dense_sweep(const TX* X, const T* r, T* part, T* out, int nb, int n,
                 int W, int split, int rows, int grid, int cluster,
                 cudaStream_t s) {
@@ -196,54 +274,61 @@ int dense_sweep(const TX* X, const T* r, T* part, T* out, int nb, int n,
     // CTA 0's rows of the slices' partials
     const size_t csmem = smem + sizeof(T) * split * SW_TILE;
     const cudaError_t e = launch_clusters(
-        sweep_kernel<TX, T, true>, (int)items, SW_THREADS, csmem, split, s, X,
-        r, nb, n, W, tpb, split, rows, vec, ncols, out, (T*)nullptr);
+        sweep_global<TX, T, true, SQUARE>(), (int)items, SW_THREADS, csmem,
+        split, s, X, r, nb, n, W, tpb, split, rows, vec, ncols, out,
+        (T*)nullptr);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
   // the planner's grid, capped by what the card keeps resident at once
   int resident = 0;
-  const cudaError_t e = resident_ctas((const void*)sweep_kernel<TX, T, false>,
-                                      SW_THREADS, smem, &resident);
+  const auto kern = sweep_global<TX, T, false, SQUARE>();
+  const cudaError_t e =
+      resident_ctas((const void*)kern, SW_THREADS, smem, &resident);
   if (e != cudaSuccess) return (int)e;
   grid = (int)std::min<long long>({(long long)grid, items,
                                    (long long)std::max(resident, 1)});
-  sweep_kernel<TX, T, false><<<grid, SW_THREADS, smem, s>>>(
-      X, r, nb, n, W, tpb, split, rows, vec, ncols, out, part);
+  kern<<<grid, SW_THREADS, smem, s>>>(X, r, nb, n, W, tpb, split, rows, vec,
+                                      ncols, out, part);
   if (split > 1) {
     const int nt = 256;
-    sweep_reduce_kernel<T><<<(unsigned)((ncols + nt - 1) / nt), nt, 0, s>>>(
-        part, split, ncols, out);
+    reduce_global<T, SQUARE>()<<<(unsigned)((ncols + nt - 1) / nt), nt, 0,
+                                 s>>>(part, split, ncols, out);
   }
   return (int)cudaGetLastError();
 }
 
 // The clusters of `cluster` slices (CTAs) of a tile, with CTA 0's shared
 // memory for their partials, that the current device holds at once.
-template <typename TX, typename T>
+template <typename TX, typename T, bool SQUARE>
 int sweep_clusters(int cluster, int* count) {
   constexpr int RG = SW_THREADS / (SW_TILE / vec_of<TX>());
   const size_t csmem =
       sizeof(T) * (SW_SLAB + RG * SW_TILE + (size_t)cluster * SW_TILE);
-  return (int)active_clusters((const void*)sweep_kernel<TX, T, true>,
-                              SW_THREADS, csmem, cluster, count);
+  return (int)active_clusters(
+      (const void*)sweep_global<TX, T, true, SQUARE>(), SW_THREADS, csmem,
+      cluster, count);
 }
 
 }  // namespace cdt
 
-#define CDT_DENSE_SWEEP(NAME, TX, T)                                          \
+#define CDT_DENSE_SWEEP(NAME, TX, T, SQUARE)                                  \
   extern "C" int NAME##_clusters(int cluster, void* count) {                  \
-    return cdt::sweep_clusters<TX, T>(cluster, (int*)count);                  \
+    return cdt::sweep_clusters<TX, T, SQUARE>(cluster, (int*)count);          \
   }                                                                           \
   extern "C" int NAME(const void* X, const void* r, void* part, void* out,    \
                       int nb, int n, int W, int split, int rows, int grid,    \
                       int cluster, void* stream) {                            \
-    return cdt::dense_sweep<TX, T>((const TX*)X, (const T*)r, (T*)part,       \
-                                   (T*)out, nb, n, W, split, rows, grid,      \
-                                   cluster, (cudaStream_t)stream);            \
+    return cdt::dense_sweep<TX, T, SQUARE>(                                   \
+        (const TX*)X, (const T*)r, (T*)part, (T*)out, nb, n, W, split, rows,  \
+        grid, cluster, (cudaStream_t)stream);                                 \
   }
 
-CDT_DENSE_SWEEP(cdt_dense_sweep_f32, float, float)
-CDT_DENSE_SWEEP(cdt_dense_sweep_f64, double, double)
-CDT_DENSE_SWEEP(cdt_grad64_f32, float, double)
-CDT_DENSE_SWEEP(cdt_grad64_f64, double, double)
+CDT_DENSE_SWEEP(cdt_dense_sweep_f32, float, float, false)
+CDT_DENSE_SWEEP(cdt_dense_sweep_f64, double, double, false)
+CDT_DENSE_SWEEP(cdt_grad64_f32, float, double, false)
+CDT_DENSE_SWEEP(cdt_grad64_f64, double, double, false)
+CDT_DENSE_SWEEP(cdt_loadings_f32, float, float, true)
+CDT_DENSE_SWEEP(cdt_loadings_f64, double, double, true)
+CDT_DENSE_SWEEP(cdt_loadings64_f32, float, double, true)
+CDT_DENSE_SWEEP(cdt_loadings64_f64, double, double, true)

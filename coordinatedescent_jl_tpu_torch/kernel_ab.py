@@ -18,7 +18,10 @@ K1 without a Gram over the full design's active blocks, K1 in float64
 (exact inner) on the polish's inner-solve block, and K5 on the working
 set, on the full blocked design and in its float64-accumulating form on
 the dense design, each beside ``torch.matmul``'s time where one call
-computes the same function; K2 on the full design with ~30 % of the blocks
+computes the same function; the feasible Lasso's loadings through the
+functions both trees have (``LD``: ``get_loadings_blocked`` on the full
+blocked design, float32; ``LDf64``: ``loadings_f64`` on the dense design,
+float64 accumulation), whatever computes them there; K2 on the full design with ~30 % of the blocks
 needed (``K2_blocks`` of them, ``K2_bound_ms`` its byte bound); the check
 phases on the full design's
 mid-solve state (fresh ``c``, a drift on half of the blocks): ``K3``
@@ -167,8 +170,9 @@ def main():
     from coordinatedescent_jl_tpu_torch.kernels import check
     from coordinatedescent_jl_tpu_torch.kernels import gradient_sweep as gs
     from coordinatedescent_jl_tpu_torch.models import polish as pol
-    from coordinatedescent_jl_tpu_torch.ops import block_cd
+    from coordinatedescent_jl_tpu_torch.ops import block_cd, compensated
     from coordinatedescent_jl_tpu_torch.profile_paths import bench_problem
+    from coordinatedescent_jl_tpu_torch.utils import helpers
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -257,6 +261,8 @@ def main():
         *args, inner="ista", iters=16, rsqr=st.rsqr), 5)
     out["K5"] = _ms(lambda: gs.fused_gradient_sweep(full.Xwb, st.r), 20)
     out["K5_matmul"] = _ms(lambda: torch.matmul(st.r, full.Xwb), 20)
+    out["LD"] = _ms(lambda: helpers.get_loadings_blocked(full.Xb, st.r, p),
+                    20)
     g2 = torch.Generator(device=dev).manual_seed(2)
     need = torch.rand(nbf, generator=g2, device=dev) < 0.3
     c_prev = torch.randn((nbf, B), generator=g2, device=dev)
@@ -284,6 +290,7 @@ def main():
 
     r64 = y.double() - X[:, support].double() @ beta_true[support].double()
     out["K5f64"] = _ms(lambda: gs.grad_f64(X, r64), 20)
+    out["LDf64"] = _ms(lambda: compensated.loadings_f64(X, r64), 20)
     del r64
     out.update(_group_and_union(X, y, bp.opts, dev))
 

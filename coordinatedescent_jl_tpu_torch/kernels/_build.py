@@ -66,13 +66,15 @@ _SIGNATURES = {
     "cdt_check_probe": [_P],
     # kind, smem, cluster, &count (int): K1's cluster occupancy
     "cdt_active_pass_clusters": [_I, _I, _I, _P],
-    # cluster, &count (int): each K5 instantiation's cluster occupancy
+    # cluster, &count (int): each K5 and loadings instantiation's cluster
+    # occupancy
     **{f"cdt_{k}_{d}_clusters": [_I, _P]
-       for k in ("dense_sweep", "grad64") for d in ("f32", "f64")},
+       for k in ("dense_sweep", "grad64", "loadings", "loadings64")
+       for d in ("f32", "f64")},
     # X, r, part|0, out, nb, n, W, split, rows, grid, cluster, stream (both
-    # K5 instantiations)
-    "cdt_dense_sweep": [_P] * 4 + [_I] * 7 + [_P],
-    "cdt_grad64": [_P] * 4 + [_I] * 7 + [_P],
+    # K5 instantiations and both loadings instantiations)
+    **{f"cdt_{k}": [_P] * 4 + [_I] * 7 + [_P]
+       for k in ("dense_sweep", "grad64", "loadings", "loadings64")},
     # Ks, thr, Bs0, cs0, cert, mom, out, k, Cp, B, iters, n_sweeps, vec,
     # smem, stream
     "cdt_union_fista": [_P] * 7 + [_I] * 7 + [_P],

@@ -31,9 +31,20 @@ stay in shared memory and CTA 0 adds them in order (one launch).  The
 8-tile working set at n = 10K splits 66 ways and adds the slices' partials
 in order in a second launch.
 
-``LAUNCHES`` (K2), ``LAUNCHES_DENSE`` (K5 blocked) and ``LAUNCHES_F64``
-(K5 f64) count the wrapper calls that launched a kernel, and
-``LAUNCHES_DENSE_SHAPE[(nb, n)]`` K5's blocked launches by blocks and rows.
+The loadings sweep (LD), ``Σ_i w_i x_ij²`` with ``w = r²`` (the feasible
+Lasso's penalty loadings before their ``sqrt(· / n)``), is K5's kernel
+with each element squared in registers (``csrc/dense_sweep.cu``'s
+``loadings_kernel``), in K5's two forms and under K5's planner:
+:func:`loadings_sweep` on the blocked design in its own dtype
+(``utils/helpers.py::get_loadings_blocked``) and :func:`loadings_f64_sweep`
+on the dense design with float64 weights and sums
+(``ops/compensated.py::loadings_f64``).  One launch and one read of X a
+sweep, where the plain twins square a copy of each block of columns.
+
+``LAUNCHES`` (K2), ``LAUNCHES_DENSE`` (K5 blocked), ``LAUNCHES_F64``
+(K5 f64) and ``LAUNCHES_LOADINGS`` (both loadings forms) count the
+wrapper calls that launched a kernel, and ``LAUNCHES_DENSE_SHAPE[(nb,
+n)]`` K5's blocked launches by blocks and rows.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ LAUNCHES = 0
 LAUNCHES_DENSE = 0
 LAUNCHES_F64 = 0
 LAUNCHES_DENSE_SHAPE = collections.Counter()
+LAUNCHES_LOADINGS = 0
 _ROW_CHUNK = 256   # K2: rows per partial-sum CTA
 # K5's plan (csrc/dense_sweep.cu): columns per work item, CTAs (of 128
 # threads) per SM that the persistent grid may hold, the CTAs per SM that
@@ -69,6 +81,9 @@ _SW_CLUSTER_MAX_N = _MAX_CLUSTER * _SW_MIN_ROWS
 # columns per float64 chunk of grad_f64_plain: bounds the f64 copy of X to
 # n·8192·8 bytes (655 MB at n = 10K) instead of a whole f64 X
 _F64_COLS = 8192
+# blocks per squared copy of loadings_sweep_plain (82 MB at n = 10K, B =
+# 128, float32)
+_LD_BLOCKS = 16
 
 
 def restricted_gradient_sweep(Xwb, r, need, c_prev, *, n_need=None):
@@ -277,3 +292,68 @@ def grad_f64_plain(X, r64):
     p = X.shape[1]
     return torch.cat([r64 @ X[:, j:j + _F64_COLS].to(torch.float64)
                       for j in range(0, p, _F64_COLS)])
+
+
+def loadings_sweep(Xb, w, *, plan: SweepPlan | None = None):
+    """Blocked ``Σ_i w_i Xb[b, i, k]²`` for every column, ``(nb, B)``, in
+    ``Xb``'s dtype (``w`` the squared residual, of that dtype).  CUDA
+    tensors launch the loadings kernel (or raise); CPU tensors run the
+    plain twin.  ``plan`` as :func:`fused_gradient_sweep`'s (default: K5's
+    blocked plan for this shape, the float32 form re-splitting small n)."""
+    if not Xb.is_cuda:
+        return loadings_sweep_plain(Xb, w)
+    global LAUNCHES_LOADINGS
+    nb, n, B = Xb.shape
+    _require_sweep_inputs("loadings", Xb, w, (torch.float32, torch.float64),
+                          Xb.dtype, n)
+    out = torch.empty((nb, B), dtype=Xb.dtype, device=Xb.device)
+    lib = _build.library()
+    f32 = Xb.dtype == torch.float32
+    fn = lib.cdt_loadings_f32 if f32 else lib.cdt_loadings_f64
+    if plan is None:
+        plan = _card_plan(fn.__name__, nb, n, B, Xb.device.index, f32)
+    _dense_sweep(fn, Xb, w, out, nb, n, B, "loadings", plan)
+    LAUNCHES_LOADINGS += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("loadings", out)
+    return out
+
+
+def loadings_sweep_plain(Xb, w):
+    """Plain twin: one batched product of ``w`` with the squares of
+    ``_LD_BLOCKS`` blocks at a time (no design-sized ``X∘X``)."""
+    return torch.cat([torch.matmul(w, Xb[i:i + _LD_BLOCKS].square())
+                      for i in range(0, Xb.shape[0], _LD_BLOCKS)])
+
+
+def loadings_f64_sweep(X, w64, *, col_chunk: int = 2048,
+                       plan: SweepPlan | None = None):
+    """``Σ_i w64_i X_ij²`` with float64 squares and accumulation, ``(p,)``
+    float64, for a dense ``(n, p)`` design ``X`` (float32 or float64) and
+    float64 weights.  CUDA tensors launch the loadings kernel's
+    float64-accumulating form (or raise); CPU tensors run the plain twin,
+    ``col_chunk`` columns at a time.  ``plan`` as :func:`grad_f64`'s."""
+    if not X.is_cuda:
+        return loadings_f64_sweep_plain(X, w64, col_chunk)
+    global LAUNCHES_LOADINGS
+    n, p = X.shape
+    _require_sweep_inputs("loadings_f64", X, w64,
+                          (torch.float32, torch.float64), torch.float64, n)
+    out = torch.empty((p,), dtype=torch.float64, device=X.device)
+    lib = _build.library()
+    fn = lib.cdt_loadings64_f32 if X.dtype == torch.float32 else \
+        lib.cdt_loadings64_f64
+    if plan is None:
+        plan = _card_plan(fn.__name__, 1, n, p, X.device.index, False)
+    _dense_sweep(fn, X, w64, out, 1, n, p, "loadings64", plan)
+    LAUNCHES_LOADINGS += 1
+    if _build.NAN_CHECK:
+        _build.check_nans("loadings64", out)
+    return out
+
+
+def loadings_f64_sweep_plain(X, w64, col_chunk: int = 2048):
+    """Plain twin: per chunk of ``col_chunk`` columns one float64 copy,
+    its square and one float64 product (no design-sized temporary)."""
+    return torch.cat([w64 @ X[:, c:c + col_chunk].to(torch.float64).square()
+                      for c in range(0, X.shape[1], col_chunk)])

@@ -15,8 +15,10 @@ and the compensated certificates need).
 - ``group_lasso_kkt_compensated`` — the group Lasso's measurement-grade
   per-group relative KKT residual (``_group_kkt_pieces`` its roll-up).
 - ``loadings_f64`` — the feasible Lasso's loadings with float64
-  accumulation, column-chunked (plain PyTorch: an einsum outside any
-  kernel in the JAX package too).
+  accumulation: the loadings sweep's float64 form on the card
+  (``kernels/gradient_sweep.py::loadings_f64_sweep``, K5's kernel with the
+  element squared; an einsum outside any kernel in the JAX package), its
+  column-chunked plain twin on the CPU.
 
 What is not ported, and why: the JAX package's hybrid sweep
 ``grad_f64_certified`` (with ``_grad32_and_mag``, ``_hybrid_estimate`` and
@@ -32,8 +34,8 @@ recompute goes with the hybrid).  The gradient
 sweeps' ``col_chunk`` arguments bounded the TPU emulation's temporaries
 and are dropped with it: the certificates and the polishes still take the
 keyword, check it (:func:`check_col_chunk`) and ignore it.
-``loadings_f64`` keeps its own (a whole-design float64 ``X∘X`` would be
-8 GB at n = 10K, p = 100K).
+``loadings_f64`` keeps its own for its plain twin (a whole-design float64
+``X∘X`` would be 8 GB at n = 10K, p = 100K).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.gradient_sweep import grad_f64
+from ..kernels.gradient_sweep import grad_f64, loadings_f64_sweep
 from ..utils import host
 from ..utils.helpers import on_device, target_device
 
@@ -220,16 +222,16 @@ def group_lasso_kkt_compensated(X, y, beta, lam0, group_size: int,
 
 def loadings_f64(X, r64, col_chunk: int = 2048):
     """Heteroscedastic penalty loadings ``sqrt(mean((X_ij r_i)²))`` with
-    float64 accumulation, ``col_chunk`` columns at a time (the float32
-    form's squared terms alone carry ~6e-8 relative error, too coarse to
-    certify the feasible Lasso's loading fixed point at 1e-7).  Per chunk
-    one ``(n, chunk)`` float64 square and one float64 product; no
-    design-sized temporary.  Marked ``cdt#loadings`` as
+    float64 squares and accumulation (the float32 form's squared terms
+    alone carry ~6e-8 relative error, too coarse to certify the feasible
+    Lasso's loading fixed point at 1e-7): one launch and one read of X on
+    the card (``loadings_f64_sweep``); on the CPU ``col_chunk`` columns at
+    a time, each one ``(n, chunk)`` float64 square and one float64 product,
+    no design-sized temporary.  Marked ``cdt#loadings`` as
     ``get_loadings_blocked`` is."""
     n, p = X.shape
     rr = r64 * r64
     with host.mark("loadings", n=n, p=p, x_item=X.element_size(),
                    acc=rr.element_size()):
-        out = torch.cat([rr @ X[:, c:c + col_chunk].to(torch.float64)
-                         .square() for c in range(0, p, col_chunk)])
-        return torch.sqrt(out / n)
+        return torch.sqrt(loadings_f64_sweep(X, rr, col_chunk=col_chunk)
+                          / n)

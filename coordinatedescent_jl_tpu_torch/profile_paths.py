@@ -174,6 +174,7 @@ def launch_counts() -> dict:
             "K1sqrt": k1["sqrt"][0], "K1sqrt_f64": k1["sqrt"][1],
             "K2": gs.LAUNCHES, "K3": check.LAUNCHES_A, "K4": check.LAUNCHES_B,
             "K5": gs.LAUNCHES_DENSE, "K5f64": gs.LAUNCHES_F64,
+            "LD": gs.LAUNCHES_LOADINGS,
             "union_fista": union_fista.LAUNCHES, "GP": group_pass.LAUNCHES,
             "vc_round": vc_round.LAUNCHES}
 
@@ -186,6 +187,7 @@ def reset_launch_counts():
     for by_dtype in active_pass.LAUNCHES_KIND.values():
         by_dtype[0] = by_dtype[1] = 0
     gs.LAUNCHES = gs.LAUNCHES_DENSE = gs.LAUNCHES_F64 = 0
+    gs.LAUNCHES_LOADINGS = 0
     check.LAUNCHES_A = check.LAUNCHES_B = 0
     union_fista.LAUNCHES = group_pass.LAUNCHES = vc_round.LAUNCHES = 0
     for by_shape in (active_pass.LAUNCHES_SHAPE, check.LAUNCHES_SHAPE,

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from . import host
+from ..kernels.gradient_sweep import loadings_sweep
 
 
 def target_device(device=None) -> torch.device:
@@ -54,17 +55,18 @@ def get_loadings(X, e):
 
 
 def get_loadings_blocked(Xb, e, p: int):
-    """``get_loadings`` from the blocked design ``Xb (nb, n, B)``, 16
-    column blocks at a time, so that no design-sized ``X∘X`` temporary is
-    made (4 GB at n = 10K, p = 100K).
+    """``get_loadings`` from the blocked design ``Xb (nb, n, B)`` through
+    the loadings sweep (``kernels/gradient_sweep.py::loadings_sweep``: one
+    launch and one read of the design on the card; the plain twin squares
+    16 column blocks at a time on the CPU), so that no design-sized
+    ``X∘X`` temporary is made (4 GB at n = 10K, p = 100K).
     Padded columns are all-zero (loading 0) and are sliced off.  Marked
     ``cdt#loadings`` with the shape and the accumulation's item size."""
     n = Xb.shape[1]
     ee = e * e
     with host.mark("loadings", n=n, p=p, x_item=Xb.element_size(),
                    acc=ee.element_size()):
-        s = torch.cat([torch.matmul(ee, Xb[i:i + 16].square())
-                       for i in range(0, Xb.shape[0], 16)])    # (nb, B)
+        s = loadings_sweep(Xb, ee)    # (nb, B)
         return torch.sqrt(s.reshape(-1)[:p] / n)
 
 

@@ -648,6 +648,30 @@ def test_check_one_cta_route_is_one_kernel_and_no_host_read(dev):
         assert "check_b_cta" in names[0], names
 
 
+def test_loadings_kernels_are_one_launch_under_their_own_names(dev):
+    """Each loadings sweep is one ``loadings_kernel`` (and, where rows
+    split outside a cluster, one ``loadings_reduce_kernel``) with no host
+    read, under names that K5's trace metrics (``sweep_kernel<float,
+    float`` / ``<float, double``, ``sweep_reduce_kernel``) do not match.
+    (With the file's other one-call traces, after the heavy tests.)"""
+    import re
+
+    from coordinatedescent_jl_tpu_torch.profile_paths import trace_one_call
+
+    k5 = re.compile(r"\bsweep_kernel<|\bsweep_reduce_kernel<")
+    Xb, w = _blocked_design(dev, torch.float32, 1500, 600 * 128)
+    X = torch.randn((3000, 100), device=dev)
+    w64 = torch.rand(3000, dtype=torch.float64, device=dev)
+    for fn, kernels in (
+            (lambda: gradient_sweep.loadings_sweep(Xb, w), 1),
+            (lambda: gradient_sweep.loadings_f64_sweep(X, w64), 2)):
+        reads, names, _, counted, _ = trace_one_call(fn)
+        assert (reads, len(names), counted) == (0, kernels, 1), names
+        assert "loadings_kernel" in names[0], names
+        assert kernels == 1 or "loadings_reduce_kernel" in names[1], names
+        assert not any(k5.search(name) for name in names), names
+
+
 # ---- the p = 1M shapes of bench.py:1098-1193 (n = 1,000, 7,813 blocks of
 # 128), with the file's other one-call traces: after the heavy tests of the
 # kinds, before the solves below
@@ -830,6 +854,190 @@ def test_grad_f64_kernel_matches_twin(dev, xdtype, p):
     gp = gradient_sweep.grad_f64_plain(X, r)
     torch.testing.assert_close(gk, gp, atol=1e-10 * float(gp.abs().max()),
                                rtol=0)
+
+
+# ---- the loadings sweep (LD): K5's kernel with each element squared
+
+
+def _blocked_design(dev, dtype, n, p, B=128, seed=7):
+    """A Gaussian (n, p) design in the blocked (nb, n, B) layout, its
+    padded columns zero, and the row weights w = e² of a Gaussian e."""
+    rng = np.random.default_rng(seed)
+    nb = -(-p // B)
+    Xp = torch.zeros((n, nb * B), dtype=dtype, device=dev)
+    Xp[:, :p] = torch.as_tensor(rng.standard_normal((n, p)), dtype=dtype,
+                                device=dev)
+    Xb = Xp.reshape(n, nb, B).permute(1, 0, 2).contiguous()
+    e = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+    return Xb, e * e
+
+
+def _rel_err(a, b):
+    return float(((a.double() - b.double()).abs()
+                  / b.double().abs().clamp_min(1e-300)).max())
+
+
+# (n, p): p not a multiple of 128 and few tiles (the f32 form a cluster of
+# row slices, the f64 blocked form 7 slices); n not a multiple of the
+# 1,024-row slab over 600 tiles (no split); 3 tiles of 3,000 rows (23
+# slices outside a cluster: the reduction kernel)
+_LD_SHAPES = [(1000, 700), (1500, 600 * 128), (3000, 300)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, p", _LD_SHAPES)
+def test_loadings_sweep_kernel_matches_twin(dev, dtype, n, p):
+    """The blocked loadings sweep against its twin: sums of n positive
+    terms, float32 within 1e-5 and float64 within 1e-12 relative, the
+    padded columns exactly 0, and two calls the same bits (fixed-order
+    sums).  One launch counted a call."""
+    Xb, w = _blocked_design(dev, dtype, n, p)
+    nb = Xb.shape[0]
+    n0 = gradient_sweep.LAUNCHES_LOADINGS
+    lk = gradient_sweep.loadings_sweep(Xb, w)
+    lk2 = gradient_sweep.loadings_sweep(Xb, w)
+    torch.cuda.synchronize()
+    assert gradient_sweep.LAUNCHES_LOADINGS == n0 + 2
+    assert lk.shape == (nb, 128) and lk.dtype == dtype
+    assert torch.equal(lk, lk2)
+    lp = gradient_sweep.loadings_sweep_plain(Xb, w)
+    flat, flat_p = lk.reshape(-1), lp.reshape(-1)
+    assert not flat[p:].any()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert _rel_err(flat[:p], flat_p[:p]) <= tol
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, p", [(1000, 700), (1000, 701), (1500, 100),
+                                  (3000, 100)])
+def test_loadings_f64_sweep_kernel_matches_twin(dev, xdtype, n, p):
+    """The float64 loadings sweep on the dense (n, p) design against its
+    twin within 1e-12 relative (each element's square exact in float64):
+    a ragged last tile (p = 700), rows of an odd byte stride (p = 701:
+    scalar loads), one tile of 1,500 rows (a cluster of slices) and of
+    3,000 (slices outside a cluster, the reduction kernel); two calls the
+    same bits."""
+    rng = np.random.default_rng(3)
+    X = torch.as_tensor(rng.standard_normal((n, p)), dtype=xdtype,
+                        device=dev)
+    r = torch.as_tensor(rng.standard_normal(n), dtype=torch.float64,
+                        device=dev)
+    w64 = r * r
+    n0 = gradient_sweep.LAUNCHES_LOADINGS
+    lk = gradient_sweep.loadings_f64_sweep(X, w64)
+    lk2 = gradient_sweep.loadings_f64_sweep(X, w64)
+    torch.cuda.synchronize()
+    assert gradient_sweep.LAUNCHES_LOADINGS == n0 + 2
+    assert lk.shape == (p,) and lk.dtype == torch.float64
+    assert torch.equal(lk, lk2)
+    lp = gradient_sweep.loadings_f64_sweep_plain(X, w64)
+    assert _rel_err(lk, lp) <= 1e-12
+
+
+@pytest.mark.parametrize("form", ["f32", "f64_blocked", "dense"])
+def test_loadings_cluster_route_matches_two_kernels_bitwise(dev, form):
+    """The loadings sweep's cluster route against its two-kernel route at
+    the same slices: the same bits, as K5's (the blocked forms at (1, 500,
+    128), the dense float64 form at (1,000, 100))."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if form == "dense":
+        rng = np.random.default_rng(4)
+        X = torch.as_tensor(rng.standard_normal((1000, 100)),
+                            dtype=torch.float32, device=dev)
+        w = torch.as_tensor(rng.random(1000), dtype=torch.float64,
+                            device=dev)
+        plan = gradient_sweep.plan_dense_sweep(1, 1000, 100, sms)
+        run = lambda pl: gradient_sweep.loadings_f64_sweep(  # noqa: E731
+            X, w, plan=pl)
+    else:
+        dt = torch.float32 if form == "f32" else torch.float64
+        Xb, w = _blocked_design(dev, dt, 500, 128)
+        plan = gradient_sweep.plan_dense_sweep(1, 500, 128, sms,
+                                               form == "f32")
+        run = lambda pl: gradient_sweep.loadings_sweep(  # noqa: E731
+            Xb, w, plan=pl)
+    assert plan.cluster and 1 < plan.split <= 16
+    two = plan._replace(cluster=False, grid=plan.tiles * plan.split)
+    assert torch.equal(run(plan), run(two))
+
+
+def test_loadings_wrappers_refuse_wrong_inputs(dev):
+    """On CUDA tensors the wrappers launch or raise: a weight of another
+    dtype, shape or device, a design that is not contiguous or not
+    floating."""
+    Xb, w = _blocked_design(dev, torch.float32, 300, 200)
+    X = torch.randn((300, 200), device=dev)
+    w64 = w.double()
+    bad_blocked = [(Xb, w64), (Xb, w[:-1]), (Xb, w.cpu()),
+                   (Xb.transpose(1, 2), w), (Xb.to(torch.int32), w)]
+    for args in bad_blocked:
+        with pytest.raises(ValueError):
+            gradient_sweep.loadings_sweep(*args)
+    bad_dense = [(X, w), (X, w64[:-1]), (X.T, torch.ones(200, device=dev,
+                                                        dtype=torch.float64)),
+                 (X.to(torch.int32), w64), (X, w64.cpu())]
+    for args in bad_dense:
+        with pytest.raises(ValueError):
+            gradient_sweep.loadings_f64_sweep(*args)
+
+
+def test_loadings_callers_launch_only_the_kernel(dev, monkeypatch):
+    """On the card ``get_loadings_blocked`` and ``loadings_f64`` launch the
+    loadings kernel, once a sweep, and never the plain twin; a feasible
+    Lasso and its polish launch it once for each sweep they make."""
+    from coordinatedescent_jl_tpu_torch import (feasible_lasso,
+                                                polish_feasible_lasso)
+    from coordinatedescent_jl_tpu_torch.ops import compensated
+    from coordinatedescent_jl_tpu_torch.utils import helpers
+
+    Xb, w = _blocked_design(dev, torch.float32, 1000, 700)
+    e = w.sqrt()
+    X = Xb.permute(1, 0, 2).reshape(1000, -1)[:, :700].contiguous()
+    r64 = e.double()
+    want_f32 = torch.sqrt(gradient_sweep.loadings_sweep_plain(
+        Xb, e * e).reshape(-1)[:700] / 1000)
+    want_f64 = torch.sqrt(gradient_sweep.loadings_f64_sweep_plain(
+        X, r64 * r64) / 1000)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain twin ran on the card")
+
+    monkeypatch.setattr(gradient_sweep, "loadings_sweep_plain", refuse)
+    monkeypatch.setattr(gradient_sweep, "loadings_f64_sweep_plain", refuse)
+    n0 = gradient_sweep.LAUNCHES_LOADINGS
+    got = helpers.get_loadings_blocked(Xb, e, 700)
+    assert gradient_sweep.LAUNCHES_LOADINGS == n0 + 1
+    assert _rel_err(got, want_f32) <= 1e-5
+    got = compensated.loadings_f64(X, r64)
+    assert gradient_sweep.LAUNCHES_LOADINGS == n0 + 2
+    assert _rel_err(got, want_f64) <= 1e-12
+
+    calls = []
+
+    def counting(fn):
+        def call(*a, **k):
+            calls.append(1)
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(helpers, "loadings_sweep",
+                        counting(gradient_sweep.loadings_sweep))
+    monkeypatch.setattr(compensated, "loadings_f64_sweep",
+                        counting(gradient_sweep.loadings_f64_sweep))
+    rng = np.random.default_rng(8)
+    Xh = torch.as_tensor(rng.standard_normal((400, 600)), dtype=torch.float32,
+                         device=dev)
+    b = torch.zeros(600, device=dev)
+    b[:5] = 2.0
+    noise = torch.as_tensor(rng.standard_normal(400), dtype=torch.float32,
+                            device=dev)
+    y = Xh @ b + noise * (1 + 0.5 * Xh[:, 0].abs())
+    lam0 = float(np.sqrt(2 * np.log(600) / 400))
+    n0 = gradient_sweep.LAUNCHES_LOADINGS
+    sol = feasible_lasso(Xh, y, lam0)
+    res = polish_feasible_lasso(Xh, y, sol.x, lam0)
+    assert res.converged
+    assert gradient_sweep.LAUNCHES_LOADINGS - n0 == len(calls) >= 3
 
 
 def _path_problem(dev, n=400, p=3000, s=12, seed=5):

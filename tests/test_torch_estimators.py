@@ -69,6 +69,27 @@ def test_loadings_match_jax():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_blocked_loadings_match_jax_by_dtype(dtype):
+    """``get_loadings_blocked`` in the design's own dtype against the JAX
+    package's ``get_loadings`` on the same-dtype data: blocks of 128 with a
+    ragged last one (p = 300), float64 at 1e-12 and float32 at 1e-5
+    relative (sums of N positive float32 terms in another order)."""
+    rng, X, y = _data(seed=4)
+    Xw = np.concatenate([X] * 4, axis=1)[:, :300].astype(dtype)
+    e = rng.standard_normal(N).astype(dtype)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    prob = tbcd.build_blocked("ls", tcd.CDOptions(block_size=128),
+                              torch.ones(300, dtype=tdt),
+                              X=torch.tensor(Xw), y=torch.tensor(y, dtype=tdt))
+    assert prob.Xb.shape == (3, N, 128)
+    ref = np.asarray(jh.get_loadings(jnp.asarray(Xw), jnp.asarray(e)))
+    got = th.get_loadings_blocked(prob.Xb, torch.tensor(e), 300)
+    assert got.shape == (300,) and got.dtype == tdt
+    np.testing.assert_allclose(got.numpy(), ref,
+                               rtol=1e-5 if dtype == np.float32 else 1e-12)
+
+
 def test_get_sigma_matches_jax():
     rng, X, y = _data()
     w, r = 0.5 + rng.random(N), rng.standard_normal(N)

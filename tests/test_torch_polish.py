@@ -189,6 +189,24 @@ def test_loadings_f64_matches_jax():
         rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("col_chunk", [128, 2048])
+def test_loadings_f64_matches_jax_by_design_dtype(dtype, col_chunk):
+    """``loadings_f64`` over a float32 and a float64 design, in chunks
+    narrower than p and one chunk wider (the default), against the JAX
+    package's at rtol 1e-12."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((90, 500)).astype(dtype)
+    r = rng.standard_normal(90)
+    with jax.enable_x64(True):
+        ref = np.asarray(jcomp.loadings_f64(jnp.asarray(X), jnp.asarray(r),
+                                            col_chunk=col_chunk))
+    out = tcd.loadings_f64(torch.as_tensor(X), torch.as_tensor(r),
+                           col_chunk=col_chunk)
+    assert out.dtype == torch.float64 and out.shape == (500,)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_polish_sqrt_lasso_reaches_target(weighted):
     """Twin of tests/test_diagnostics.py:436: from the f32 sqrt solve both

@@ -390,8 +390,10 @@ def test_feasible_round_spans_count_the_rounds(recorded, monkeypatch):
     ``polish.loading_round`` span a round it reports and one
     ``polish.loadings`` span a float64 sweep, inside its call."""
     from coordinatedescent_jl_tpu_torch.models import lasso, polish
+    from coordinatedescent_jl_tpu_torch.ops import compensated
+    from coordinatedescent_jl_tpu_torch.utils import helpers
 
-    sweeps = {"f32": 0, "f64": 0}
+    sweeps = {"f32": 0, "f64": 0, "sweep_f32": 0, "sweep_f64": 0}
 
     def counting(fn, key):
         def call(*a, **k):
@@ -403,6 +405,12 @@ def test_feasible_round_spans_count_the_rounds(recorded, monkeypatch):
                         counting(lasso.get_loadings_blocked, "f32"))
     monkeypatch.setattr(polish, "loadings_f64",
                         counting(polish.loadings_f64, "f64"))
+    # the sweep each loadings call makes (the kernels' wrappers)
+    monkeypatch.setattr(helpers, "loadings_sweep",
+                        counting(helpers.loadings_sweep, "sweep_f32"))
+    monkeypatch.setattr(compensated, "loadings_f64_sweep",
+                        counting(compensated.loadings_f64_sweep,
+                                 "sweep_f64"))
     X, y = _hetero()
     lam0 = float(np.sqrt(2 * np.log(X.shape[1]) / X.shape[0]))
     sol, ranges = recorded(lambda: tcd.feasible_lasso(
@@ -423,6 +431,10 @@ def test_feasible_round_spans_count_the_rounds(recorded, monkeypatch):
     psweeps = [r for r in ranges if r[0] == "cdt:polish.loadings"]
     assert len(prounds) == res.loading_rounds >= 1
     assert len(psweeps) == sweeps["f64"] == res.loading_rounds + 1
+    # one sweep a loadings call, one mark a sweep
+    assert sweeps["sweep_f32"] == sweeps["f32"]
+    assert sweeps["sweep_f64"] == sweeps["f64"]
+    assert len(_marks(ranges, "loadings")) == sweeps["sweep_f64"]
     (whole,) = [r for r in ranges if r[0] == "cdt:polish.feasible_lasso"]
     assert all(_inside(r, whole) for r in prounds + psweeps)
     assert all(any(_inside(w, r) for r in prounds) for w in psweeps[1:])
@@ -442,6 +454,37 @@ def test_loadings_marks_carry_the_shape_and_accumulation(recorded):
     assert got == ([{"n": 150, "p": 300, "x_item": 4, "acc": 4}] * len(f32)
                    + [{"n": 150, "p": 300, "x_item": 4, "acc": 8}]
                    * len(f64))
+
+
+@pytest.mark.parametrize("form", ["f32", "f64"])
+def test_loadings_call_is_one_mark_with_unchanged_keys(recorded, form):
+    """``get_loadings_blocked`` (float32 sums) and ``loadings_f64``
+    (float64 sums) each open exactly one ``cdt#loadings`` mark a call,
+    keyed ``n p x_item acc`` as the loadings roofline reads them, with the
+    output of the run without a profiler bit for bit; on CPU tensors no
+    kernel launch is counted."""
+    from coordinatedescent_jl_tpu_torch.ops import compensated
+    from coordinatedescent_jl_tpu_torch.utils import helpers
+
+    X, y = _hetero()
+    n, p = X.shape
+    if form == "f32":
+        prob = block_cd.build_blocked("ls", OPTS, torch.ones(p), X=X, y=y)
+        call = lambda: helpers.get_loadings_blocked(  # noqa: E731
+            prob.Xb, y, p)
+        acc = 4
+    else:
+        call = lambda: compensated.loadings_f64(  # noqa: E731
+            X, y.to(torch.float64), col_chunk=64)
+        acc = 8
+    n0 = gradient_sweep.LAUNCHES_LOADINGS
+    off = call()
+    on, ranges = recorded(call)
+    assert torch.equal(on, off) and on.shape == (p,)
+    assert [r[0].split(" ")[0] for r in ranges] == ["cdt#loadings"]
+    assert _marks(ranges, "loadings") == [{"n": n, "p": p, "x_item": 4,
+                                           "acc": acc}]
+    assert gradient_sweep.LAUNCHES_LOADINGS == n0
 
 
 def test_settle_waits_only_under_a_profiler(monkeypatch):

@@ -126,3 +126,41 @@ def test_dense_sweep_twin_matches_jax(dtype):
     np.testing.assert_array_equal(
         tbcd._full_gradient_c("ls", tprob, rt, kernels=True).numpy(),
         out.numpy())
+
+
+@pytest.mark.parametrize("form", ["f32", "f64"])
+def test_loadings_wrappers_take_the_plain_twin_on_the_cpu(form):
+    """On CPU tensors the loadings wrappers run their plain twins (the same
+    bits) and count no launch: the blocked float32 form
+    (``loadings_sweep``: 20 blocks of 16 columns, over more than one step
+    of 16 blocks, the padded columns 0) and the dense float64 form
+    (``loadings_f64_sweep``: float32 X, float64 weights, chunks of 64
+    columns with a ragged tail), each ``Σ_i w_i x_ij²`` against numpy in
+    float64 (float32 1e-5, float64 1e-12 relative)."""
+    rng = np.random.default_rng(12)
+    n, p = N, 310
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    e = rng.standard_normal(n)
+    n0 = tgs.LAUNCHES_LOADINGS
+    if form == "f32":
+        nb = -(-p // 16)
+        Xp = np.zeros((n, nb * 16), np.float32)
+        Xp[:, :p] = X
+        Xb = torch.as_tensor(Xp.reshape(n, nb, 16).transpose(1, 0, 2).copy())
+        w = torch.as_tensor(e.astype(np.float32)) ** 2
+        got = tgs.loadings_sweep(Xb, w)
+        assert torch.equal(got, tgs.loadings_sweep_plain(Xb, w))
+        assert got.shape == (nb, 16) and got.dtype == torch.float32
+        assert not got.reshape(-1)[p:].any()
+        got, tol = got.reshape(-1)[:p], 1e-5
+        wn = w.numpy().astype(np.float64)
+    else:
+        w = torch.as_tensor(e) ** 2
+        got = tgs.loadings_f64_sweep(torch.as_tensor(X), w, col_chunk=64)
+        assert torch.equal(got, tgs.loadings_f64_sweep_plain(
+            torch.as_tensor(X), w, 64))
+        assert got.dtype == torch.float64
+        tol, wn = 1e-12, w.numpy()
+    want = wn @ X.astype(np.float64) ** 2
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol)
+    assert tgs.LAUNCHES_LOADINGS == n0
