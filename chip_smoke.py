@@ -23,7 +23,12 @@ Phases, each failing loudly (exit code 1, no result line):
    and on the full design; the loadings sweep LD (the feasible Lasso's
    ``Σ_i r_i² x_ij²``) on the full blocked design in float32 and, after K5's
    float64-accumulating form, on the dense design in float64, each one
-   ``loadings_kernel`` a call with no host read; then the K2/K5 crossover
+   ``loadings_kernel`` a call with no host read; BL, the design's set-up
+   copy (the padded blocked design and its columns' sums of squares, one
+   launch), at 10,000 × 100,000 and, with the p = 1M rows below, at
+   1,000 × 1,000,000 float32: the copy bit for bit the twin's, the sums
+   within one ulp of the float64 sums, its device time beside its bound
+   (8.0e9 B: 2.39 ms); then the K2/K5 crossover
    of the gradient refresh; K3 (screen on and off) and K4 on a mid-solve
    state, with exact masks, one device kernel and no host read per call,
    and again on
@@ -345,6 +350,7 @@ def main():
         from coordinatedescent_jl_tpu_torch import bench as pbench
         from coordinatedescent_jl_tpu_torch.kernels import (_build,
                                                             active_pass,
+                                                            blockify,
                                                             check,
                                                             gradient_sweep,
                                                             group_pass,
@@ -776,6 +782,46 @@ def main():
              "read nothing to the host")
     del prob64, st64, args, sol_sq
 
+    # BL, the design's set-up copy (build_blocked's ls and sqrt kinds and
+    # the unweighted group build): the padded blocked design bit for bit
+    # the twin's, its padding +0, the columns' sums of squares within one
+    # ulp of the float64 sum rounded to float32
+    def blockify_row(key, Xd, what):
+        nd, pd = Xd.shape
+        nbd = -(-pd // B)
+        Xk, sk = blockify.blockify(Xd, B)
+        Xq, _ = blockify.blockify_plain(Xd, B)
+        pad = Xk[-1, :, pd - (nbd - 1) * B:].contiguous()
+        same = torch.equal(Xk, Xq) and not pad.view(torch.int32).any()
+        ref = torch.cat([torch.sum(Xq[i:i + 64].double() ** 2, dim=1)
+                         for i in range(0, nbd, 64)]).float()
+        del Xk, Xq, pad
+        up = torch.nextafter(ref, torch.full_like(ref, float("inf")))
+        err = float(((sk.double() - ref.double()).abs()
+                     / (up.double() - ref.double())).max())
+        del sk, ref, up
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: blockify.blockify(Xd, B), 10)
+        pms = cuda_ms(lambda: blockify.blockify_plain(Xd, B), 3)
+        reads, names, dms = one_call(lambda: blockify.blockify(Xd, B))
+        nbytes = f4 * (nd * pd + nbd * nd * B)
+        report(key, "BL blockify", err, 1.0, ms, pms,
+               f"({nd}, {pd}) f32 -> ({nbd}, {nd}, {B}); error in ulps of "
+               f"the float64 sums rounded; Xb bitwise the twin's, padding "
+               f"+0: {same}; one call: device {dms:.4f} ms, {len(names)} "
+               f"kernel(s), {reads} host reads; the bound is "
+               f"{bound_ms(nbytes, 2 * nd * pd, 'f32')[0] / dms:.1%} of the "
+               f"device time; {what}", nbytes, 2 * nd * pd, device_ms=dms)
+        if not same:
+            fail(f"blockify at ({nd}, {pd}) differs from its twin's copy")
+        if reads or not 1 <= len(names) <= 2 or "blockify_kernel" not in \
+                names[0]:
+            fail(f"blockify must launch blockify_kernel (and at most its "
+                 f"reduction) and read nothing to the host: {names}, "
+                 f"{reads} reads")
+
+    blockify_row("BL", X, "the 10K path's set-up")
+
     # K1 on the full 782-block problem (4.0 GB blocked copy), Gram off:
     # the fallback active pass over the planted support's blocks
     full = block_cd.build_blocked("ls", opts, torch.ones(p, device=dev), X=X,
@@ -1081,6 +1127,7 @@ def main():
     n1, p1 = X1.shape
     opts1 = tcd.CDOptions(opt_tol=pbench.OPT_TOL, randomize=False)
     sol1 = tcd.lasso(X1, y1, lam1, options=opts1)
+    blockify_row("BL_p1m", X1, "the p = 1M set-up: one row chunk")
     full1 = block_cd.build_blocked("ls", opts1, torch.ones(p1, device=dev),
                                    X=X1, y=y1)
     nb1 = full1.lamw.shape[0]
@@ -1210,7 +1257,7 @@ def main():
         f"over {reads['epochs']} epochs "
         f"({reads['host_reads'] / max(reads['epochs'], 1):.2f} per epoch)")
     require_launches("scan", launches, ("K1", "K2", "K3", "K4", "K5",
-                                        "K3_ws", "K4_ws"))
+                                        "K3_ws", "K4_ws", "BL"))
     add(launches)
     ws_launches = {k: launches[k] for k in ("K3_ws", "K4_ws")}
     if tuple(path.beta_path.shape) != (L, p):
@@ -1373,7 +1420,7 @@ def main():
     reset_counts()
     sol_t, t_single = wall(lambda: tcd.lasso(X, y, lam_t))
     launches_s, reads_s = counts(), dict(host.COUNTS)
-    require_launches("lasso", launches_s, ("K1", "K3", "K4", "K5"))
+    require_launches("lasso", launches_s, ("K1", "K3", "K4", "K5", "BL"))
     add(launches_s)
     reset_counts()
     res, t_polish = wall(lambda: tcd.polish_lasso(X, y, sol_t.x, lam_t))
@@ -2078,8 +2125,9 @@ def main():
                                                 options=gp.opts))
         t_h = min(t_h, t)
     launches_h, reads_h = counts(), dict(host.COUNTS)
-    require_launches("group_lasso", launches_h, ("K5", "GP"),
-                     never=[k for k in launches_h if k not in ("K5", "GP")])
+    require_launches("group_lasso", launches_h, ("K5", "GP", "BL"),
+                     never=[k for k in launches_h
+                            if k not in ("K5", "GP", "BL")])
     add(launches_h)
     finite("group_lasso", sol_h.x, Xg.shape[1])
     # one GP launch an active pass: the engine's passes counted apart
@@ -2180,7 +2228,8 @@ def main():
         Xg, yg, lam_h, Gg, options=gp.opts))
     launches_gt = counts()
     require_launches("group_solve_with_trace", launches_gt, ("K5", "GP"),
-                     never=[k for k in launches_gt if k not in ("K5", "GP")])
+                     never=[k for k in launches_gt
+                            if k not in ("K5", "GP", "BL")])
     add(launches_gt)
     grp_t = torch.nonzero(torch.any(b_gt.reshape(-1, Gg) != 0,
                                     dim=1)).flatten()
@@ -2200,7 +2249,8 @@ def main():
         Xg, yg, lam_h, Gg, pdist.feature_mesh(), options=gp.opts))
     launches_gl = counts()
     require_launches("group_lasso_sharded", launches_gl, ("K5", "GP"),
-                     never=[k for k in launches_gl if k not in ("K5", "GP")])
+                     never=[k for k in launches_gl
+                            if k not in ("K5", "GP", "BL")])
     add(launches_gl)
     grp_l = torch.nonzero(torch.any(sol_gl.x.reshape(-1, Gg) != 0,
                                     dim=1)).flatten()
@@ -2605,12 +2655,21 @@ def main():
                    "coordinatedescent_jl_tpu/ops/pallas_check.py:108"),
         "K4_p1m": ("check_phase_b (7,813 rows: p = 1M)", "check.cu",
                    "coordinatedescent_jl_tpu/ops/pallas_check.py:149"),
+        "BL": ("blockify (the design's padded blocked copy and column sums "
+               "of squares; launches: every ls / sqrt / unweighted group "
+               "build)", "blockify.cu",
+               "none: the JAX package's set-up is jnp.pad + reshape/"
+               "transpose + jnp.sum under XLA"),
+        "BL_p1m": ("blockify (1,000 x 1,000,000; launches: 4m's builds)",
+                   "blockify.cu",
+                   "none: the JAX package's set-up is jnp.pad + reshape/"
+                   "transpose + jnp.sum under XLA"),
     }
     log(f"launches over the main-path runs: {total}; the 4j scan's: "
         f"{vc_launches}; the one-CTA route's in the 4a scan: {ws_launches}; "
         f"4m's at the p = 1M shapes: {p1m_launches}")
     launched = {**total, **vc_launches, **ws_launches, **p1m_launches,
-                "LDf64": ld_f64_launches}
+                "LDf64": ld_f64_launches, "BL_p1m": m_launches["BL"]}
     kernels = [{"name": meta[k][0], "route": "cuda", "source": src + meta[k][1],
                 "replaces": meta[k][2], "launches": launched[k], **rec[k]}
                for k in meta]

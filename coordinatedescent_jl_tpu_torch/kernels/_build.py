@@ -40,6 +40,7 @@ EXTRA_FLAGS = {"check.cu": ["-fmad=false"]}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # argument types of every C entry point (pointers and the stream as
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
@@ -86,6 +87,8 @@ _SIGNATURES = {
     # mom, scratch|0, B_out, R, mx, cert_out, best_out, stall_out, esc_out,
     # k, n, p, q1, iters, route, patience, smem, tol, tol4, stream
     "cdt_vc_round": [_P] * 23 + [_I] * 8 + [_D, _D, _P],
+    # X, ld, cs, Xb, part|0, out, n, p, B, R, vec, norm, stream
+    "cdt_blockify": [_P, _L, _L, _P, _P, _P] + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -190,17 +190,21 @@ def build_blocked(kind: str, opts: CDOptions, lamw_full, *, X=None, y=None,
     else:
         P0 = X.shape[1]
         dtype = X.dtype
-        Xp = _pad_to_blocks(X, B)
-        Xb = _blockify_cols(Xp, B)
-        nb = Xb.shape[0]
         if kind == "wls":
+            Xp = _pad_to_blocks(X, B)
+            Xb = _blockify_cols(Xp, B)
             Xwb = _blockify_cols(_weighted_rows(Xp, w), B)
             adiag = torch.sum(Xwb * Xb, dim=1)             # Σ w X²
             xwnorm = torch.sqrt(torch.sum(Xwb * Xwb, dim=1))   # ‖w·X_j‖
         else:
+            # the padded blocks and the X'X diagonal in one pass
+            # (kernels/blockify.py; its plain twin unless the kernels are on)
+            from ..kernels.blockify import blockify, blockify_plain
+            Xb, adiag = (blockify if opts.use_pallas is not False
+                         else blockify_plain)(X, B)
             Xwb = Xb
-            adiag = torch.sum(Xb * Xb, dim=1)              # X'X diagonal
             xwnorm = torch.sqrt(torch.clamp_min(adiag, 0.0))
+        nb = Xb.shape[0]
         yv, qp = y, None
     dev = Xb.device
     lamw_b = _pad_to_blocks(torch.as_tensor(lamw_full, device=dev).to(dtype),

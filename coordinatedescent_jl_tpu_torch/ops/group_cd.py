@@ -48,6 +48,7 @@ from .block_cd import (_blockify_cols, _block_grams, _blocks_matvec, _eps,
 from .losses import LeastSquaresLoss, SqrtLassoLoss, WeightedLSLoss
 from .prox import ProxL1Group, fista_momentum, group_soft_threshold
 from ..kernels import group_pass
+from ..kernels.blockify import blockify, blockify_plain
 from ..utils import host
 from ..utils.helpers import on_device, sample_std, target_device
 from ..utils.options import CDOptions, use_kernels
@@ -90,19 +91,29 @@ def _block_width(G: int) -> int:
 
 
 @host.spanned("group.build")
-def _build_group_problem(X, y, lamw_g, G: int, w=None) -> GroupProblem:
+def _build_group_problem(X, y, lamw_g, G: int, w=None,
+                         kernels: bool = True) -> GroupProblem:
     """Blocks of whole groups, zero-padded to ``nb·B`` columns (a ragged
     tail group and whole padded groups alike); padded groups take penalty
-    weight 1.  The Grams come from one batched product."""
+    weight 1.  The Grams come from one batched product.  Without row
+    weights the blocks and their column norms are one pass
+    (``kernels/blockify.py``: the kernel on CUDA tensors when ``kernels``,
+    else its plain twin)."""
     n, p = X.shape
     B = _block_width(G)
     k = B // G
     ng = -(-p // G)
-    Xp = _pad_to_blocks(X, B)
-    Xb = _blockify_cols(Xp, B)
+    if w is None:
+        Xb, xwnorm = (blockify if kernels else blockify_plain)(X, B,
+                                                               norm=True)
+        Xwb = Xb
+    else:
+        Xp = _pad_to_blocks(X, B)
+        Xb = _blockify_cols(Xp, B)
+        Xwb = _blockify_cols(_weighted_rows(Xp, w), B)
+        del Xp
+        xwnorm = torch.linalg.vector_norm(Xwb, dim=1)
     nb = Xb.shape[0]
-    Xwb = Xb if w is None else _blockify_cols(_weighted_rows(Xp, w), B)
-    del Xp
     valid = (torch.arange(nb * B, device=X.device) < p).reshape(nb, B)
     Kb = _block_grams(Xwb, Xb)
     # Gershgorin row-sum bound ≥ λmax(K_b): an always-safe step for the
@@ -110,7 +121,6 @@ def _build_group_problem(X, y, lamw_g, G: int, w=None) -> GroupProblem:
     Lb = torch.amax(torch.sum(torch.abs(Kb), dim=2), dim=1)
     lamw_b = torch.nn.functional.pad(lamw_g, (0, nb * k - ng),
                                      value=1.0).reshape(nb, k)
-    xwnorm = torch.linalg.vector_norm(Xwb, dim=1)
     return GroupProblem(Xb=Xb, Xwb=Xwb, Kb=Kb, y=y, Lb=Lb, lamw=lamw_b,
                         valid=valid, xwnorm=xwnorm)
 
@@ -292,7 +302,7 @@ def _group_cd_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
     n, p = X.shape
     dtype = X.dtype
     kernels = use_kernels(opts, X)
-    prob = _build_group_problem(X, y, lamw_g, G, w)
+    prob = _build_group_problem(X, y, lamw_g, G, w, kernels)
     nb, B = prob.valid.shape
     coefs = fista_momentum(opts.block_iters, dtype)
     n_scale = float(n)
@@ -327,7 +337,7 @@ def _group_sqrt_core(X, y, lam0: float, lamw_g, beta0, key, G: int,
     first.  Returns ``(beta (p,), r)``."""
     p = X.shape[1]
     kernels = use_kernels(opts, X)
-    prob = _build_group_problem(X, y, lamw_g, G, None)
+    prob = _build_group_problem(X, y, lamw_g, G, None, kernels)
     B = prob.valid.shape[1]
     coefs = fista_momentum(opts.block_iters, X.dtype)
     tol = float(_np_dtype(X.dtype).type(opts.opt_tol))

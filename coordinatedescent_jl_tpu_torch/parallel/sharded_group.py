@@ -168,7 +168,7 @@ def group_coordinate_descent_sharded(beta0, loss, penalty: ProxL1Group,
     n_scale = float(n)
     with full_f32_matmuls():
         prob = _build_group_problem(Xl, y, _own_vec(lamw_g, sh, ng_shard,
-                                                    1.0), G, w)
+                                                    1.0), G, w, kernels)
         del Xl
         nb = prob.valid.shape[0]
         beta_g = _own_vec(beta0, sh, chunk, 0.0).reshape(nb, B)

@@ -165,8 +165,8 @@ def group_bench_problem(dev, n: int = 10_000, p: int = 100_000, G: int = 8,
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counter, by the names ``chip_smoke.py``
     reports them under."""
-    from .kernels import (active_pass, check, group_pass, union_fista,
-                          vc_round)
+    from .kernels import (active_pass, blockify, check, group_pass,
+                          union_fista, vc_round)
     from .kernels import gradient_sweep as gs
 
     k1 = active_pass.LAUNCHES_KIND
@@ -176,12 +176,12 @@ def launch_counts() -> dict:
             "K5": gs.LAUNCHES_DENSE, "K5f64": gs.LAUNCHES_F64,
             "LD": gs.LAUNCHES_LOADINGS,
             "union_fista": union_fista.LAUNCHES, "GP": group_pass.LAUNCHES,
-            "vc_round": vc_round.LAUNCHES}
+            "vc_round": vc_round.LAUNCHES, "BL": blockify.LAUNCHES}
 
 
 def reset_launch_counts():
-    from .kernels import (active_pass, check, group_pass, union_fista,
-                          vc_round)
+    from .kernels import (active_pass, blockify, check, group_pass,
+                          union_fista, vc_round)
     from .kernels import gradient_sweep as gs
 
     for by_dtype in active_pass.LAUNCHES_KIND.values():
@@ -190,6 +190,7 @@ def reset_launch_counts():
     gs.LAUNCHES_LOADINGS = 0
     check.LAUNCHES_A = check.LAUNCHES_B = 0
     union_fista.LAUNCHES = group_pass.LAUNCHES = vc_round.LAUNCHES = 0
+    blockify.LAUNCHES = 0
     for by_shape in (active_pass.LAUNCHES_SHAPE, check.LAUNCHES_SHAPE,
                      gs.LAUNCHES_DENSE_SHAPE):
         by_shape.clear()

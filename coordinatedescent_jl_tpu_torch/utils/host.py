@@ -69,8 +69,9 @@ Marks are ranges around one launch or one copy that carry its shape, as
   penalty loadings over the design (``get_loadings_blocked``,
   ``loadings_f64``), ``acc`` the item size it accumulates in;
 - ``cdt#design_copy bytes=``: one copy of a design that a problem's
-  set-up makes (a padding, a blockify, the weighted ``X·w``), with the
-  bytes it writes;
+  set-up makes (a padding, a blockify, the weighted ``X·w``; on the card
+  the ls, sqrt and unweighted group set-up is one launch of
+  ``kernels/blockify.py``, one mark), with the bytes it writes;
 - ``cdt#k1 n= B= iters= gram= x_item= sqrt=``: one launch of the fused
   active pass (``kernels/active_pass.py``), ``sqrt`` 1 for the sqrt kind
   and 0 for ls and wls; the blocks it visits are counted later, under

@@ -10,6 +10,8 @@ does not need).  Shapes are small, with a ragged row tail, so every kernel
 path runs: both inners, Gram on and off, float32 and float64.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -1040,6 +1042,156 @@ def test_loadings_callers_launch_only_the_kernel(dev, monkeypatch):
     assert gradient_sweep.LAUNCHES_LOADINGS - n0 == len(calls) >= 3
 
 
+# ---- BL, the design's set-up copy (kernels/blockify.py): (n, p, B, columns
+# of a wider matrix or None).  Ragged p pads the last block; whole blocks;
+# one block padded, and one whole (the twin's is a view of X); p % 4 != 0
+# and B % 4 != 0 take the scalar path; column slices whose row stride is
+# not their width, 16-byte aligned and not; n = 5,003 leaves a ragged row
+# chunk
+_BL_CASES = {
+    "ragged": (1000, 700, 128, None),
+    "whole_blocks": (1000, 768, 128, None),
+    "one_block_padded": (500, 100, 128, None),
+    "one_block": (500, 128, 128, None),
+    "scalar_p": (1000, 701, 128, None),
+    "scalar_B": (300, 600, 125, None),
+    "slice": (1000, 700, 128, (64, 900)),
+    "slice_unaligned": (1000, 700, 128, (3, 900)),
+    "ragged_rows": (5003, 300, 128, None),
+}
+
+
+def _bl_design(dev, dtype, n, p, cols, seed=11):
+    rng = np.random.default_rng(seed)
+    if cols is None:
+        return torch.as_tensor(rng.standard_normal((n, p)), dtype=dtype,
+                               device=dev)
+    c0, width = cols
+    wide = torch.as_tensor(rng.standard_normal((n, width)), dtype=dtype,
+                           device=dev)
+    return wide[:, c0:c0 + p]
+
+
+def _ulps(a, b):
+    """|a - b| in units of b's last place."""
+    up = torch.nextafter(b, torch.full_like(b, float("inf")))
+    return float(((a.double() - b.double()).abs()
+                  / (up.double() - b.double())).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(_BL_CASES))
+def test_blockify_kernel_matches_twin(dev, case, dtype):
+    """BL against its plain twin: ``Xb`` bit for bit, a new tensor, the
+    padded columns exactly +0; the sums
+    of squares within one ulp of the float64 sum rounded to float32 (in
+    float64 within 2·n·eps of the twin's float64 sum), the norms within
+    one ulp of its square root; two launches the same bits; one launch
+    counted a call."""
+    from coordinatedescent_jl_tpu_torch.kernels import blockify
+
+    n, p, B, cols = _BL_CASES[case]
+    X = _bl_design(dev, dtype, n, p, cols)
+    assert (cols is None) == X.is_contiguous()
+    V = 16 // X.element_size()
+    vec = B % V == 0 and p % V == 0 and X.stride(0) % V == 0 and \
+        X.data_ptr() % 16 == 0
+    R = blockify.plan_rows(-(-p // B), n, B // V if vec else B,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    if case == "ragged_rows":
+        assert n % R != 0 and -(-n // R) > 1
+    n0 = blockify.LAUNCHES
+    Xb, s = blockify.blockify(X, B)
+    Xb2, s2 = blockify.blockify(X, B)
+    _, nrm = blockify.blockify(X, B, norm=True)
+    torch.cuda.synchronize()
+    assert blockify.LAUNCHES == n0 + 3
+    Xp, sp = blockify.blockify_plain(X, B)
+    assert torch.equal(Xb, Xp) and torch.equal(Xb, Xb2)
+    assert torch.equal(s, s2)
+    nb = -(-p // B)
+    assert Xb.shape == (nb, n, B) and Xb.is_contiguous()
+    assert s.shape == nrm.shape == (nb, B) and s.dtype == nrm.dtype == dtype
+    assert Xb.data_ptr() not in (X.data_ptr(), Xb2.data_ptr())
+    flat = Xb.permute(1, 0, 2).reshape(n, nb * B)
+    ibits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert not flat[:, p:].contiguous().view(ibits).any()
+    assert not s.reshape(-1)[p:].any() and not nrm.reshape(-1)[p:].any()
+    ref = torch.sum(Xp.double() * Xp.double(), dim=1).reshape(-1)[:p]
+    got, gotn = s.reshape(-1)[:p], nrm.reshape(-1)[:p]
+    if dtype == torch.float32:
+        assert _ulps(got, ref.float()) <= 1.0
+        assert _ulps(gotn, ref.sqrt().float()) <= 1.0
+    else:
+        eps = torch.finfo(torch.float64).eps
+        assert float(((got - ref).abs() / ref).max()) <= 2 * n * eps
+        assert float(((gotn - ref.sqrt()).abs() / ref.sqrt()).max()) \
+            <= 2 * n * eps
+
+
+def test_blockify_kernel_refuses_other_inputs(dev):
+    """On CUDA tensors BL launches or raises: an integer or half design, a
+    block wider than 1,024 columns, an empty design."""
+    from coordinatedescent_jl_tpu_torch.kernels import blockify
+
+    X = torch.randn((40, 300), device=dev)
+    for args in ((X.to(torch.int32), 128), (X.half(), 128), (X, 1025),
+                 (X, 0), (X[:0], 128), (X[:, :0], 128)):
+        with pytest.raises(ValueError):
+            blockify.blockify(*args)
+
+
+@pytest.mark.parametrize("case", ["ls", "sqrt", "group", "one_block",
+                                  "wls"])
+def test_builds_make_one_design_copy_on_the_card(dev, case, monkeypatch):
+    """On the card ``build_blocked("ls" | "sqrt")`` and the unweighted group
+    build launch BL once and leave one ``cdt#design_copy`` mark of
+    nb·n·B·x_item bytes, never the plain twin, also for one whole block
+    (the twin's view); ``wls`` keeps its padding, blockify and weighted
+    copies (four marks) and launches no BL."""
+    from coordinatedescent_jl_tpu_torch.kernels import blockify
+    from coordinatedescent_jl_tpu_torch.ops import group_cd
+    from coordinatedescent_jl_tpu_torch.utils import host
+
+    names = []
+
+    @contextlib.contextmanager
+    def record(name):
+        names.append(name)
+        yield
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain twin ran on the card")
+
+    p = 32 if case == "one_block" else 250
+    X = torch.randn((40, p), device=dev)
+    y = torch.randn(40, device=dev)
+    w = torch.rand(40, device=dev) + 0.5
+    opts = CDOptions(block_size=32)
+    if case != "wls":
+        monkeypatch.setattr(blockify, "blockify_plain", refuse)
+        monkeypatch.setattr(group_cd, "blockify_plain", refuse)
+    monkeypatch.setattr(host, "profiling", lambda: True)
+    monkeypatch.setattr(host, "_range", record)
+    n0 = blockify.LAUNCHES
+    if case == "group":
+        prob = group_cd._build_group_problem(X, y, torch.ones(-(-p // 8),
+                                                              device=dev), 8)
+    else:
+        kind = {"one_block": "ls"}.get(case, case)
+        prob = block_cd.build_blocked(kind, opts, torch.ones(p, device=dev),
+                                      X=X, y=y,
+                                      w=w if kind == "wls" else None)
+    marks = [int(m.split("=")[1]) for m in names
+             if m.startswith(host.MARK_PREFIX + "design_copy ")]
+    nbytes = prob.Xb.numel() * prob.Xb.element_size()
+    padded = 40 * prob.Xb.shape[0] * prob.Xb.shape[2] * 4
+    want = [padded, nbytes, padded, nbytes] if case == "wls" else [nbytes]
+    assert marks == want
+    assert blockify.LAUNCHES - n0 == (0 if case == "wls" else 1)
+
+
 def _path_problem(dev, n=400, p=3000, s=12, seed=5):
     rng = np.random.default_rng(seed)
     X = torch.as_tensor(rng.standard_normal((n, p)), dtype=torch.float32,
@@ -1389,9 +1541,9 @@ def test_group_engine_kernels_match_plain(dev, G):
     """The group engine on the card: its full sweeps launch K5 at block
     width B = 125, 128 and 130 (K5 held against its twin at that width
     too), its active passes the group pass kernel GP where B <= 128 (G = 5
-    and 8; at G = 130 the plain twin), never K1-K4; the plain run
-    (``use_pallas=False``) launches nothing and reaches the same group
-    support; p = 3127 leaves a ragged tail group."""
+    and 8; at G = 130 the plain twin), its set-up BL, never K1-K4; the
+    plain run (``use_pallas=False``) launches nothing and reaches the same
+    group support; p = 3127 leaves a ragged tail group."""
     from coordinatedescent_jl_tpu_torch import group_lasso
     from coordinatedescent_jl_tpu_torch.ops import group_cd
 
@@ -1414,7 +1566,7 @@ def test_group_engine_kernels_match_plain(dev, G):
     sol_p = group_lasso(X, y, lam, G, options=opts.replace(use_pallas=False))
     after = _launches()
     ran = {k: mid[k] - before[k] for k in mid}
-    launched = ("K5", "GP") if B <= 128 else ("K5",)
+    launched = ("K5", "GP", "BL") if B <= 128 else ("K5", "BL")
     assert all(ran[k] > 0 for k in launched), ran
     assert all(v == 0 for k, v in ran.items() if k not in launched), ran
     assert after == mid

@@ -6,7 +6,9 @@ its grid and shared memory; ``kernels/gradient_sweep.py::plan_dense_sweep``
 lays out K5's items, decides when it splits the rows and when a tile's
 slices are one cluster;
 ``kernels/check.py::plan_check`` sizes K3/K4's cooperative grid and
-picks their route (one plain CTA at nb <= 8).  All are
+picks their route (one plain CTA at nb <= 8);
+``kernels/blockify.py::plan_rows`` cuts the set-up copy's rows into
+chunks.  All are
 pure Python, so they are held here against hand-worked cases for an H100
 (132 SMs, 232,448 bytes of shared memory a CTA may opt in to).
 """
@@ -17,7 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from coordinatedescent_jl_tpu_torch.kernels import (  # noqa: E402
-    active_pass, check, gradient_sweep)
+    active_pass, blockify, check, gradient_sweep)
 
 SMS = 132
 OPTIN = 232_448
@@ -242,3 +244,21 @@ def test_cluster_plans_on_a_card_of_8_cta_clusters():
     for args in ((1, 500, 128, SMS, True), (1, 500, 128, SMS, False),
                  (8, 10_000, 128, SMS, True)):
         assert sweep(*args, 16) == sweep(*args)
+
+
+@pytest.mark.parametrize("nb, n, lanes, R, chunks", [
+    (782, 10_000, 32, 228, 44),     # 10K x 100K f32: 98 CTAs of 8 blocks
+    (782, 10_000, 64, 455, 22),     # the same in f64: 196 CTAs of 4
+    (7813, 1_000, 32, 200, 5),      # 1,000 x 1M f32: 977 CTAs of 8
+    (1, 500, 32, 72, 7),            # one block: chunks of 64 rows or more
+    (6, 1_000, 128, 67, 15),        # scalar f32 (p % 4 != 0): 2 blocks a CTA
+    (2, 40, 32, 40, 1),             # under 2 x 64 rows: one chunk
+])
+def test_blockify_row_chunks(nb, n, lanes, R, chunks):
+    """The set-up copy's row chunks on the H100 (132 SMs): enough chunks
+    for 4 waves of 8 CTAs an SM, a CTA copying 256 / lanes adjacent
+    blocks, at least 64 rows a chunk; every row in one chunk and no chunk
+    empty."""
+    got = blockify.plan_rows(nb, n, lanes, SMS)
+    assert (got, -(-n // got)) == (R, chunks)
+    assert (chunks - 1) * got < n <= chunks * got
